@@ -1,0 +1,278 @@
+"""Training-configuration tile blend: kernels K1 (forward) and K2 (backward).
+
+The counterpart of ``curve_gaussian_tpu/ops/rasterize_pallas.py::blend_train``
+for ones colour with no inverse-depth or allmap channel, the configuration
+every training step renders.
+
+K1 ``blend_train_fwd`` replaces ``_make_fwd_train_paired`` (and its unpaired
+odd-width form ``_make_fwd_kernel(False, False, True)``).  Per 32x32 tile it
+composites the tile's depth-ordered instances front to back:
+power = -0.5 (a dx^2 + c dy^2) - b dx dy, alpha = min(0.99, opa e^power),
+an instance counts only where power <= 0 and alpha >= 1/255, and the first
+one with T (1 - alpha) < 1e-4 ends the pixel without contributing.  With
+ones colour the colour is 1 - T (1 - bg).
+
+K2 ``blend_train_bwd`` replaces ``_make_bwd_moment_rmw_paired`` (and the
+unpaired ``_make_bwd_moment_rmw_kernel``).  One front-to-back pass carries
+T and the prefix pr += gc w, so that
+g_alpha = gc T_i + (base_inv + pr) / (1 - alpha), base_inv = -gtt finT - gc col,
+and reduces the six moments of D' = g_alpha G (D', D'dx, D'dy, D'dx^2,
+D'dx dy, D'dy^2) over each tile's pixels into a [P1, 8] accumulator;
+``moments_to_dfields`` maps them linearly to d(mx, my, ca, cb, cc, opa).
+The derivative of alpha ignores the 0.99 clamp (d alpha / d opa = G), as
+the JAX kernels and the original CUDA rasterizer do, so the backward is the
+hand-derived moment formula and never autograd through the clamp.
+
+What bounds the kernels on an H100: per-pixel serial chains of about twenty
+float operations and one ``expf`` per (instance, pixel), so instruction throughput,
+not memory (a tile's fields are a few KB).  See ``csrc/blend_train.cu`` for what
+the design does about it.  K2 reduces with ``atomicAdd``, so the order of
+the float32 sums, and the last bits of the gradients, vary from run to run.
+
+Every wrapper takes the plain PyTorch version for CPU tensors only; for a
+CUDA tensor it launches the kernel or raises.  The TPU layout of the JAX
+kernels (tile pairing, (8,128) register tiles, tiled outputs) is not
+copied: the outputs are spatial [H, W] images.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from .. import _build
+from .binning import tile_grid
+from .projection import Preprocessed
+from .rasterize_ref import ALPHA_EPS, ALPHA_MAX, T_EPS, TILE_H, TILE_W
+
+NF = 8  # field row: mx, my, ca, cb, cc, opa, 0, 0
+TILE_PIX = TILE_H * TILE_W
+
+_VP = ctypes.c_void_p
+_I = ctypes.c_int
+
+
+def stack_fields(pre: Preprocessed) -> torch.Tensor:
+    """[P1, 8] per-Gaussian field rows (mx, my, ca, cb, cc, opa, 0, 0).
+
+    Rows P..P1-1 are zeros, P1 = P + 1 rounded up to 8: the binning writes
+    the sentinel index P into empty slots, and a zero row blends alpha 0."""
+    z = torch.zeros_like(pre.opacity)
+    cols = [pre.mean2d[:, 0], pre.mean2d[:, 1], pre.conic[:, 0], pre.conic[:, 1],
+            pre.conic[:, 2], pre.opacity, z, z]
+    fields = torch.stack(cols, dim=-1)
+    P = fields.shape[0]
+    pad = -(-(P + 1) // 8) * 8 - P
+    return torch.cat([fields, fields.new_zeros((pad, NF))], dim=0)
+
+
+def _pixels(nty: int, ntx: int, dtype, device):
+    """Pixel coordinates [T, 1024] of every tile in row-major pixel order."""
+    t = torch.arange(nty * ntx, device=device)
+    p = torch.arange(TILE_PIX, device=device)
+    px = (t % ntx)[:, None] * TILE_W + (p % TILE_W)[None, :]
+    py = (t // ntx)[:, None] * TILE_H + (p // TILE_W)[None, :]
+    return px.to(dtype), py.to(dtype)
+
+
+def _to_tiles(img: torch.Tensor, nty: int, ntx: int) -> torch.Tensor:
+    """[H, W] -> [T, 1024], zero-padded to whole tiles."""
+    H, W = img.shape
+    pad = img.new_zeros((nty * TILE_H, ntx * TILE_W))
+    pad[:H, :W] = img
+    return pad.reshape(nty, TILE_H, ntx, TILE_W).permute(0, 2, 1, 3).reshape(-1, TILE_PIX)
+
+
+def _from_tiles(x: torch.Tensor, nty: int, ntx: int, H: int, W: int) -> torch.Tensor:
+    img = x.reshape(nty, ntx, TILE_H, TILE_W).permute(0, 2, 1, 3)
+    return img.reshape(nty * TILE_H, ntx * TILE_W)[:H, :W].contiguous()
+
+
+def _composite_step(f, px, py, T, act):
+    """One instance slot of the front-to-back pass over all tiles at once.
+
+    f: [T, 8] fields of slot j of every tile.  Returns the instance's
+    Gaussian G, gated alpha, offsets, whether it contributed, the new
+    transmittance and liveness."""
+    mx, my, ca, cb, cc, opa = (f[:, i : i + 1] for i in range(6))
+    dx = mx - px
+    dy = my - py
+    power = -0.5 * (ca * dx * dx + cc * dy * dy) - cb * dx * dy
+    G = torch.exp(power)
+    alpha = torch.clamp_max(opa * G, ALPHA_MAX)
+    cand = (power <= 0.0) & (alpha >= ALPHA_EPS)
+    ag = torch.where(cand, alpha, torch.zeros_like(alpha))
+    rem = T - ag * T
+    live = rem >= T_EPS
+    contrib = act & cand & live
+    act = act & (live | ~cand)
+    return G, ag, dx, dy, contrib, torch.where(contrib, rem, T), act
+
+
+def blend_train_fwd_plain(fields, gidx, counts, bg, H: int, W: int):
+    """Plain PyTorch K1: (col, finT), each [H, W]."""
+    nty, ntx = tile_grid(H, W)
+    px, py = _pixels(nty, ntx, fields.dtype, fields.device)
+    pay = fields[gidx.long()]  # [T, K, 8]
+    T = torch.ones_like(px)
+    act = torch.ones(px.shape, dtype=torch.bool, device=px.device)
+    for j in range(int(counts.max()) if counts.numel() else 0):
+        _, _, _, _, _, T, act = _composite_step(pay[:, j], px, py, T, act)
+    col = 1.0 - T * (1.0 - bg.reshape(()))
+    return _from_tiles(col, nty, ntx, H, W), _from_tiles(T, nty, ntx, H, W)
+
+
+def blend_train_bwd_plain(fields, gidx, counts, col, finT, gc, gtt):
+    """Plain PyTorch K2: the [P1, 8] moment accumulator (columns 0-5)."""
+    H, W = col.shape
+    nty, ntx = tile_grid(H, W)
+    px, py = _pixels(nty, ntx, fields.dtype, fields.device)
+    gidx = gidx.long()
+    pay = fields[gidx]
+    gc_t = _to_tiles(gc, nty, ntx)
+    binv = -_to_tiles(gtt, nty, ntx) * _to_tiles(finT, nty, ntx) - gc_t * _to_tiles(col, nty, ntx)
+    T = torch.ones_like(px)
+    act = torch.ones(px.shape, dtype=torch.bool, device=px.device)
+    pr = torch.zeros_like(px)
+    acc = torch.zeros_like(fields)
+    zero = torch.zeros_like(px)
+    for j in range(int(counts.max()) if counts.numel() else 0):
+        Ti = T
+        G, ag, dx, dy, contrib, T, act = _composite_step(pay[:, j], px, py, T, act)
+        pr = pr + gc_t * torch.where(contrib, ag * Ti, zero)
+        gal = gc_t * Ti + (1.0 / (1.0 - ag)) * (binv + pr)
+        Dp = torch.where(contrib, gal, zero) * G
+        e1 = Dp * dx
+        e2 = Dp * dy
+        mom = torch.stack(
+            [Dp, e1, e2, e1 * dx, e1 * dy, e2 * dy, zero, zero], dim=-1
+        ).sum(dim=1)  # [T, 8]
+        acc.index_add_(0, gidx[:, j], mom)
+    return acc
+
+
+def moments_to_dfields(M: torch.Tensor, fields: torch.Tensor) -> torch.Tensor:
+    """Per-Gaussian moment rows [P1, 8] -> field gradients [P1, 8]."""
+    ca, cb, cc, opa = fields[:, 2], fields[:, 3], fields[:, 4], fields[:, 5]
+    M0, M1, M2, M3, M4, M5 = (M[:, i] for i in range(6))
+    z = torch.zeros_like(M0)
+    return torch.stack(
+        [
+            -opa * (ca * M1 + cb * M2),
+            -opa * (cc * M2 + cb * M1),
+            -0.5 * opa * M3,
+            -opa * M4,
+            -0.5 * opa * M5,
+            M0,
+            z,
+            z,
+        ],
+        dim=-1,
+    )
+
+
+def _lib():
+    lib = _build.load("blend_train")
+    if not getattr(lib, "_typed", False):
+        lib.blend_train_fwd.argtypes = [_VP] * 6 + [_I] * 5 + [_VP]
+        lib.blend_train_fwd.restype = _I
+        lib.blend_train_bwd.argtypes = [_VP] * 8 + [_I] * 5 + [_VP]
+        lib.blend_train_bwd.restype = _I
+        lib._typed = True
+    return lib
+
+
+def _check_tables(fields, gidx, counts, H: int, W: int):
+    dev = fields.device
+    if fields.dtype != torch.float32 or fields.dim() != 2 or fields.shape[1] != NF:
+        raise ValueError(f"fields must be float32 [P1, {NF}], got {fields.dtype} {tuple(fields.shape)}")
+    nty, ntx = tile_grid(H, W)
+    if gidx.dtype != torch.int32 or gidx.dim() != 2 or gidx.shape[0] != nty * ntx:
+        raise ValueError(f"gather_idx must be int32 [{nty * ntx}, K], got {gidx.dtype} {tuple(gidx.shape)}")
+    if counts.dtype != torch.int32 or counts.shape != (nty * ntx,):
+        raise ValueError(f"counts must be int32 [{nty * ntx}], got {counts.dtype} {tuple(counts.shape)}")
+    for name, t in (("fields", fields), ("gather_idx", gidx), ("counts", counts)):
+        if t.device != dev or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous tensor on {dev}")
+    return nty, ntx
+
+
+def _check_image(name, t, H, W, dev):
+    if t.dtype != torch.float32 or t.shape != (H, W) or t.device != dev or not t.is_contiguous():
+        raise ValueError(f"{name} must be a contiguous float32 [{H}, {W}] tensor on {dev}")
+
+
+def blend_train_fwd(fields, gidx, counts, bg, H: int, W: int):
+    """K1: (col, finT) [H, W].  fields [P1, 8] float32, gidx [T, K] int32
+    with sentinel P in empty slots, counts [T] int32, bg [1]."""
+    if not fields.is_cuda:
+        return blend_train_fwd_plain(fields, gidx, counts, bg, H, W)
+    nty, ntx = _check_tables(fields, gidx, counts, H, W)
+    if bg.dtype != torch.float32 or bg.numel() != 1 or bg.device != fields.device:
+        raise ValueError("bg must be a float32 tensor of one element on the fields' device")
+    bg = bg.contiguous()
+    col = torch.empty((H, W), dtype=torch.float32, device=fields.device)
+    finT = torch.empty_like(col)
+    lib = _lib()
+    code = lib.blend_train_fwd(
+        fields.data_ptr(), gidx.data_ptr(), counts.data_ptr(), bg.data_ptr(),
+        col.data_ptr(), finT.data_ptr(), H, W, nty, ntx, gidx.shape[1],
+        torch.cuda.current_stream(fields.device).cuda_stream,
+    )
+    _build.check(lib, code, "blend_train_fwd")
+    blend_train_fwd.launches += 1
+    return col, finT
+
+
+def blend_train_bwd(fields, gidx, counts, col, finT, gc, gtt):
+    """K2: moment accumulator [P1, 8] from the forward's col/finT and the
+    cotangents gc (colour) and gtt (final T), all [H, W]."""
+    if not fields.is_cuda:
+        return blend_train_bwd_plain(fields, gidx, counts, col, finT, gc, gtt)
+    H, W = col.shape
+    _check_tables(fields, gidx, counts, H, W)
+    for name, t in (("col", col), ("finT", finT), ("gc", gc), ("gtt", gtt)):
+        _check_image(name, t, H, W, fields.device)
+    acc = torch.zeros_like(fields)  # the kernel adds into it
+    lib = _lib()
+    nty, ntx = tile_grid(H, W)
+    code = lib.blend_train_bwd(
+        fields.data_ptr(), gidx.data_ptr(), counts.data_ptr(), col.data_ptr(),
+        finT.data_ptr(), gc.data_ptr(), gtt.data_ptr(), acc.data_ptr(),
+        H, W, nty, ntx, gidx.shape[1],
+        torch.cuda.current_stream(fields.device).cuda_stream,
+    )
+    _build.check(lib, code, "blend_train_bwd")
+    blend_train_bwd.launches += 1
+    return acc
+
+
+blend_train_fwd.launches = 0
+blend_train_bwd.launches = 0
+
+
+class BlendTrain(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, fields, gather_idx, counts, bg, H: int, W: int):
+        col, finT = blend_train_fwd(fields, gather_idx, counts, bg, H, W)
+        ctx.save_for_backward(fields, gather_idx, counts, col, finT)
+        ctx.bg_shape = bg.shape
+        return col, finT
+
+    @staticmethod
+    def backward(ctx, gc, gtt):
+        fields, gidx, counts, col, finT = ctx.saved_tensors
+        gc = gc.contiguous()
+        acc = blend_train_bwd(fields, gidx, counts, col, finT, gc, gtt.contiguous())
+        dfields = moments_to_dfields(acc, fields)
+        dbg = (gc * finT).sum().reshape(ctx.bg_shape)
+        return dfields, None, None, dbg, None, None
+
+
+def blend_train(fields, gather_idx, counts, bg, H: int, W: int):
+    """Differentiable training blend: (col, finT), each [H, W].
+
+    fields [P1, 8] from ``stack_fields``; gather_idx [T, K] int32 and
+    counts [T] int32 from the binning; bg [1].  Gradients flow to fields
+    (columns 0-5) and bg."""
+    return BlendTrain.apply(fields, gather_idx, counts, bg, H, W)
