@@ -11,7 +11,9 @@
 3. Holds each kernel of the training path against its plain PyTorch
    version on the card, at the shapes the main path gives it, and times
    both (CUDA events, median), beside the least time the card could take
-   (``bound_ms``) and, for SSIM, a cuDNN conv2d SSIM (``library_ms``, never
+   (``bound_ms``; a blend kernel's operations are counted over the
+   (instance, pixel) pairs this run's data makes it visit and those that
+   contribute) and, for SSIM, a cuDNN conv2d SSIM (``library_ms``, never
    called by the port).
 4. Checks one whole training step on the card against the same step on
    the CPU (plain versions) on a small scene.
@@ -21,6 +23,23 @@
    2 steps with the mask and connectivity terms on.  Every kernel's launch
    counter must rise during that run, and the loss and gradients must stay
    finite.
+6. The full-channel render, from the state after those 27 steps:
+   a. K3, K4 and K5 against their plain versions at the shapes the paths
+      below give them: (geo, invd, ones) = (T, T, T) (the eval render),
+      (F, F, T) (the table and indirect flavors, K5 included) and, on a
+      small scene, (T, T, F) (a per-splat colour);
+   b. ``eval_render`` of each of the 4 views (no gradient): finite maps,
+      the render in [0, 1];
+   c. the gradient of sum(render k1 + invdepth k2 + alpha k3 + dir k4) to
+      xyz, scale, quat and opacity: finite and nonzero;
+   d. ``make_scene`` at ``train.py --synthetic``'s defaults (seed 0, 8
+      curves, 3 lines, 24 views at 256x256): edge maps finite, in [0, 1]
+      and not empty;
+   e. ``step_grads`` under ``CGT_BLEND_FLAVOR=table`` (K3 + K4) and
+      ``=indirect`` (K3 + K5) against the default flavor (K1 + K2), then a
+      few timed ``train_step``s of each flavor.
+   Each path's launch counters are set to 0 just before it and read just
+   after; each kernel of the path must have launched.
 
 Any failed check exits non-zero.  The last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -28,6 +47,7 @@ Any failed check exits non-zero.  The last line is
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -44,20 +64,78 @@ from curve_gaussian_tpu_torch.models import curve_state as cs
 from curve_gaussian_tpu_torch.models import losses as L
 from curve_gaussian_tpu_torch.ops import rasterize_cuda as RC
 from curve_gaussian_tpu_torch.ops import ssim_cuda as SC
-from curve_gaussian_tpu_torch.ops.binning import bin_gaussians
+from curve_gaussian_tpu_torch.ops import tile_blend_cuda as TB
+from curve_gaussian_tpu_torch.ops.binning import bin_gaussians, tile_grid
 from curve_gaussian_tpu_torch.ops.projection import preprocess
+from curve_gaussian_tpu_torch.ops.render import main_axis_allmap, render
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM rate, float32 outside
-# the tensor cores
+# the tensor cores (an FMA counts 2), and the special-function unit's exp2,
+# 16 results per clock and SM against the float32 lanes' 128 FMAs (CUDA C++
+# Programming Guide, arithmetic instruction throughput, compute capability 9.0)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOP_PER_S = 67e12
+PEAK_EX2_PER_S = PEAK_F32_FLOP_PER_S / 16
 
-# float operations per (instance, pixel) of the blend kernels and per pixel
-# of the SSIM kernels, counted from the kernels' source
-K1_OPS = 19  # offsets 2, power 9, exp 1, alpha 2, gates 2, transmittance 3
-K2_OPS = 45  # K1's 19, prefix 2, 1/(1-a) 2, g_alpha 4, moments 12, reduction 6
+# Float operations of the blend kernels, counted from their source (a
+# negation is a free operand modifier), charged to the (instance, pixel)
+# pairs of this run's data that run them: every live pair (the pixel is in
+# the image and has not stopped) evaluates the gate; only a contributing
+# pair (it passes the gate and the T test) does the rest.
+EXPF_OPS = 10  # expf's SASS on sm_90a: 4 FFMA (2 each), FADD, FMUL; and a MUFU.EX2
+GATE_OPS = 2 + 9 + EXPF_OPS + 2 + 2  # offsets, power, expf, alpha (mul, min), two gates
+T_OPS = 3  # alpha T, T - alpha T, the T test
+MOMENT_OPS = T_OPS + 2 + 2 + 4 + 12  # prefix, 1/(1-a), g_alpha, 6 products and 6 sums
+# per pixel of the SSIM kernels
 K7_OPS = 239  # products 3, two 11-tap passes over 5 maps 220, SSIM map 16
 K8_OPS = 437  # moments 223, d-maps 30, adjoint blur of 4 maps 176, combine 8
+
+
+def k3_ops(na: int) -> int:
+    """K3's float operations per contributing pair: T_OPS and a product and
+    a sum for each of the na accumulated channels (K1: na = 0)."""
+    return T_OPS + 2 * na
+
+
+def k4_ops(nch: int, ngch: int) -> int:
+    """K4's float operations per contributing pair, nch channels, ngch of
+    them with a field: T_OPS, 1/(1-a) 2, g_alpha's start 2, per channel the
+    prefix 2 and g_alpha 6 (2 fewer for the ones colour, a product by 1), d
+    power 2, the five conic and mean gradients with their sums 21, the
+    opacity's 2 and each channel field's 2."""
+    return T_OPS + 2 + 2 + 8 * nch - 2 * (nch - ngch) + 2 + 21 + 2 + 2 * ngch
+
+
+def pair_counts(fields, gidx, counts, H: int, W: int):
+    """(live, contributing) (instance, pixel) pairs of one blend's inputs,
+    from the plain front-to-back pass."""
+    with torch.no_grad():
+        nty, ntx = tile_grid(H, W)
+        px, py = RC._pixels(nty, ntx, fields.dtype, fields.device)
+        pay = fields[gidx.long()]
+        act = (px < W) & (py < H)
+        T = torch.ones_like(px)
+        live = torch.zeros((), dtype=torch.int64, device=fields.device)
+        contrib_n = torch.zeros_like(live)
+        for j in range(int(counts.max())):
+            listed = (j < counts)[:, None]
+            live += (act & listed).sum()
+            _, _, _, _, contrib, T, act = RC._composite_step(pay[:, j], px, py, T, act)
+            contrib_n += (contrib & listed).sum()
+    return int(live), int(contrib_n)
+
+
+def blend_bound(nbytes: float, pairs, contrib_ops: int):
+    """bound_ms of a blend kernel: GATE_OPS for each live pair, contrib_ops
+    for each contributing pair, one exp2 per live pair."""
+    live, contrib = pairs
+    return bound_ms(nbytes, live * GATE_OPS + contrib * contrib_ops, live)
+
+
+def pairs_note(pairs) -> str:
+    live, contrib = pairs
+    return f"pairs live {live} contributing {contrib} ({100 * contrib / max(live, 1):.2f}%)"
+
 
 # tolerances of kernel against plain version (max error over max |plain|)
 TOL = {
@@ -69,7 +147,21 @@ TOL = {
     "blend_train_bwd": 1e-4,
     "ssim_fwd": 1e-5,  # absolute, on the value, as tests/test_ssim.py
     "ssim_bwd": 1e-4,  # tap sums in one order, the partial sums in another
+    # as K1: the same operations in the same order
+    "tile_blend_fwd": 1e-5,
+    # per-slot rows: each a float32 sum over a tile's 1,024 pixels, in warp
+    # tree order against torch.sum's
+    "tile_blend_bwd": 1e-4,
+    "blend_moment_bwd": 1e-4,
 }
+# the table and indirect flavors' gradients against the default flavor's,
+# per parameter group (max error over max |default|).  The forward is the
+# same kernel (K1 is K3's training instantiation), so only the backward
+# differs: K4 forms each pixel's field gradients and sums them per slot, K2
+# sums moments and maps them to fields per Gaussian, in float32 sums of
+# ~1e5 terms of both signs in other orders.  K2 against its own plain
+# version reads ~1e-7 here; 1e-3 leaves room for that cancellation.
+FLAVOR_TOL = 1e-3
 
 
 def fail(msg: str) -> None:
@@ -111,9 +203,9 @@ def cuda_ms(fn, iters: int, setup=None) -> float:
     return ts[len(ts) // 2]
 
 
-def bound_ms(nbytes: float, nops: float):
+def bound_ms(nbytes: float, nops: float, nexp: float = 0):
     tb = nbytes / PEAK_BYTES_PER_S * 1e3
-    to = nops / PEAK_F32_FLOP_PER_S * 1e3
+    to = max(nops / PEAK_F32_FLOP_PER_S, nexp / PEAK_EX2_PER_S) * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
@@ -172,17 +264,18 @@ def main() -> None:
         bg = torch.zeros(1, device=dev)
     n_inst = int(counts.sum())
     P1, Tn, K = fields.shape[0], gidx.shape[0], gidx.shape[1]
+    pairs = pair_counts(fields, gidx, counts, H, W)
     print(f"blend inputs: P1={P1} T={Tn} K={K} instances={n_inst} "
-          f"peak={int(binning.peak)}", flush=True)
+          f"peak={int(binning.peak)} {pairs_note(pairs)}", flush=True)
 
     col, finT = RC.blend_train_fwd(fields, gidx, counts, bg, H, W)
     col_p, finT_p = RC.blend_train_fwd_plain(fields, gidx, counts, bg, H, W)
     torch.cuda.synchronize()
     e1 = max(rel_err(col, col_p), rel_err(finT, finT_p))
     fb = P1 * 32 + n_inst * 4 + Tn * 4 + 4 + 2 * H * W * 4
-    b1, by1 = bound_ms(fb, n_inst * 1024 * K1_OPS)
+    b1, by1 = blend_bound(fb, pairs, k3_ops(0))
     kernels.append(dict(
-        name="blend_train_fwd", route="cuda", source="curve_gaussian_tpu_torch/csrc/blend_train.cu",
+        name="blend_train_fwd", route="cuda", source=BLEND_SRC,
         replaces="curve_gaussian_tpu/ops/rasterize_pallas.py:1180", launches=0, max_abs_err=
         max((col - col_p).abs().max().item(), (finT - finT_p).abs().max().item()),
         rel_err=e1,
@@ -204,9 +297,9 @@ def main() -> None:
     torch.cuda.synchronize()
     e2 = rel_err(RC.moments_to_dfields(acc, fields), RC.moments_to_dfields(acc_p, fields))
     bb = P1 * 32 + n_inst * 4 + Tn * 4 + 4 * H * W * 4 + P1 * 32
-    b2, by2 = bound_ms(bb, n_inst * 1024 * K2_OPS)
+    b2, by2 = blend_bound(bb, pairs, MOMENT_OPS)
     kernels.append(dict(
-        name="blend_train_bwd", route="cuda", source="curve_gaussian_tpu_torch/csrc/blend_train.cu",
+        name="blend_train_bwd", route="cuda", source=BLEND_SRC,
         replaces="curve_gaussian_tpu/ops/rasterize_pallas.py:1310", launches=0,
         max_abs_err=(acc - acc_p).abs().max().item(), rel_err=e2,
         ms=cuda_ms(lambda: RC.blend_train_bwd(fields, gidx, counts, col, finT, gc, gtt), 20),
@@ -262,23 +355,16 @@ def main() -> None:
                            setup=conv_ssim_value),
     ))
     for k in kernels:
-        print(f"kernel {k['name']}: max_abs_err {k['max_abs_err']:.3g} rel {k['rel_err']:.3g} "
-              f"(tol {TOL[k['name']]:g}); {k['ms']:.4f} ms, plain {k['plain_ms']:.4f} ms, "
-              f"bound {k['bound_ms']:.5f} ms ({k['bound_by']}), library {k['library_ms']}",
-              flush=True)
-        if not (k["rel_err"] <= TOL[k["name"]]):
-            fail(f"{k['name']} disagrees with its plain version: {k['rel_err']} > {TOL[k['name']]}")
+        report(k)
 
     # -- one whole step on the card against the same step on the CPU ----------
     small_check()
 
     # -- the main path -----------------------------------------------------------
-    wrappers = {"blend_train_fwd": RC.blend_train_fwd, "blend_train_bwd": RC.blend_train_bwd,
-                "ssim_fwd": SC.ssim_fwd, "ssim_bwd": SC.ssim_bwd}
     ts = T.init_train_state(state)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for w in wrappers.values():
+    for w in WRAPPERS.values():
         w.launches = 0
     losses = []
 
@@ -306,7 +392,7 @@ def main() -> None:
         m2 = step(25 + i, use_mask=True, conn_on=True)
     torch.cuda.synchronize()
     masked_s = (time.time() - t0) / 2
-    launches = {n: w.launches for n, w in wrappers.items()}
+    launches = {n: WRAPPERS[n].launches for n in TRAIN_KERNELS}
     peak = torch.cuda.max_memory_allocated()
     loss_v = torch.stack(losses).cpu()
     print(f"main path: 27 steps; losses first {loss_v[0]:.6f} last {loss_v[-1]:.6f}; "
@@ -328,6 +414,9 @@ def main() -> None:
     for k in kernels:
         k["launches"] = launches[k["name"]]
 
+    # -- the full-channel render ---------------------------------------------
+    kernels += full_channel(ts, cams, gts, opt_cfg, pipe_cfg, M, dev)
+
     if profile:
         profile_step(step)
 
@@ -337,6 +426,287 @@ def main() -> None:
     count = torch.cuda.device_count()
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}),
           flush=True)
+
+
+BLEND_SRC = "curve_gaussian_tpu_torch/csrc/tile_blend.cu"
+TRAIN_KERNELS = ("blend_train_fwd", "blend_train_bwd", "ssim_fwd", "ssim_bwd")
+WRAPPERS = {
+    "blend_train_fwd": RC.blend_train_fwd, "blend_train_bwd": RC.blend_train_bwd,
+    "ssim_fwd": SC.ssim_fwd, "ssim_bwd": SC.ssim_bwd,
+    "tile_blend_fwd": TB.tile_blend_fwd, "tile_blend_bwd": TB.tile_blend_bwd,
+    "blend_moment_bwd": TB.blend_moment_bwd,
+}
+
+
+def run_path(name: str, fn, must: tuple, must_not: tuple = ()):
+    """Drive one path with every launch counter set to 0 just before it;
+    returns (fn's result, the counts read just after).  Fails unless each
+    kernel in `must` launched and none in `must_not` did."""
+    for w in WRAPPERS.values():
+        w.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    counts = {n: w.launches for n, w in WRAPPERS.items()}
+    print(f"path {name}: launches {counts}", flush=True)
+    for n in must:
+        if counts[n] <= 0:
+            fail(f"kernel {n} was not launched by the {name} path")
+    for n in must_not:
+        if counts[n] != 0:
+            fail(f"kernel {n} was launched by the {name} path, which routes elsewhere")
+    return out, counts
+
+
+def state_of(ts) -> cs.CurveState:
+    return cs.CurveState(**ts.params, is_bezier=ts.is_bezier, alive=ts.alive)
+
+
+def tile_inputs(state, cam, pipe_cfg, geo, invd, ones, color=None):
+    """(fields, binning) of one view of a state for a channel set."""
+    with torch.no_grad():
+        g = cs.gaussians(state)
+        pre = preprocess(g["xyz"], g["scale"], g["quat"], g["opacity"], cam, alive=g["alive"])
+        b = bin_gaussians(pre, cam.height, cam.width, capacity=pipe_cfg.tile_capacity,
+                          big_capacity=pipe_cfg.big_capacity)
+        color = torch.ones_like(pre.opacity) if color is None else color
+        fields = RC.stack_fields(pre, color, main_axis_allmap(g["xyz"], g["quat"], cam),
+                                 geo=geo, invd=invd, ones=ones).contiguous()
+    return fields, b
+
+
+def tile_kernels(label, fields, b, H, W, geo, invd, ones, cots):
+    """K3 and K4 at one channel set against their plain versions, timed;
+    returns their two kernel entries."""
+    gidx, counts = b.gather_idx, b.counts
+    dev = fields.device
+    bg = torch.zeros(1, device=dev)
+    outs = TB.tile_blend_fwd(fields, gidx, counts, bg, H, W, geo, invd, ones)
+    outs_p = TB.tile_blend_fwd_plain(fields, gidx, counts, bg, H, W, geo, invd, ones)
+    dpay = TB.tile_blend_bwd(fields, gidx, counts, outs, cots, geo, invd, ones)
+    dpay_p = TB.tile_blend_bwd_plain(fields, gidx, counts, outs, cots, geo, invd, ones)
+    torch.cuda.synchronize()
+    n_inst, P1, nf = int(counts.sum()), fields.shape[0], fields.shape[1]
+    chans = TB.channels(geo, invd, ones)
+    nch, ngch = len(chans), sum(c is not None for _, c in chans)
+    pairs = pair_counts(fields, gidx, counts, H, W)
+    # bytes: K3 writes all 7 output images (a gated channel's zeros too);
+    # K4 needs only the images of the set's channels and their cotangents
+    nimg = 2 + (1 if invd else 0) + (4 if geo else 0)
+    tables = P1 * nf * 4 + n_inst * 4 + gidx.shape[0] * 4
+    # accumulated channels: those with a field (the ones colour derives from T)
+    b3, by3 = blend_bound(tables + 4 + 7 * H * W * 4, pairs, k3_ops(ngch))
+    b4, by4 = blend_bound(tables + 2 * nimg * H * W * 4 + dpay.numel() * 4, pairs,
+                          k4_ops(nch, ngch))
+    src = BLEND_SRC
+    fwd = dict(
+        name="tile_blend_fwd", route="cuda", source=src,
+        replaces="curve_gaussian_tpu/ops/rasterize_pallas.py:368", launches=0,
+        max_abs_err=max((o - p).abs().max().item() for o, p in zip(outs, outs_p)),
+        rel_err=max(rel_err(o, p) for o, p in zip(outs, outs_p)),
+        ms=cuda_ms(lambda: TB.tile_blend_fwd(fields, gidx, counts, bg, H, W, geo, invd, ones),
+                   20),
+        plain_ms=cuda_ms(lambda: TB.tile_blend_fwd_plain(fields, gidx, counts, bg, H, W, geo,
+                                                         invd, ones), 3),
+        bound_ms=b3, bound_by=by3, library_ms=None,
+    )
+    bwd = dict(
+        name="tile_blend_bwd", route="cuda", source=src,
+        replaces="curve_gaussian_tpu/ops/rasterize_pallas.py:483", launches=0,
+        max_abs_err=(dpay - dpay_p).abs().max().item(), rel_err=rel_err(dpay, dpay_p),
+        ms=cuda_ms(lambda: TB.tile_blend_bwd(fields, gidx, counts, outs, cots, geo, invd, ones),
+                   20),
+        plain_ms=cuda_ms(lambda: TB.tile_blend_bwd_plain(fields, gidx, counts, outs, cots, geo,
+                                                         invd, ones), 3),
+        bound_ms=b4, bound_by=by4, library_ms=None,
+    )
+    for k in (fwd, bwd):
+        report(k, f"{label} (geo, invd, ones)={(geo, invd, ones)} H,W={H},{W} "
+                  f"T={gidx.shape[0]} K={gidx.shape[1]} P1={P1} instances={n_inst} "
+                  f"{pairs_note(pairs)}")
+    return fwd, bwd
+
+
+def report(k, label=""):
+    print(f"kernel {k['name']} {label}: max_abs_err {k['max_abs_err']:.3g} rel "
+          f"{k['rel_err']:.3g} (tol {TOL[k['name']]:g}); {k['ms']:.4f} ms, plain "
+          f"{k['plain_ms']:.4f} ms, bound {k['bound_ms']:.5f} ms ({k['bound_by']}), "
+          f"library {k['library_ms']}", flush=True)
+    if not (k["rel_err"] <= TOL[k["name"]]):
+        fail(f"{k['name']} {label} disagrees with its plain version: "
+             f"{k['rel_err']} > {TOL[k['name']]}")
+
+
+def full_channel(ts, cams, gts, opt_cfg, pipe_cfg, M, dev):
+    """Phase 6 of the module docstring; returns the K3, K4 and K5 entries
+    (K3 and K4 at the eval render's channel set)."""
+    H, W = cams[0].height, cams[0].width
+    state = state_of(ts)
+    gen = torch.Generator(dev).manual_seed(2)
+
+    # -- a. K3, K4, K5 against their plain versions ------------------------------
+    fields, b = tile_inputs(state, cams[0], pipe_cfg, True, True, True)
+    cots = tuple(torch.randn(s, device=dev, generator=gen)
+                 for s in ((H, W), (H, W), (H, W), (4, H, W)))
+    k3, k4 = tile_kernels("eval render", fields, b, H, W, True, True, True, cots)
+
+    fields8, b8 = tile_inputs(state, cams[0], pipe_cfg, False, False, True)
+    col, finT = RC.blend_train_fwd(fields8, b8.gather_idx, b8.counts, torch.zeros(1, device=dev),
+                                   H, W)
+    img = col.clone().requires_grad_(True)
+    with torch.enable_grad():  # the image loss's gradient at this render
+        lo = L.edge_aware_loss(img, gts[0]) + (1.0 - SC.ssim_fused(img, gts[0]))
+        (gc,) = torch.autograd.grad(lo, img)
+    gc = gc.contiguous()
+    gtt = (torch.randn(H, W, device=dev, generator=gen) * gc.abs().max()).contiguous()
+    zeros = torch.zeros_like(gc)
+    tile_kernels("table flavor", fields8, b8, H, W, False, False, True,
+                 (gc, zeros, gtt, torch.zeros((4, H, W), device=dev)))
+    gidx, counts = b8.gather_idx, b8.counts
+    mom = TB.blend_moment_bwd(fields8, gidx, counts, col, finT, gc, gtt)
+    mom_p = TB.blend_moment_bwd_plain(fields8, gidx, counts, col, finT, gc, gtt)
+    torch.cuda.synchronize()
+    n_inst = int(counts.sum())
+    pairs8 = pair_counts(fields8, gidx, counts, H, W)
+    b5, by5 = blend_bound(fields8.numel() * 4 + n_inst * 4 + gidx.shape[0] * 4 + 4 * H * W * 4
+                          + mom.numel() * 4, pairs8, MOMENT_OPS)
+    k5 = dict(
+        name="blend_moment_bwd", route="cuda", source=BLEND_SRC,
+        replaces="curve_gaussian_tpu/ops/rasterize_pallas.py:656", launches=0,
+        max_abs_err=(mom - mom_p).abs().max().item(), rel_err=rel_err(mom, mom_p),
+        ms=cuda_ms(lambda: TB.blend_moment_bwd(fields8, gidx, counts, col, finT, gc, gtt), 20),
+        plain_ms=cuda_ms(
+            lambda: TB.blend_moment_bwd_plain(fields8, gidx, counts, col, finT, gc, gtt), 3),
+        bound_ms=b5, bound_by=by5, library_ms=None,
+    )
+    report(k5, f"indirect flavor (F, F, T) {pairs_note(pairs8)}")
+
+    # a per-splat colour, small scene (as small_check's)
+    Hs = Ws = 96
+    rng = np.random.default_rng(1)
+    st = cs.init_state(rng.uniform(0.2, 0.8, size=(24, 3)).astype(np.float32), n_views=1,
+                       n_gaussians=6, device=dev)
+    cam_s = synthetic.ring_cameras(1, Hs, Ws, device=dev)[0]
+    color = 0.2 + 0.8 * torch.rand(st.capacity * 6, device=dev, generator=gen)
+    small = PipelineConfig(tile_capacity=256, big_capacity=64)
+    fs, bs = tile_inputs(st, cam_s, small, True, True, False, color=color)
+    cots_s = tuple(torch.randn(s, device=dev, generator=gen)
+                   for s in ((Hs, Ws), (Hs, Ws), (Hs, Ws), (4, Hs, Ws)))
+    tile_kernels("per-splat colour", fs, bs, Hs, Ws, True, True, False, cots_s)
+
+    # -- b. eval render of each view -------------------------------------------
+    def evals():
+        with torch.no_grad():
+            t0 = time.time()
+            outs = [T.eval_render(ts, cam, pipe_cfg, 0.0) for cam in cams]
+            torch.cuda.synchronize()
+            return outs, (time.time() - t0) / len(cams)
+
+    (outs, eval_s), c_eval = run_path("eval render", evals, ("tile_blend_fwd",),
+                                      ("blend_train_fwd", "tile_blend_bwd"))
+    for v, out in enumerate(outs):
+        for k in ("render", "invdepth", "alpha", "dir"):
+            if not bool(torch.isfinite(out[k]).all()):
+                fail(f"eval render view {v}: non-finite {k}")
+        r = out["render"]
+        if not (float(r.min()) >= 0.0 and float(r.max()) <= 1.0):
+            fail(f"eval render view {v}: render outside [0, 1]")
+        tele = {k: int(out[k]) for k in ("overflow", "tile_peak", "big_peak", "big_overflow")}
+        print(f"eval render view {v}: render max {float(r.max()):.4f} alpha max "
+              f"{float(out['alpha'].max()):.4f} invdepth max {float(out['invdepth'].max()):.4f} "
+              f"|dir| max {float(out['dir'].abs().max()):.4f} telemetry {tele}", flush=True)
+    print(f"eval render: {eval_s * 1e3:.3f} ms per eval render (host clock, 4 views, "
+          f"first call of the path)", flush=True)
+    with torch.no_grad():
+        t0 = time.time()
+        for cam in cams:
+            T.eval_render(ts, cam, pipe_cfg, 0.0)
+        torch.cuda.synchronize()
+    print(f"eval render: {(time.time() - t0) / len(cams) * 1e3:.3f} ms per eval render "
+          f"(host clock, 4 views, repeated)", flush=True)
+    k3["launches"] = c_eval["tile_blend_fwd"]
+
+    # -- c. the differentiable full-channel render -----------------------------
+    def grad_path():
+        g = cs.gaussians(state)
+        leaves = [g[k].detach().requires_grad_(True) for k in ("xyz", "scale", "quat", "opacity")]
+        out = render(*leaves, cams[0], alive=g["alive"], capacity=pipe_cfg.tile_capacity,
+                     big_capacity=pipe_cfg.big_capacity)
+        ks = [torch.randn(s, device=dev, generator=gen)
+              for s in ((H, W), (H, W), (H, W), (3, H, W))]
+        total = ((out["render"] * ks[0]).sum() + (out["invdepth"] * ks[1]).sum()
+                 + (out["alpha"] * ks[2]).sum() + (out["dir"] * ks[3]).sum())
+        return torch.autograd.grad(total, leaves)
+
+    t0 = time.time()
+    grads, c_grad = run_path("full-channel gradient", grad_path,
+                             ("tile_blend_fwd", "tile_blend_bwd"), ("blend_moment_bwd",))
+    print(f"full-channel gradient: {(time.time() - t0) * 1e3:.1f} ms (host clock, one call)",
+          flush=True)
+    for name, gr in zip(("xyz", "scale", "quat", "opacity"), grads):
+        m = float(gr.abs().max())
+        print(f"full-channel gradient d {name}: max |.| {m:.4g}", flush=True)
+        if not (bool(torch.isfinite(gr).all()) and m > 0):
+            fail(f"full-channel gradient d {name} is not finite and nonzero")
+    k4["launches"] = c_grad["tile_blend_bwd"]
+
+    # -- d. synthetic ground truth at train.py --synthetic's defaults ------------
+    def scene():
+        t0 = time.time()
+        s = synthetic.make_scene(seed=0, n_curves=8, n_lines=3, n_views=24, height=256,
+                                 width=256, device=dev)
+        torch.cuda.synchronize()
+        return s, time.time() - t0
+
+    (sc, scene_s), _ = run_path("make_scene", scene, ("tile_blend_fwd",))
+    for v, m in enumerate(sc.edge_maps):
+        if not (bool(torch.isfinite(m).all()) and float(m.min()) >= 0.0
+                and float(m.max()) <= 1.0 and float(m.max()) > 0.0):
+            fail(f"make_scene view {v}: edge map not finite, in [0, 1] and nonzero")
+    print(f"make_scene: 24 views of 256x256 in {scene_s:.3f} s; edge-map max "
+          f"{max(float(m.max()) for m in sc.edge_maps):.4f}, mean "
+          f"{sum(float(m.mean()) for m in sc.edge_maps) / 24:.5f}", flush=True)
+
+    # -- e. the table and indirect flavors of the training step ------------------
+    args = (cams[0], gts[0], 0.0, opt_cfg, pipe_cfg)
+    kw = dict(use_mask=False, n_gaussians=M)
+    ref = T.step_grads(ts, *args, **kw)[2]
+    old = os.environ.get("CGT_BLEND_FLAVOR")
+    try:
+        for flavor, bwd in (("table", "tile_blend_bwd"), ("indirect", "blend_moment_bwd")):
+            os.environ["CGT_BLEND_FLAVOR"] = flavor
+            other = "blend_moment_bwd" if bwd == "tile_blend_bwd" else "tile_blend_bwd"
+            grads_f, _ = run_path(f"step_grads {flavor}", lambda: T.step_grads(ts, *args, **kw)[2],
+                                  ("tile_blend_fwd", bwd, "ssim_fwd", "ssim_bwd"),
+                                  ("blend_train_fwd", "blend_train_bwd", other))
+            errs = {k: rel_err(grads_f[k], ref[k]) for k in ref}
+            print(f"flavor {flavor}: gradient error over max |default| per group "
+                  f"{ {k: f'{v:.3g}' for k, v in errs.items()} } (tol {FLAVOR_TOL:g})", flush=True)
+            if not max(errs.values()) <= FLAVOR_TOL:
+                fail(f"the {flavor} flavor's gradients disagree with the default flavor's")
+
+            def steps(n=6):
+                tsf = ts
+                for i in range(n):
+                    if i == 1:
+                        torch.cuda.synchronize()
+                        t0 = time.time()
+                    tsf, _ = T.train_step(tsf, cams[i % 4], gts[i % 4], 0.0, opt_cfg, pipe_cfg,
+                                          **kw)
+                torch.cuda.synchronize()
+                return (time.time() - t0) / (n - 1)
+
+            step_s, c_f = run_path(f"train_step {flavor}", steps, ("tile_blend_fwd", bwd),
+                                   ("blend_train_fwd", "blend_train_bwd"))
+            print(f"flavor {flavor}: {step_s * 1e3:.3f} ms/step (host clock, 5 steps after one)",
+                  flush=True)
+            if flavor == "indirect":
+                k5["launches"] = c_f["blend_moment_bwd"]
+    finally:
+        if old is None:
+            os.environ.pop("CGT_BLEND_FLAVOR", None)
+        else:
+            os.environ["CGT_BLEND_FLAVOR"] = old
+    return [k3, k4, k5]
 
 
 def small_check():

@@ -2,8 +2,8 @@
 package's ``config.py``.
 
 The port keeps its own copy so that it imports nothing of the JAX package.
-A few fields only mean something to later slices of the port (``backend``,
-the capacity-growth policy, the surgery thresholds); they are kept so that a
+A few fields only mean something to later slices of the port (the
+capacity-growth policy, the surgery thresholds); they are kept so that a
 configuration carries across unchanged.
 """
 from __future__ import annotations
@@ -39,7 +39,7 @@ class PipelineConfig:
     # binning tier of this many slots
     big_capacity: int = 256
     max_big_capacity: int = 8192
-    backend: str = "pallas"  # the tile-kernel path; 'reference' is not ported yet
+    backend: str = "pallas"  # the tile kernels; 'reference' renders through the oracle
     overflow_policy: str = "grow"  # 'grow' | 'raise' | 'warn'
     max_tile_capacity: int = 8192
     overflow_tolerance: float = 1e-4

@@ -1,11 +1,12 @@
-"""Training step and TrainState, as ``curve_gaussian_tpu/engine/train.py``.
+"""Training step, TrainState and the eval render, as
+``curve_gaussian_tpu/engine/train.py``.
 
 One step = gaussians -> render (training configuration) -> total_loss ->
 backward -> per-group Adam -> densification statistics.  PyTorch runs
 eagerly, so there is no compiled step; ``train_steps`` is a plain loop in
-place of the JAX package's ``lax.scan`` chunk.  Topology surgery, the
-capacity policy and the training loop (``engine/loop.py``) belong to a
-later slice.
+place of the JAX package's ``lax.scan`` chunk.  ``eval_render`` renders
+every channel of the current state.  Topology surgery, the capacity
+policy and the training loop (``engine/loop.py``) belong to a later slice.
 """
 from __future__ import annotations
 
@@ -167,4 +168,33 @@ def train_steps(
                            conn_on=conn_on)
         metrics.append(m)
     return ts, metrics
+
+
+def eval_render(
+    ts: TrainState,
+    cam: Camera,
+    pipe_cfg: PipelineConfig,
+    bg,
+    use_mask: bool = False,
+    mask_threshold: float = 0.01,
+    view_idx: int | None = None,
+    use_exposure: bool = False,
+):
+    """The full-channel render of the current state (render, invdepth,
+    alpha, dir and the rest of ``render``'s dict), with the pipeline
+    config's ``render_geo``, capacities and backend, and the view's learned
+    exposure when ``use_exposure``.  It stays differentiable; callers that
+    only read the values wrap it in ``torch.no_grad()``.  The JAX function's
+    ``n_gaussians`` has no counterpart: it is unused there too."""
+    state = cs.CurveState(**ts.params, is_bezier=ts.is_bezier, alive=ts.alive)
+    gauss = cs.gaussians(state, use_mask=use_mask, mask_threshold=mask_threshold)
+    if use_exposure and view_idx is None:
+        raise ValueError("use_exposure requires the view's train index")
+    return render(
+        gauss["xyz"], gauss["scale"], gauss["quat"], gauss["opacity"], cam,
+        bg=bg, alive=gauss["alive"], antialiasing=pipe_cfg.antialiasing,
+        render_geo=pipe_cfg.render_geo, capacity=pipe_cfg.tile_capacity,
+        big_capacity=pipe_cfg.big_capacity, backend=pipe_cfg.backend,
+        exposure=ts.params["exposure"][view_idx] if use_exposure else None,
+    )
 

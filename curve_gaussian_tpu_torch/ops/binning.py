@@ -14,6 +14,9 @@ The ``sort`` method of ``curve_gaussian_tpu/ops/binning.py``:
   4. tile ranges by ``torch.searchsorted``; the [T, K] table keeps each
      tile's K nearest instances, with sentinel P in empty slots.
 
+The ``pairs`` method (``_bin_pairs``) is the JAX package's independent
+round-1 construction, kept as the oracle of the ``sort`` method.
+
 All capacity limits are reported (``overflow``, ``peak``, ``big_count``,
 ``big_overflow``), never silent.  The JAX package's 1024-column ``idx_pad``
 copy exists for a TPU memory rule and is not kept: any K works here.
@@ -148,14 +151,14 @@ def bin_gaussians(
     big_capacity: int = 1024,
     packed: bool | None = None,
 ) -> Binning:
-    if method != "sort":
-        raise NotImplementedError(
-            f"binning method {method!r} is not ported yet (only 'sort')"
-        )
+    if method not in ("sort", "pairs"):
+        raise ValueError(f"binning method {method!r} is not 'sort' or 'pairs'")
     if packed is None:
         packed = SORT_PACKED
     pre = Preprocessed(*(t.detach() for t in pre))
     nty, ntx = tile_grid(height, width)
+    if method == "pairs":
+        return _bin_pairs(pre, nty, ntx, capacity, max_rect)
     T = nty * ntx
     K = capacity
     P = pre.mean2d.shape[0]
@@ -239,4 +242,54 @@ def bin_gaussians(
         peak=raw.max().to(i32),
         big_count=big_count,
         big_overflow=big_overflow.to(i32),
+    )
+
+
+def _bin_pairs(pre: Preprocessed, nty: int, ntx: int, K: int, max_rect: int) -> Binning:
+    """The ``pairs`` method: a depth argsort, every Gaussian's max_rect rect
+    slots as candidate pairs, a dense [T, P] prefix count that ranks each
+    pair within its tile, and a scatter into the [T, K] table.  O(T P)
+    memory: an independent construction for tests, not for the hot path.
+    It has no big tier, so big_count and big_overflow are zero."""
+    T = nty * ntx
+    P = pre.mean2d.shape[0]
+    dev = pre.mean2d.device
+    i32 = torch.int32
+    order = torch.argsort(torch.where(pre.valid, pre.depth, torch.full_like(pre.depth, torch.inf)),
+                          stable=True)
+    pre_s = Preprocessed(*(a[order] for a in pre))
+    rect = _rect_fields(pre_s, nty, ntx, max_rect)
+    tiles, _, _ = _emit_pairs(pre_s, rect, T, ntx, max_rect, torch.arange(P, dtype=i32, device=dev))
+    tiles = tiles.T.long()  # [P, R]; T for non-candidates
+    ok = tiles < T
+    zero = torch.zeros_like(rect.area)
+    rect_overflow = torch.where(pre_s.valid, rect.area - rect.rw_c * rect.rh_c, zero).sum()
+
+    # depth rank of each candidate within its tile, from dense prefix counts
+    p_cols = torch.arange(P, device=dev)[:, None].expand(P, max_rect)
+    count_grid = torch.zeros((T + 1, P), dtype=i32, device=dev)
+    count_grid.index_put_((tiles, p_cols), ok.to(i32), accumulate=True)
+    prefix = torch.cumsum(count_grid[:T], dim=1, dtype=i32)  # [T, P]
+    total = prefix[:, -1]
+    flat = torch.cat([prefix.reshape(-1), torch.zeros(P, dtype=i32, device=dev)])  # row T: zeros
+    slot = flat[tiles * P + p_cols] - 1
+
+    target = torch.where(ok & (slot < K) & (slot >= 0), tiles * K + slot,
+                         torch.full_like(tiles, T * K))
+    gather_flat = torch.full((T * K + 1,), P, dtype=i32, device=dev)  # last slot: the drop
+    gather_flat[target.reshape(-1)] = order.to(i32)[:, None].expand(P, max_rect).reshape(-1)
+    gather_idx = gather_flat[: T * K].reshape(T, K)
+
+    counts = torch.clamp(total, max=K)
+    slot_valid = torch.arange(K, dtype=i32, device=dev)[None, :] < counts[:, None]
+    overflow = torch.clamp(total - K, min=0).sum() + rect_overflow
+    z = torch.zeros((), dtype=i32, device=dev)
+    return Binning(
+        gather_idx=gather_idx.contiguous(),
+        slot_valid=slot_valid,
+        counts=counts.to(i32).contiguous(),
+        overflow=overflow.to(i32),
+        peak=total.max().to(i32),
+        big_count=z,
+        big_overflow=z,
     )

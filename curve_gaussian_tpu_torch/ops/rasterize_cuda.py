@@ -25,14 +25,19 @@ hand-derived moment formula and never autograd through the clamp.
 
 What bounds the kernels on an H100: per-pixel serial chains of about twenty
 float operations and one ``expf`` per (instance, pixel), so instruction throughput,
-not memory (a tile's fields are a few KB).  See ``csrc/blend_train.cu`` for what
-the design does about it.  K2 reduces with ``atomicAdd``, so the order of
+not memory (a tile's fields are a few KB).  See ``csrc/tile_blend.cu`` for what
+the design does about it: K1 is the training instantiation of the
+full-channel forward K3, and K2 shares its pass with K5.  K2 reduces with ``atomicAdd``, so the order of
 the float32 sums, and the last bits of the gradients, vary from run to run.
 
 Every wrapper takes the plain PyTorch version for CPU tensors only; for a
 CUDA tensor it launches the kernel or raises.  The TPU layout of the JAX
 kernels (tile pairing, (8,128) register tiles, tiled outputs) is not
 copied: the outputs are spatial [H, W] images.
+
+The module also holds the per-Gaussian field rows of every channel set
+(``field_layout``, ``stack_fields``), which the full-channel blend of
+``tile_blend_cuda`` (kernels K3, K4, K5) reads too.
 """
 from __future__ import annotations
 
@@ -45,25 +50,54 @@ from .binning import tile_grid
 from .projection import Preprocessed
 from .rasterize_ref import ALPHA_EPS, ALPHA_MAX, T_EPS, TILE_H, TILE_W
 
-NF = 8  # field row: mx, my, ca, cb, cc, opa, 0, 0
+NF = 8  # training field row: mx, my, ca, cb, cc, opa, 0, 0
 TILE_PIX = TILE_H * TILE_W
 
 _VP = ctypes.c_void_p
 _I = ctypes.c_int
 
 
-def stack_fields(pre: Preprocessed) -> torch.Tensor:
-    """[P1, 8] per-Gaussian field rows (mx, my, ca, cb, cc, opa, 0, 0).
+def field_layout(geo: bool, invd: bool, ones: bool):
+    """({field name: column}, NF) of a channel set: mx, my, ca, cb, cc, opa,
+    then [col] (a per-splat colour, absent with ones colour), [invd],
+    [am0..am3], padded to NF = 8 or 16 columns."""
+    names = ["mx", "my", "ca", "cb", "cc", "opa"]
+    if not ones:
+        names.append("col")
+    if invd:
+        names.append("invd")
+    if geo:
+        names += ["am0", "am1", "am2", "am3"]
+    nf = -(-len(names) // 8) * 8
+    return {n: i for i, n in enumerate(names)}, nf
 
-    Rows P..P1-1 are zeros, P1 = P + 1 rounded up to 8: the binning writes
-    the sentinel index P into empty slots, and a zero row blends alpha 0."""
-    z = torch.zeros_like(pre.opacity)
+
+def stack_fields(pre: Preprocessed, color=None, allmap=None, geo: bool = False,
+                 invd: bool = False, ones: bool = True) -> torch.Tensor:
+    """[P1, NF] per-Gaussian field rows in the ``field_layout`` order.
+
+    The defaults are the training channel set, (mx, my, ca, cb, cc, opa, 0,
+    0); ``color`` [P] and ``allmap`` [P, 4] are read when the set has them.
+    The inverse depth is 0 on culled rows through a double ``where``, so a
+    zero cotangent there never meets 1/0.  Rows P..P1-1 are zeros, P1 = P + 1
+    rounded up to 8: the binning writes the sentinel index P into empty
+    slots, and a zero row blends alpha 0."""
+    L, nf = field_layout(geo, invd, ones)
     cols = [pre.mean2d[:, 0], pre.mean2d[:, 1], pre.conic[:, 0], pre.conic[:, 1],
-            pre.conic[:, 2], pre.opacity, z, z]
-    fields = torch.stack(cols, dim=-1)
+            pre.conic[:, 2], pre.opacity]
+    if "col" in L:
+        cols.append(color)
+    if "invd" in L:
+        one = torch.ones_like(pre.depth)
+        cols.append(torch.where(pre.valid, 1.0 / torch.where(pre.valid, pre.depth, one),
+                                torch.zeros_like(one)))
+    if "am0" in L:
+        cols += [allmap[:, i] for i in range(4)]
+    z = torch.zeros_like(pre.opacity)
+    fields = torch.stack(cols + [z] * (nf - len(cols)), dim=-1)
     P = fields.shape[0]
     pad = -(-(P + 1) // 8) * 8 - P
-    return torch.cat([fields, fields.new_zeros((pad, NF))], dim=0)
+    return torch.cat([fields, fields.new_zeros((pad, nf))], dim=0)
 
 
 def _pixels(nty: int, ntx: int, dtype, device):
@@ -122,20 +156,21 @@ def blend_train_fwd_plain(fields, gidx, counts, bg, H: int, W: int):
     return _from_tiles(col, nty, ntx, H, W), _from_tiles(T, nty, ntx, H, W)
 
 
-def blend_train_bwd_plain(fields, gidx, counts, col, finT, gc, gtt):
-    """Plain PyTorch K2: the [P1, 8] moment accumulator (columns 0-5)."""
+def moment_rows_plain(fields, gidx, counts, col, finT, gc, gtt):
+    """K2's moments per instance slot, [T, K, 8] (columns 0-5), before any
+    reduction to Gaussians: the plain version of K5, and of K2 once
+    index-added.  Slots past the longest tile list stay zero."""
     H, W = col.shape
     nty, ntx = tile_grid(H, W)
     px, py = _pixels(nty, ntx, fields.dtype, fields.device)
-    gidx = gidx.long()
-    pay = fields[gidx]
+    pay = fields[gidx.long()]
     gc_t = _to_tiles(gc, nty, ntx)
     binv = -_to_tiles(gtt, nty, ntx) * _to_tiles(finT, nty, ntx) - gc_t * _to_tiles(col, nty, ntx)
     T = torch.ones_like(px)
     act = torch.ones(px.shape, dtype=torch.bool, device=px.device)
     pr = torch.zeros_like(px)
-    acc = torch.zeros_like(fields)
     zero = torch.zeros_like(px)
+    mom = fields.new_zeros(gidx.shape + (NF,))
     for j in range(int(counts.max()) if counts.numel() else 0):
         Ti = T
         G, ag, dx, dy, contrib, T, act = _composite_step(pay[:, j], px, py, T, act)
@@ -144,11 +179,14 @@ def blend_train_bwd_plain(fields, gidx, counts, col, finT, gc, gtt):
         Dp = torch.where(contrib, gal, zero) * G
         e1 = Dp * dx
         e2 = Dp * dy
-        mom = torch.stack(
-            [Dp, e1, e2, e1 * dx, e1 * dy, e2 * dy, zero, zero], dim=-1
-        ).sum(dim=1)  # [T, 8]
-        acc.index_add_(0, gidx[:, j], mom)
-    return acc
+        mom[:, j, :6] = torch.stack([Dp, e1, e2, e1 * dx, e1 * dy, e2 * dy], dim=-1).sum(dim=1)
+    return mom
+
+
+def blend_train_bwd_plain(fields, gidx, counts, col, finT, gc, gtt):
+    """Plain PyTorch K2: the [P1, 8] moment accumulator (columns 0-5)."""
+    mom = moment_rows_plain(fields, gidx, counts, col, finT, gc, gtt)
+    return torch.zeros_like(fields).index_add_(0, gidx.reshape(-1).long(), mom.reshape(-1, NF))
 
 
 def moments_to_dfields(M: torch.Tensor, fields: torch.Tensor) -> torch.Tensor:
@@ -172,20 +210,25 @@ def moments_to_dfields(M: torch.Tensor, fields: torch.Tensor) -> torch.Tensor:
 
 
 def _lib():
-    lib = _build.load("blend_train")
+    """The blend kernels' library, ``csrc/tile_blend.cu``, with the argument
+    types of all five entry points (K1, K2 here; K3, K4, K5 in
+    ``tile_blend_cuda``)."""
+    lib = _build.load("tile_blend")
     if not getattr(lib, "_typed", False):
-        lib.blend_train_fwd.argtypes = [_VP] * 6 + [_I] * 5 + [_VP]
-        lib.blend_train_fwd.restype = _I
-        lib.blend_train_bwd.argtypes = [_VP] * 8 + [_I] * 5 + [_VP]
-        lib.blend_train_bwd.restype = _I
+        for name, nptr, nint in (("blend_train_fwd", 6, 5), ("blend_train_bwd", 8, 5),
+                                 ("tile_blend_fwd", 8, 8), ("tile_blend_bwd", 12, 8),
+                                 ("blend_moment_bwd", 8, 5)):
+            fn = getattr(lib, name)
+            fn.argtypes = [_VP] * nptr + [_I] * nint + [_VP]
+            fn.restype = _I
         lib._typed = True
     return lib
 
 
-def _check_tables(fields, gidx, counts, H: int, W: int):
+def _check_tables(fields, gidx, counts, H: int, W: int, nf: int = NF):
     dev = fields.device
-    if fields.dtype != torch.float32 or fields.dim() != 2 or fields.shape[1] != NF:
-        raise ValueError(f"fields must be float32 [P1, {NF}], got {fields.dtype} {tuple(fields.shape)}")
+    if fields.dtype != torch.float32 or fields.dim() != 2 or fields.shape[1] != nf:
+        raise ValueError(f"fields must be float32 [P1, {nf}], got {fields.dtype} {tuple(fields.shape)}")
     nty, ntx = tile_grid(H, W)
     if gidx.dtype != torch.int32 or gidx.dim() != 2 or gidx.shape[0] != nty * ntx:
         raise ValueError(f"gather_idx must be int32 [{nty * ntx}, K], got {gidx.dtype} {tuple(gidx.shape)}")
@@ -195,6 +238,12 @@ def _check_tables(fields, gidx, counts, H: int, W: int):
         if t.device != dev or not t.is_contiguous():
             raise ValueError(f"{name} must be a contiguous tensor on {dev}")
     return nty, ntx
+
+
+def _check_bg(bg, dev):
+    if bg.dtype != torch.float32 or bg.numel() != 1 or bg.device != dev:
+        raise ValueError("bg must be a float32 tensor of one element on the fields' device")
+    return bg.contiguous()
 
 
 def _check_image(name, t, H, W, dev):
@@ -208,9 +257,7 @@ def blend_train_fwd(fields, gidx, counts, bg, H: int, W: int):
     if not fields.is_cuda:
         return blend_train_fwd_plain(fields, gidx, counts, bg, H, W)
     nty, ntx = _check_tables(fields, gidx, counts, H, W)
-    if bg.dtype != torch.float32 or bg.numel() != 1 or bg.device != fields.device:
-        raise ValueError("bg must be a float32 tensor of one element on the fields' device")
-    bg = bg.contiguous()
+    bg = _check_bg(bg, fields.device)
     col = torch.empty((H, W), dtype=torch.float32, device=fields.device)
     finT = torch.empty_like(col)
     lib = _lib()
@@ -272,7 +319,7 @@ class BlendTrain(torch.autograd.Function):
 def blend_train(fields, gather_idx, counts, bg, H: int, W: int):
     """Differentiable training blend: (col, finT), each [H, W].
 
-    fields [P1, 8] from ``stack_fields``; gather_idx [T, K] int32 and
+    fields [P1, 8] from ``stack_fields(pre)``; gather_idx [T, K] int32 and
     counts [T] int32 from the binning; bg [1].  Gradients flow to fields
     (columns 0-5) and bg."""
     return BlendTrain.apply(fields, gather_idx, counts, bg, H, W)

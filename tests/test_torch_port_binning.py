@@ -118,6 +118,6 @@ def test_membership_and_module_flag():
     mem = pref.membership(pb, ppre.mean2d.shape[0])
     assert mem.shape == (ppre.mean2d.shape[0], pb.gather_idx.shape[0])
     assert int(mem.sum()) == int(pb.counts.sum())
-    with pytest.raises(NotImplementedError):
-        pbin.bin_gaussians(ppre, H, W, method="pairs")
+    with pytest.raises(ValueError):
+        pbin.bin_gaussians(ppre, H, W, method="grid")  # 'sort' and 'pairs' only
     assert not ppre.mean2d.requires_grad and pb.gather_idx.dtype == torch.int32

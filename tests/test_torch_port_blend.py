@@ -194,5 +194,11 @@ def test_training_render_and_clip_tie():
     gT = gimg * pout["final_T"].detach().numpy()
     want = expo[0] * (0.5 * gT[empty].sum() + gT[(img > 0) & (img < 1)].sum())
     assert abs(float(pbg.grad) - want) < 1e-9
-    with pytest.raises(NotImplementedError):
-        prender(*pargs, pc)  # render_geo=True: the full-channel slice
+    # the full-channel render (render_geo, invdepth: kernel K3) composites
+    # the same ones colour, so its image is the training render's
+    with torch.no_grad():
+        full = prender(*pargs, pc, bg=pbg, alive=tt(alive, torch.bool), exposure=pexpo,
+                       capacity=K, big_capacity=64)
+    assert_close(full["render"], img, F64_TOL, "full-channel render")
+    assert float(full["alpha"].max()) > 0.5 and float(full["invdepth"].max()) > 0
+    assert full["dir"].shape == (3, H, W)

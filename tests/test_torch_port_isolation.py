@@ -22,6 +22,7 @@ from curve_gaussian_tpu_torch.models import curve_state as pcs
 from curve_gaussian_tpu_torch.ops import camera as pcam
 from curve_gaussian_tpu_torch.ops import rasterize_cuda as prc
 from curve_gaussian_tpu_torch.ops import ssim_cuda as psc
+from curve_gaussian_tpu_torch.ops import tile_blend_cuda as ptb
 
 ROOT = Path(__file__).resolve().parent.parent
 PKG = ROOT / "curve_gaussian_tpu_torch"
@@ -36,7 +37,7 @@ def _modules():
 
 def test_importing_every_module_loads_no_jax():
     mods = _modules()
-    assert len(mods) >= 18, mods
+    assert len(mods) >= 24 and "curve_gaussian_tpu_torch.ops.tile_blend_cuda" in mods, mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -77,6 +78,7 @@ def test_entry_points_default_to_the_card():
         lambda: pcs.init_state(pts, n_views=1),
         lambda: synthetic.ring_cameras(1, 32, 32),
         lambda: pcam.look_at_camera([0, 0, -2.0], [0, 0, 0]),
+        lambda: synthetic.make_scene(n_views=1, height=32, width=32),
         lambda: convert.state_from_numpy(
             {k: np.zeros((2, 1)) for k in pcs.TRAINABLE_FIELDS}, [True] * 2, [True] * 2),
         lambda: curve_gaussian_tpu_torch.resolve_device(),
@@ -111,15 +113,42 @@ def _small_blend_inputs(device):
     return H, W, to(fields), to(gidx), to(counts), to(torch.zeros(1)), to(gc), to(gtt)
 
 
+def _channel_fields(fields, geo, invd, ones):
+    """The training rows widened to a channel set: the six geometry fields,
+    then seeded positive values in the colour, inverse-depth and allmap
+    columns the set has."""
+    _, nf = prc.field_layout(geo, invd, ones)
+    n = (0 if ones else 1) + (1 if invd else 0) + (4 if geo else 0)
+    g = torch.Generator().manual_seed(1)
+    extra = 0.2 + torch.rand((fields.shape[0], n), generator=g).to(fields.device)
+    pad = fields.new_zeros((fields.shape[0], nf - 6 - n))
+    return torch.cat([fields[:, :6], extra, pad], dim=1).contiguous()
+
+
+def _cotangents(H, W, device):
+    g = torch.Generator().manual_seed(2)
+    return tuple(torch.randn(s, generator=g).to(device).contiguous()
+                 for s in ((H, W), (H, W), (H, W), (4, H, W)))
+
+
+CHANNEL_SETS = [(True, True, True), (False, False, True), (True, True, False)]
+
+
 def test_wrappers_launch_nothing_on_cpu():
-    wrappers = (prc.blend_train_fwd, prc.blend_train_bwd, psc.ssim_fwd, psc.ssim_bwd)
+    wrappers = (prc.blend_train_fwd, prc.blend_train_bwd, psc.ssim_fwd, psc.ssim_bwd,
+                ptb.tile_blend_fwd, ptb.tile_blend_bwd, ptb.blend_moment_bwd)
     before = [w.launches for w in wrappers]
     H, W, fields, gidx, counts, bg, gc, gtt = _small_blend_inputs("cpu")
     col, finT = prc.blend_train_fwd(fields, gidx, counts, bg, H, W)
     prc.blend_train_bwd(fields, gidx, counts, col, finT, gc, gtt)
     psc.ssim_fwd(col, gc)
     psc.ssim_bwd(col, gc, torch.ones(()))
-    assert [w.launches for w in wrappers] == before == [0, 0, 0, 0]
+    for geo, invd, ones in CHANNEL_SETS:
+        f = _channel_fields(fields, geo, invd, ones)
+        outs = ptb.tile_blend_fwd(f, gidx, counts, bg, H, W, geo, invd, ones)
+        ptb.tile_blend_bwd(f, gidx, counts, outs, _cotangents(H, W, "cpu"), geo, invd, ones)
+    ptb.blend_moment_bwd(fields, gidx, counts, col, finT, gc, gtt)
+    assert [w.launches for w in wrappers] == before == [0] * 7
 
 
 @pytest.mark.cuda
@@ -143,3 +172,20 @@ def test_kernels_match_plain_on_card():
         torch.testing.assert_close(d, d_p, atol=1e-4 * float(d_p.abs().max()), rtol=0)
     with pytest.raises(ValueError):
         prc.blend_train_fwd(fields.double(), gidx, counts, bg, H, W)  # kernels take float32
+    # K3, K4 and K5: the same operations in the same order as the plain
+    # versions, sums over a tile's pixels in another order
+    for geo, invd, ones in CHANNEL_SETS:
+        f = _channel_fields(fields, geo, invd, ones)
+        n3, n4 = ptb.tile_blend_fwd.launches, ptb.tile_blend_bwd.launches
+        outs = ptb.tile_blend_fwd(f, gidx, counts, bg, H, W, geo, invd, ones)
+        outs_p = ptb.tile_blend_fwd_plain(f, gidx, counts, bg, H, W, geo, invd, ones)
+        for o, o_p in zip(outs, outs_p):
+            torch.testing.assert_close(o, o_p, atol=1e-6, rtol=0)
+        cots = _cotangents(H, W, "cuda")
+        dpay = ptb.tile_blend_bwd(f, gidx, counts, outs, cots, geo, invd, ones)
+        dpay_p = ptb.tile_blend_bwd_plain(f, gidx, counts, outs, cots, geo, invd, ones)
+        torch.testing.assert_close(dpay, dpay_p, atol=1e-4 * float(dpay_p.abs().max()), rtol=0)
+        assert (ptb.tile_blend_fwd.launches, ptb.tile_blend_bwd.launches) == (n3 + 1, n4 + 1)
+    mom = ptb.blend_moment_bwd(fields, gidx, counts, col, finT, gc, gtt)
+    mom_p = ptb.blend_moment_bwd_plain(fields, gidx, counts, col, finT, gc, gtt)
+    torch.testing.assert_close(mom, mom_p, atol=1e-4 * float(mom_p.abs().max()), rtol=0)
