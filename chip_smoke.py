@@ -40,6 +40,23 @@
       few timed ``train_step``s of each flavor.
    Each path's launch counters are set to 0 just before it and read just
    after; each kernel of the path must have launched.
+7. The basis flavor of the training backward (K6b), on the main path's K2
+   inputs: against its plain version and against K2 (the same function
+   through another formulation), timed beside its bound; ``step_grads``
+   under ``CGT_BLEND_FLAVOR=basis`` against the default flavor; then 5
+   ``train_step``s that must launch K6b 5 times and K2 never.
+8. The training driver at full width: ``curve_gaussian_tpu_torch.train``'s
+   ``main`` on the synthetic scene (24 views of 512x512, the 15^3 seed
+   grid in capacity 4,096, 12 Gaussians per curve, 600 iterations with the
+   schedule compressed to fit: densify, the densify_until prune, prune and
+   trim, split, merge), test renders at 300 and 600, a checkpoint at 550.
+   It prints iterations per second, every surgery event with its curve
+   count, capacity and host time, the tile and big capacity changes, peak
+   memory, the launches of every kernel (K1, K2, K7 and K8 once per step,
+   K3 once per rendered view) and eval.json's Chamfer, precision, recall
+   and F-score; checks that the artifacts exist, that the checkpoint loads
+   into a template leaf by leaf bitwise, and that a second run resumes
+   from it to 600 and writes its own ``parametric_edges.json``.
 
 Any failed check exits non-zero.  The last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -86,6 +103,9 @@ EXPF_OPS = 10  # expf's SASS on sm_90a: 4 FFMA (2 each), FADD, FMUL; and a MUFU.
 GATE_OPS = 2 + 9 + EXPF_OPS + 2 + 2  # offsets, power, expf, alpha (mul, min), two gates
 T_OPS = 3  # alpha T, T - alpha T, the T test
 MOMENT_OPS = T_OPS + 2 + 2 + 4 + 12  # prefix, 1/(1-a), g_alpha, 6 products and 6 sums
+# K6b's recombination per contributing instance: the local centre 2, M1 2,
+# M2 2, M3 5, M4 7, M5 5 (its raw sums cost what K2's moments cost per pair)
+RECOMB_OPS = 23
 # per pixel of the SSIM kernels
 K7_OPS = 239  # products 3, two 11-tap passes over 5 maps 220, SSIM map 16
 K8_OPS = 437  # moments 223, d-maps 30, adjoint blur of 4 maps 176, combine 8
@@ -108,7 +128,8 @@ def k4_ops(nch: int, ngch: int) -> int:
 
 def pair_counts(fields, gidx, counts, H: int, W: int):
     """(live, contributing) (instance, pixel) pairs of one blend's inputs,
-    from the plain front-to-back pass."""
+    and the instances with a contributing pair, from the plain
+    front-to-back pass."""
     with torch.no_grad():
         nty, ntx = tile_grid(H, W)
         px, py = RC._pixels(nty, ntx, fields.dtype, fields.device)
@@ -117,24 +138,28 @@ def pair_counts(fields, gidx, counts, H: int, W: int):
         T = torch.ones_like(px)
         live = torch.zeros((), dtype=torch.int64, device=fields.device)
         contrib_n = torch.zeros_like(live)
+        inst_n = torch.zeros_like(live)
         for j in range(int(counts.max())):
             listed = (j < counts)[:, None]
             live += (act & listed).sum()
             _, _, _, _, contrib, T, act = RC._composite_step(pay[:, j], px, py, T, act)
             contrib_n += (contrib & listed).sum()
-    return int(live), int(contrib_n)
+            inst_n += (contrib & listed).any(dim=1).sum()
+    return int(live), int(contrib_n), int(inst_n)
 
 
-def blend_bound(nbytes: float, pairs, contrib_ops: int):
+def blend_bound(nbytes: float, pairs, contrib_ops: int, inst_ops: int = 0):
     """bound_ms of a blend kernel: GATE_OPS for each live pair, contrib_ops
-    for each contributing pair, one exp2 per live pair."""
-    live, contrib = pairs
-    return bound_ms(nbytes, live * GATE_OPS + contrib * contrib_ops, live)
+    for each contributing pair, inst_ops for each contributing instance,
+    one exp2 per live pair."""
+    live, contrib, inst = pairs
+    return bound_ms(nbytes, live * GATE_OPS + contrib * contrib_ops + inst * inst_ops, live)
 
 
 def pairs_note(pairs) -> str:
-    live, contrib = pairs
-    return f"pairs live {live} contributing {contrib} ({100 * contrib / max(live, 1):.2f}%)"
+    live, contrib, inst = pairs
+    return (f"pairs live {live} contributing {contrib} ({100 * contrib / max(live, 1):.2f}%), "
+            f"contributing instances {inst}")
 
 
 # tolerances of kernel against plain version (max error over max |plain|)
@@ -153,7 +178,14 @@ TOL = {
     # tree order against torch.sum's
     "tile_blend_bwd": 1e-4,
     "blend_moment_bwd": 1e-4,
+    # the same D' as K2, its six sums over a tile's pixels in warp tree and
+    # atomicAdd order against torch.sum's, then the same recombination
+    "blend_train_bwd_basis": 1e-4,
 }
+# K6b against K2 (max error over max |d fields| of K2): the same moments
+# through the raw local sums and their recombination, which cancels terms
+# up to ~31^2 times the result's size in float32
+BASIS_TOL = 1e-3
 # the table and indirect flavors' gradients against the default flavor's,
 # per parameter group (max error over max |default|).  The forward is the
 # same kernel (K1 is K3's training instantiation), so only the backward
@@ -417,8 +449,15 @@ def main() -> None:
     # -- the full-channel render ---------------------------------------------
     kernels += full_channel(ts, cams, gts, opt_cfg, pipe_cfg, M, dev)
 
+    # -- the basis flavor (K6b), on the main path's K2 inputs -------------------
+    kernels.append(basis_flavor((fields, gidx, counts, col, finT, gc, gtt), acc, pairs, ts,
+                                cams, gts, opt_cfg, pipe_cfg, M))
+
     if profile:
         profile_step(step)
+
+    # -- the training driver at full width ---------------------------------------
+    driver(dev)
 
     print(json.dumps({"kernels": [{k: v for k, v in d.items() if k != "rel_err"}
                                   for d in kernels]}), flush=True)
@@ -435,6 +474,7 @@ WRAPPERS = {
     "ssim_fwd": SC.ssim_fwd, "ssim_bwd": SC.ssim_bwd,
     "tile_blend_fwd": TB.tile_blend_fwd, "tile_blend_bwd": TB.tile_blend_bwd,
     "blend_moment_bwd": TB.blend_moment_bwd,
+    "blend_train_bwd_basis": RC.blend_train_bwd_basis,
 }
 
 
@@ -455,10 +495,6 @@ def run_path(name: str, fn, must: tuple, must_not: tuple = ()):
         if counts[n] != 0:
             fail(f"kernel {n} was launched by the {name} path, which routes elsewhere")
     return out, counts
-
-
-def state_of(ts) -> cs.CurveState:
-    return cs.CurveState(**ts.params, is_bezier=ts.is_bezier, alive=ts.alive)
 
 
 def tile_inputs(state, cam, pipe_cfg, geo, invd, ones, color=None):
@@ -540,7 +576,7 @@ def full_channel(ts, cams, gts, opt_cfg, pipe_cfg, M, dev):
     """Phase 6 of the module docstring; returns the K3, K4 and K5 entries
     (K3 and K4 at the eval render's channel set)."""
     H, W = cams[0].height, cams[0].width
-    state = state_of(ts)
+    state = cs.curve_state_of(ts)
     gen = torch.Generator(dev).manual_seed(2)
 
     # -- a. K3, K4, K5 against their plain versions ------------------------------
@@ -707,6 +743,185 @@ def full_channel(ts, cams, gts, opt_cfg, pipe_cfg, M, dev):
         else:
             os.environ["CGT_BLEND_FLAVOR"] = old
     return [k3, k4, k5]
+
+
+def basis_flavor(inputs, acc_k2, pairs, ts, cams, gts, opt_cfg, pipe_cfg, M):
+    """Phase 7 of the module docstring; returns K6b's kernel entry."""
+    fields, gidx, counts, col, finT, gc, gtt = inputs
+    H, W = col.shape
+    acc = RC.blend_train_bwd_basis(*inputs)
+    acc_p = RC.blend_train_bwd_basis_plain(*inputs)
+    torch.cuda.synchronize()
+    d6 = RC.moments_to_dfields(acc, fields)
+    e6 = rel_err(d6, RC.moments_to_dfields(acc_p, fields))
+    e_k2 = rel_err(d6, RC.moments_to_dfields(acc_k2, fields))
+    n_inst, P1, Tn = int(counts.sum()), fields.shape[0], gidx.shape[0]
+    b6, by6 = blend_bound(P1 * 32 + n_inst * 4 + Tn * 4 + 4 * H * W * 4 + P1 * 32, pairs,
+                          MOMENT_OPS, RECOMB_OPS)
+    k6 = dict(
+        name="blend_train_bwd_basis", route="cuda", source=BLEND_SRC,
+        replaces="curve_gaussian_tpu/ops/rasterize_pallas.py:789", launches=0,
+        max_abs_err=(acc - acc_p).abs().max().item(), rel_err=e6,
+        ms=cuda_ms(lambda: RC.blend_train_bwd_basis(*inputs), 20),
+        plain_ms=cuda_ms(lambda: RC.blend_train_bwd_basis_plain(*inputs), 3),
+        bound_ms=b6, bound_by=by6, library_ms=None,
+    )
+    report(k6, f"main path's K2 inputs {pairs_note(pairs)}")
+    k2_ms = cuda_ms(lambda: RC.blend_train_bwd(*inputs), 20)
+    print(f"kernel blend_train_bwd_basis against K2: d fields error over max {e_k2:.3g} "
+          f"(tol {BASIS_TOL:g}); K2 {k2_ms:.4f} ms in this phase", flush=True)
+    if not e_k2 <= BASIS_TOL:
+        fail(f"K6b disagrees with K2: {e_k2} > {BASIS_TOL}")
+
+    args = (cams[0], gts[0], 0.0, opt_cfg, pipe_cfg)
+    kw = dict(use_mask=False, n_gaussians=M)
+    ref = T.step_grads(ts, *args, **kw)[2]
+    old = os.environ.get("CGT_BLEND_FLAVOR")
+    os.environ["CGT_BLEND_FLAVOR"] = "basis"
+    try:
+        grads_b, _ = run_path("step_grads basis", lambda: T.step_grads(ts, *args, **kw)[2],
+                              ("blend_train_fwd", "blend_train_bwd_basis"),
+                              ("blend_train_bwd", "tile_blend_fwd", "tile_blend_bwd",
+                               "blend_moment_bwd"))
+        errs = {k: rel_err(grads_b[k], ref[k]) for k in ref}
+        print(f"flavor basis: gradient error over max |default| per group "
+              f"{ {k: f'{v:.3g}' for k, v in errs.items()} } (tol {FLAVOR_TOL:g})", flush=True)
+        if not max(errs.values()) <= FLAVOR_TOL:
+            fail("the basis flavor's gradients disagree with the default flavor's")
+
+        def steps(n=5):
+            tsb = ts
+            torch.cuda.synchronize()
+            t0 = time.time()
+            for i in range(n):
+                tsb, _ = T.train_step(tsb, cams[i % 4], gts[i % 4], 0.0, opt_cfg, pipe_cfg, **kw)
+            torch.cuda.synchronize()
+            return (time.time() - t0) / n
+
+        step_s, c_b = run_path("train_step basis", steps,
+                               ("blend_train_fwd", "blend_train_bwd_basis", "ssim_fwd",
+                                "ssim_bwd"),
+                               ("blend_train_bwd", "tile_blend_fwd", "tile_blend_bwd",
+                                "blend_moment_bwd"))
+    finally:
+        if old is None:
+            os.environ.pop("CGT_BLEND_FLAVOR", None)
+        else:
+            os.environ["CGT_BLEND_FLAVOR"] = old
+    if (c_b["blend_train_bwd_basis"], c_b["blend_train_bwd"]) != (5, 0):
+        fail(f"5 basis-flavor steps launched K6b {c_b['blend_train_bwd_basis']} times and K2 "
+             f"{c_b['blend_train_bwd']} times, not 5 and 0")
+    print(f"flavor basis: {step_s * 1e3:.3f} ms/step (host clock, 5 steps)", flush=True)
+    k6["launches"] = c_b["blend_train_bwd_basis"]
+    return k6
+
+
+DRIVER_ARGS = ["--synthetic", "--image-size", "512", "--grid-init", "15", "--n-gaussians", "12",
+               "--iterations", "600", "--test-iterations", "300", "600",
+               "--checkpoint-iterations", "550", "--seed", "0", "--quiet"]
+DRIVER_DIR = "output_torch/chip_smoke"
+
+
+def driver(dev):
+    """Phase 8 of the module docstring."""
+    import shutil
+
+    from curve_gaussian_tpu_torch import train as TR
+    from curve_gaussian_tpu_torch.engine import checkpoint as CK
+
+    a = TR.parse_args(DRIVER_ARGS)
+    n_it, ck_it = a.iterations, a.checkpoint_iterations[0]
+    shutil.rmtree(DRIVER_DIR, ignore_errors=True)
+    run_dir = os.path.join(DRIVER_DIR, "run")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    res, c = run_path("driver", lambda: TR.main(DRIVER_ARGS + ["--model-path", run_dir]),
+                      ("blend_train_fwd", "blend_train_bwd", "ssim_fwd", "ssim_bwd",
+                       "tile_blend_fwd"),
+                      ("tile_blend_bwd", "blend_moment_bwd", "blend_train_bwd_basis"))
+    main_s = time.time() - t0
+    peak = torch.cuda.max_memory_allocated()
+    sec = res.seconds
+    iters = int(res.ts.step)
+    print(f"driver: {iters} iterations in {sec['train']:.2f} s of train_scene, "
+          f"{iters / sec['train']:.3f} it/s (host clock); main() {main_s:.2f} s with the scene "
+          f"and the eval; peak memory {peak / 2**30:.3f} GiB", flush=True)
+    print("driver: host seconds by phase " + ", ".join(
+        f"{k} {v:.3f} ({100 * v / sec['train']:.1f}%)" for k, v in sec.items() if k != "train"),
+        flush=True)
+    fired = set()
+    for e in res.events:
+        if e["kind"] == "surgery":
+            fired.update(e["ops"])
+            print(f"driver event {e['iter']}: {'+'.join(e['ops'])} -> {e['curves']} curves "
+                  f"(capacity {e['capacity']}), {e['seconds'] * 1e3:.1f} ms host", flush=True)
+        else:
+            print(f"driver event {e['iter']}: {e['kind']} {e['old']} -> {e['new']} ({e['why']})",
+                  flush=True)
+    missing = {"densify", "densify_until", "prune_trim", "split", "merge"} - fired
+    if missing:
+        fail(f"the driver run fired no {sorted(missing)} event")
+    # K1, K2, K7, K8 once per step; K3 once per view of make_scene and of each test render
+    want = dict(blend_train_fwd=n_it, blend_train_bwd=n_it, ssim_fwd=n_it, ssim_bwd=n_it,
+                tile_blend_fwd=a.synthetic_views + 2 * len(a.test_iterations))
+    for n, v in want.items():
+        if c[n] != v:
+            fail(f"the driver run launched {n} {c[n]} times, not {v}")
+    if iters != n_it:
+        fail(f"the driver run ended at step {iters}, not {n_it}")
+
+    for f in ("parametric_edges.json", "metrics.jsonl", "eval.json", f"chkpnt{ck_it}.npz",
+              "edge_points.ply", f"point_cloud/iteration_{n_it}/point_cloud.ply",
+              *(f"test_images/iter_{i:06d}/v{v:02d}_{k}.png" for i in a.test_iterations
+                for v in (0, 1) for k in ("render", "gt", "alpha", "depth", "dir"))):
+        if not os.path.exists(os.path.join(run_dir, f)):
+            fail(f"the driver run wrote no {f}")
+    with open(os.path.join(run_dir, "metrics.jsonl")) as fh:
+        rows = [json.loads(line) for line in fh]
+    totals = [r["total"] for r in rows if "total" in r]
+    tests = [(r["iter"], r["test_l1"], r["test_psnr"]) for r in rows if "test_l1" in r]
+    if not (totals and np.isfinite(totals).all()):
+        fail("metrics.jsonl holds no finite losses")
+    print(f"driver: logged loss first {totals[0]:.5f} last {totals[-1]:.5f}; test (iter, L1, "
+          f"PSNR) {tests}", flush=True)
+    with open(os.path.join(run_dir, "eval.json")) as fh:
+        ev = json.load(fh)
+    n_edges = len(res.edge_dict["curves_ctl_pts"]) + len(res.edge_dict["lines_end_pts"])
+    print(f"driver eval: {n_edges} edges; chamfer {ev['chamfer']:.5f} " + " ".join(
+        f"P/R/F@{t} {ev[f'precision_{t}']:.4f}/{ev[f'recall_{t}']:.4f}/{ev[f'fscore_{t}']:.4f}"
+        for t in (0.005, 0.01, 0.02)), flush=True)
+    if not np.isfinite(ev["chamfer"]):
+        fail("the driver run's Chamfer distance is not finite")
+
+    # the checkpoint, leaf by leaf into a template at its capacity
+    ckpt = os.path.join(run_dir, f"chkpnt{ck_it}.npz")
+    cap, step = CK.checkpoint_capacity(ckpt)
+    template = T.init_train_state(cs.init_state(
+        synthetic.grid_seed_points(a.grid_init)[:cap], n_views=a.synthetic_views,
+        n_gaussians=a.n_gaussians, capacity=cap, device=dev))
+    loaded = CK.load_checkpoint(ckpt, template)
+    with np.load(ckpt) as data:
+        bad = [k for k, v in CK.named_leaves(loaded).items()
+               if not (np.array_equal(CK.leaf_array(v), data[k])
+                       and CK.leaf_array(v).dtype == data[k].dtype)]
+    print(f"driver checkpoint: step {step}, capacity {cap}, "
+          f"{len(CK.named_leaves(loaded))} leaves, bitwise mismatches {bad}", flush=True)
+    if step != ck_it or bad:
+        fail(f"the checkpoint at {ck_it} does not load back bitwise")
+
+    resume_dir = os.path.join(DRIVER_DIR, "resume")
+    t0 = time.time()
+    res2, c2 = run_path("driver resume", lambda: TR.main(
+        DRIVER_ARGS + ["--model-path", resume_dir, "--start-checkpoint", ckpt]),
+        ("blend_train_fwd", "blend_train_bwd"))
+    print(f"driver resume: {ck_it} -> {int(res2.ts.step)} in {time.time() - t0:.2f} s, "
+          f"{c2['blend_train_fwd']} steps, {len(res2.edge_dict['curves_ctl_pts'])} curves "
+          f"and {len(res2.edge_dict['lines_end_pts'])} lines extracted", flush=True)
+    if (int(res2.ts.step), c2["blend_train_fwd"]) != (n_it, n_it - ck_it) or not os.path.exists(
+            os.path.join(resume_dir, "parametric_edges.json")):
+        fail(f"the resumed run did not train {ck_it} -> {n_it} and write its "
+             "parametric_edges.json")
 
 
 def small_check():

@@ -1,14 +1,15 @@
 """Configuration dataclasses, with the same fields and defaults as the JAX
 package's ``config.py``.
 
-The port keeps its own copy so that it imports nothing of the JAX package.
-A few fields only mean something to later slices of the port (the
-capacity-growth policy, the surgery thresholds); they are kept so that a
-configuration carries across unchanged.
+The port keeps its own copy so that it imports nothing of the JAX package:
+the dataclasses, the detector and dataset presets, and the argparse bridge
+(``add_dataclass_args`` / ``dataclass_from_args``) the training CLI uses.
 """
 from __future__ import annotations
 
 import dataclasses
+from argparse import ArgumentParser
+from typing import Optional
 
 
 @dataclasses.dataclass(frozen=True)
@@ -90,3 +91,70 @@ class OptimizationConfig:
     split_interval: int = 1000
     split_from_iter: int = 3000
     merge_interval: int = 1000
+
+
+def pidinet_preset(opt: Optional[OptimizationConfig] = None) -> OptimizationConfig:
+    """The PidiNet edge detector's settings."""
+    o = opt or OptimizationConfig()
+    return dataclasses.replace(
+        o,
+        lambda_mse=2.0,
+        lambda_width=0.0,
+        threshold_line=0.002,
+        threshold_max_line=0.006,
+        distance_threshold=0.03,
+        similarity_threshold=0.95,
+    )
+
+
+def replica_preset(opt: Optional[OptimizationConfig] = None) -> OptimizationConfig:
+    """The Replica scenes' settings."""
+    o = opt or OptimizationConfig()
+    return dataclasses.replace(
+        o,
+        opacity_cull=0.05,
+        lambda_mse=1.0,
+        lambda_width=0.0,
+        threshold_line=2e-4,
+        threshold_max_line=1e-3,
+        similarity_threshold=0.95,
+    )
+
+
+def mv2cyl_preset(opt: Optional[OptimizationConfig] = None) -> OptimizationConfig:
+    """The MV2Cyl scenes' settings."""
+    o = opt or OptimizationConfig()
+    return dataclasses.replace(o, lambda_points_conn=0.02)
+
+
+PRESETS = {
+    "default": lambda o=None: o or OptimizationConfig(),
+    "pidinet": pidinet_preset,
+    "replica": replica_preset,
+    "mv2cyl": mv2cyl_preset,
+}
+
+
+def add_dataclass_args(parser: ArgumentParser, dc_type, prefix: str = "") -> None:
+    """One ``--<prefix><field>`` flag per dataclass field (default None, so
+    that an unset flag keeps the preset's value)."""
+    for f in dataclasses.fields(dc_type):
+        name = "--" + (prefix + f.name).replace("_", "-")
+        if f.type in ("bool", bool):
+            parser.add_argument(name, action="store_true", default=None)
+        else:
+            t = {"int": int, "float": float, "str": str}.get(str(f.type), None)
+            if t is None:
+                t = f.type if callable(f.type) else str
+            parser.add_argument(name, type=t, default=None)
+
+
+def dataclass_from_args(args, dc_type, base=None, prefix: str = ""):
+    """``base`` with every field whose flag was given replaced."""
+    base = base or dc_type()
+    updates = {}
+    for f in dataclasses.fields(dc_type):
+        v = getattr(args, (prefix + f.name), None)
+        if v is not None:
+            updates[f.name] = v
+    return dataclasses.replace(base, **updates)

@@ -1,9 +1,10 @@
 // Tile blend for Hopper (sm_90a): the forward of every channel set (K3,
 // whose training instantiation is K1), the per-slot backward of every field
 // (K4), and the moment backward of the training channel set, reduced into a
-// per-Gaussian accumulator (K2) or written per slot (K5).  Plain C
-// interface, loaded with ctypes by curve_gaussian_tpu_torch/ops/
-// rasterize_cuda.py (K1, K2) and tile_blend_cuda.py (K3, K4, K5).
+// per-Gaussian accumulator (K2, or K6b through a tile-local basis) or written
+// per slot (K5).  Plain C interface, loaded with ctypes by
+// curve_gaussian_tpu_torch/ops/rasterize_cuda.py (K1, K2, K6b) and
+// tile_blend_cuda.py (K3, K4, K5).
 //
 // Replaces the Pallas kernels of curve_gaussian_tpu/ops/rasterize_pallas.py:
 //   K1  _make_fwd_train_paired (and its unpaired odd-width form
@@ -11,14 +12,17 @@
 //       the training channel set, here fwd<GEO=0, INVD=0, ONES=1>
 //   K2  _make_bwd_moment_rmw_paired (and the unpaired
 //       _make_bwd_moment_rmw_kernel): six moments per (Gaussian, tile)
-//       reduced into a [P1, 8] accumulator, here moment<PER_SLOT=0>
+//       reduced into a [P1, 8] accumulator, here moment<PER_SLOT=0, BASIS=0>
 //   K3  _make_fwd_kernel(geo, invd, ones, indirect): compositing of the
 //       colour channel (ones or a per-splat colour), the inverse depth and
 //       the four allmap channels
 //   K4  _make_bwd_kernel(geo, invd, ones, indirect): the gradient of every
 //       field of every instance slot, written to a [T, K, NF] table
 //   K5  _make_bwd_moment_kernel(indirect=True): K2's six moments written per
-//       slot to a [T, K, 8] table, here moment<PER_SLOT=1>
+//       slot to a [T, K, 8] table, here moment<PER_SLOT=1, BASIS=0>
+//   K6b _make_bwd_moment_rmw_basis_kernel (USE_BASIS_BWD): K2's six moments
+//       through six raw tile-local sums of D' and a binomial recombination
+//       per instance, here moment<PER_SLOT=0, BASIS=1>
 // The slot -> Gaussian reduction of K4's and K5's tables is an index_add_
 // outside the kernels, as the JAX package leaves it to an XLA scatter-add.
 // The TPU layout is not copied: no tile pairing, no (8,128) register tiles,
@@ -365,7 +369,7 @@ tile_blend_bwd_kernel(const float* __restrict__ fields, const int* __restrict__ 
 }
 
 // ---------------------------------------------------------------------------
-// K2 and K5: moments of the training channel set
+// K2, K5 and K6b: moments of the training channel set
 // ---------------------------------------------------------------------------
 //
 // One front-to-back pass carries T and the prefix pr += gc w, which gives
@@ -374,8 +378,22 @@ tile_blend_bwd_kernel(const float* __restrict__ fields, const int* __restrict__ 
 // D'dy^2) of each instance are reduced over the tile's pixels, then either
 // added into the Gaussian's row of out[P1, 8] (K2: atomicAdd, nonzero sums
 // only) or written to the slot's row of out[T, K, 8] (K5, PER_SLOT).
+//
+// BASIS (K6b) reduces instead the raw sums of D' against the pixel's
+// tile-local coordinates x' = x - 32 tx, y' = y - 32 ty (S0, Sx, Sy, Sxx,
+// Sxy, Syy; the weights stay below 31^2 = 961), and recombines them per
+// instance around its local centre (cx, cy) = mean - tile origin, since
+// dx = cx - x' and dy = cy - y':
+//   M0 = S0, M1 = cx S0 - Sx, M2 = cy S0 - Sy,
+//   M3 = cx (cx S0 - 2 Sx) + Sxx, M4 = cx cy S0 - cx Sy - cy Sx + Sxy,
+//   M5 = cy (cy S0 - 2 Sy) + Syy,
+// one thread per instance, before the atomicAdd.  The TPU kernel's lane
+// basis and sublane combiner matrices (two MXU dots) are layout: a thread
+// here knows its pixel's (x', y').  All sums stay in float32; in global
+// coordinates the weights would reach 511^2 and the recombination would
+// cancel the gradient away.
 
-template <bool PER_SLOT>
+template <bool PER_SLOT, bool BASIS>
 __global__ void __launch_bounds__(NTHREADS)
 blend_moment_bwd_kernel(const float* __restrict__ fields, const int* __restrict__ gidx,
                         const int* __restrict__ counts, const float* __restrict__ col,
@@ -383,6 +401,7 @@ blend_moment_bwd_kernel(const float* __restrict__ fields, const int* __restrict_
                         const float* __restrict__ gtt, float* __restrict__ out,
                         int H, int W, int ntx, int K) {
   static_assert(BWD_CHUNK * 6 <= NTHREADS, "one pass of the block writes a chunk's moments");
+  static_assert(!(PER_SLOT && BASIS), "the basis flavor reduces into the accumulator");
   __shared__ float s_f[6][BWD_CHUNK];
   __shared__ int s_id[BWD_CHUNK];
   __shared__ float s_red[NWARPS][BWD_CHUNK][6];
@@ -394,12 +413,14 @@ blend_moment_bwd_kernel(const float* __restrict__ fields, const int* __restrict_
   const int warp = threadIdx.x >> 5;
   const int gx = tx * TILE + lane;
   const float px = (float)gx;
-  float py[PPT], T[PPT], pr[PPT], gcv[PPT], binv[PPT];
+  const float lx = (float)lane;  // tile-local x' (BASIS)
+  float py[PPT], ly[PPT], T[PPT], pr[PPT], gcv[PPT], binv[PPT];
   bool act[PPT];
 #pragma unroll
   for (int k = 0; k < PPT; ++k) {
     const int gy = ty * TILE + warp + 8 * k;
     py[k] = (float)gy;
+    ly[k] = (float)(warp + 8 * k);  // tile-local y' (BASIS)
     T[k] = 1.0f;
     pr[k] = 0.0f;
     act[k] = (gx < W) && (gy < H);
@@ -444,14 +465,16 @@ blend_moment_bwd_kernel(const float* __restrict__ fields, const int* __restrict_
             const float inv1a = 1.0f / (1.0f - alpha);
             const float gal = gcv[k] * Ti + inv1a * (binv[k] + pr[k]);
             const float Dp = gal * G;
-            const float e1 = Dp * dx;
-            const float e2 = Dp * dy;
+            const float wx = BASIS ? lx : dx;
+            const float wy = BASIS ? ly[k] : dy;
+            const float e1 = Dp * wx;
+            const float e2 = Dp * wy;
             m[0] += Dp;
             m[1] += e1;
             m[2] += e2;
-            m[3] += e1 * dx;
-            m[4] += e1 * dy;
-            m[5] += e2 * dy;
+            m[3] += e1 * wx;
+            m[4] += e1 * wy;
+            m[5] += e2 * wy;
             hit = true;
           } else {
             act[k] = false;
@@ -471,7 +494,32 @@ blend_moment_bwd_kernel(const float* __restrict__ fields, const int* __restrict_
       }
     }
     __syncthreads();
-    if (threadIdx.x < cnt * 6) {
+    if constexpr (BASIS) {
+      if (threadIdx.x < cnt) {
+        const int jj = threadIdx.x;
+        float S[6];
+#pragma unroll
+        for (int q = 0; q < 6; ++q) {
+          S[q] = 0.0f;
+#pragma unroll
+          for (int w = 0; w < NWARPS; ++w) S[q] += s_red[w][jj][q];
+        }
+        const float cx = s_f[0][jj] - (float)(tx * TILE);
+        const float cy = s_f[1][jj] - (float)(ty * TILE);
+        const float M[6] = {
+            S[0],
+            cx * S[0] - S[1],
+            cy * S[0] - S[2],
+            cx * (cx * S[0] - 2.0f * S[1]) + S[3],
+            cx * cy * S[0] - cx * S[2] - cy * S[1] + S[4],
+            cy * (cy * S[0] - 2.0f * S[2]) + S[5],
+        };
+#pragma unroll
+        for (int q = 0; q < 6; ++q) {
+          if (M[q] != 0.0f) atomicAdd(out + 8 * (size_t)s_id[jj] + q, M[q]);
+        }
+      }
+    } else if (threadIdx.x < cnt * 6) {
       const int jj = threadIdx.x / 6;
       const int q = threadIdx.x % 6;
       float s = 0.0f;
@@ -525,11 +573,11 @@ inline int channel_set(int geo, int invd, int ones) {
   return (geo ? 4 : 0) + (invd ? 2 : 0) + (ones ? 1 : 0);
 }
 
-template <bool PER_SLOT>
+template <bool PER_SLOT, bool BASIS>
 int launch_moment(const void* fields, const void* gidx, const void* counts, const void* col,
                   const void* finT, const void* gc, const void* gtt, void* out, int H, int W,
                   int nty, int ntx, int K, void* stream) {
-  blend_moment_bwd_kernel<PER_SLOT><<<nty * ntx, NTHREADS, 0, (cudaStream_t)stream>>>(
+  blend_moment_bwd_kernel<PER_SLOT, BASIS><<<nty * ntx, NTHREADS, 0, (cudaStream_t)stream>>>(
       (const float*)fields, (const int*)gidx, (const int*)counts, (const float*)col,
       (const float*)finT, (const float*)gc, (const float*)gtt, (float*)out, H, W, ntx, K);
   return (int)cudaGetLastError();
@@ -555,8 +603,17 @@ int blend_train_fwd(const void* fields, const void* gidx, const void* counts, co
 int blend_train_bwd(const void* fields, const void* gidx, const void* counts, const void* col,
                     const void* finT, const void* gc, const void* gtt, void* acc, int H, int W,
                     int nty, int ntx, int K, void* stream) {
-  return launch_moment<false>(fields, gidx, counts, col, finT, gc, gtt, acc, H, W, nty, ntx, K,
-                              stream);
+  return launch_moment<false, false>(fields, gidx, counts, col, finT, gc, gtt, acc, H, W, nty,
+                                     ntx, K, stream);
+}
+
+// K6b: K2's moments through the tile-local basis, added into acc[P1, 8],
+// which the caller zeroes
+int blend_train_bwd_basis(const void* fields, const void* gidx, const void* counts,
+                          const void* col, const void* finT, const void* gc, const void* gtt,
+                          void* acc, int H, int W, int nty, int ntx, int K, void* stream) {
+  return launch_moment<false, true>(fields, gidx, counts, col, finT, gc, gtt, acc, H, W, nty,
+                                    ntx, K, stream);
 }
 
 // K3: invd and am are written only for a channel set that has them
@@ -586,8 +643,8 @@ int tile_blend_bwd(const void* fields, const void* gidx, const void* counts, con
 int blend_moment_bwd(const void* fields, const void* gidx, const void* counts, const void* col,
                      const void* finT, const void* gc, const void* gtt, void* mom, int H, int W,
                      int nty, int ntx, int K, void* stream) {
-  return launch_moment<true>(fields, gidx, counts, col, finT, gc, gtt, mom, H, W, nty, ntx, K,
-                             stream);
+  return launch_moment<true, false>(fields, gidx, counts, col, finT, gc, gtt, mom, H, W, nty,
+                                    ntx, K, stream);
 }
 
 }  // extern "C"

@@ -1,0 +1,571 @@
+"""The training driver: schedule, capacity policy, logging, test renders,
+checkpoints, artifacts and extraction, as
+``curve_gaussian_tpu/engine/loop.py::train_scene``.
+
+The optimizer update comes first and the surgery after it, as in the JAX
+package (the reference runs surgery between backward and step and so drops
+that iteration's update of every re-registered tensor).
+
+What ``train_scene`` does, and how the port does it:
+
+- **Chunks** are the host-sync cadence.  ``chunk_plan`` cuts the run at
+  every event (surgery, test, save, checkpoint, the mask and connectivity
+  flips) and at most every ``scan_chunk`` steps.  Steps inside a chunk run
+  back to back with their metrics left on the device; the host reads them
+  once per chunk (one transfer), then applies the overflow and big-tier
+  grow policy, logs, and runs the surgery the schedule prescribes.  The
+  step never waits on the host in between.
+- **Capacity.** Surgery repacks the state at the power-of-two bucket of its
+  curve count, growing or shrinking at once.  The adaptive tile capacity K
+  and the big tier shrink toward their observed peaks at the chunk end too:
+  the JAX package's TPU run switches once the smaller shapes' compile has
+  warmed, and the port has nothing to compile.
+- **Views and background** come from ``random.Random(seed)`` in the JAX
+  package's order, so both packages visit the same views.
+- **Left out as TPU/XLA machinery:** the ``Prewarmer`` and ``engine/warm.py``
+  (ahead-of-time compiles), the persistent compile cache, the
+  ``device_put`` commits of the state, and the deferral of a capacity
+  shrink until its compile is warm; PyTorch runs eagerly and compiles
+  nothing.  ``views_per_step > 1`` and ``n_devices`` belong to the
+  multi-device slice and raise.
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+import random
+import struct
+import time
+import zlib
+from typing import Dict, List, NamedTuple, Optional, Sequence, Set, Tuple
+
+import numpy as np
+import torch
+
+from .. import resolve_device
+from ..config import ModelConfig, OptimizationConfig, PipelineConfig
+from ..data.ply import write_ply
+from ..eval import extract as extract_mod
+from ..models import curve_state as cs
+from ..models import surgery
+from ..models.ellipsoids import save_ellipsoid_mesh
+from ..models.gaussian_ply import save_gaussian_ply
+from ..ops.camera import Camera
+from . import checkpoint as ckpt_mod
+from .train import TrainState, eval_render, init_train_state, train_step
+
+
+class JsonlLogger:
+    """Metrics logger: one JSON row per logged iteration in
+    <model_path>/metrics.jsonl, and a progress line on stdout."""
+
+    def __init__(self, model_path: str, quiet: bool = False):
+        os.makedirs(model_path, exist_ok=True)
+        self.path = os.path.join(model_path, "metrics.jsonl")
+        self.f = open(self.path, "a")
+        self.quiet = quiet
+        self.ema: Dict[str, float] = {}
+
+    def log(self, iteration: int, metrics: Dict[str, float], extra=None):
+        row = {"iter": iteration, **{k: float(v) for k, v in metrics.items()}}
+        if extra:
+            row.update(extra)
+        self.f.write(json.dumps(row) + "\n")
+        self.f.flush()  # rows must be visible while the run is live
+        for k, v in metrics.items():
+            self.ema[k] = 0.4 * float(v) + 0.6 * self.ema.get(k, float(v))
+
+    def progress(self, iteration: int, n_curves: int):
+        if self.quiet:
+            return
+        ema = self.ema
+        print(
+            f"[{iteration:6d}] loss {ema.get('total', 0):.5f} "
+            f"smo {ema.get('curve_smo', 0):.5f} "
+            f"conn {ema.get('curve_conn', 0):.5f} curves {n_curves}",
+            flush=True,
+        )
+
+    def close(self):
+        self.f.close()
+
+
+class Chunk(NamedTuple):
+    """`k` steps after iteration `start` between two host syncs, with the
+    loss flags that hold for all of them.  `kp` is the JAX package's padded
+    scan length (its compiled shape), kept for ``future_combos``."""
+
+    start: int
+    k: int
+    kp: int
+    use_mask: bool
+    conn_on: bool
+
+
+def build_events(
+    first_iter: int,
+    opt_cfg: OptimizationConfig,
+    test_iterations: Sequence[int] = (),
+    save_iterations: Sequence[int] = (),
+    checkpoint_iterations: Sequence[int] = (),
+) -> Set[int]:
+    """Iterations after which the host acts: every surgery, the test, save
+    and checkpoint iterations, the last one, and a boundary right before
+    each loss-flag flip (the mask at densify_until, the connectivity term
+    after conn_from_iter)."""
+    events = set()
+    for i in range(first_iter + 1, opt_cfg.iterations + 1):
+        if surgery.schedule_fires(i, opt_cfg) or i == opt_cfg.densify_until_iter:
+            events.add(i)
+    events.add(opt_cfg.densify_until_iter - 1)
+    events.add(opt_cfg.conn_from_iter)
+    events.update(test_iterations)
+    events.update(save_iterations)
+    events.update(checkpoint_iterations)
+    events.add(opt_cfg.iterations)
+    return {e for e in events if first_iter < e <= opt_cfg.iterations}
+
+
+def chunk_plan(first_iter: int, opt_cfg: OptimizationConfig, events: Set[int],
+               scan_chunk: int) -> List[Chunk]:
+    """The whole run's chunks, from the configuration alone: each ends at
+    the next event or after `scan_chunk` steps."""
+    plan: List[Chunk] = []
+    it = first_iter
+    while it < opt_cfg.iterations:
+        nxt = min([e for e in events if e > it] or [opt_cfg.iterations])
+        k = min(nxt - it, scan_chunk)
+        kp = scan_chunk if k == scan_chunk else min(
+            1 << (k - 1).bit_length() if k > 1 else 1, scan_chunk
+        )
+        plan.append(Chunk(it, k, kp, (it + 1) >= opt_cfg.densify_until_iter,
+                          (it + 1) > opt_cfg.conn_from_iter))
+        it += k
+    return plan
+
+
+def future_combos(plan: List[Chunk], from_iter: int) -> List[Tuple[int, bool, bool]]:
+    """Distinct (kp, use_mask, conn_on) chunk shapes at or after
+    `from_iter`, in order of first use."""
+    out: List[Tuple[int, bool, bool]] = []
+    for ch in plan:
+        if ch.start < from_iter:
+            continue
+        key = (ch.kp, ch.use_mask, ch.conn_on)
+        if key not in out:
+            out.append(key)
+    return out
+
+
+def want_tile_capacity(peak: int, cur: int, floor: int = 128) -> int:
+    """Adaptive capacity: 2x headroom over the observed peak, a power of
+    two, never below `floor` (raised whenever a capacity overflowed), and
+    only a cut of at least 25% (hysteresis)."""
+    want = floor
+    while want < 2 * peak:
+        want *= 2
+    want = min(want, cur)
+    return want if want <= 3 * cur // 4 else cur
+
+
+@dataclasses.dataclass
+class TrainResult:
+    ts: TrainState
+    edge_dict: Dict
+    metrics_path: str
+    model_path: str
+    pipe_cfg: Optional[PipelineConfig] = None  # final (the capacities may change)
+    # what the driver did, in order: surgery (iteration, operations, curves,
+    # capacity, host seconds) and tile/big capacity changes
+    events: List[dict] = dataclasses.field(default_factory=list)
+    # host seconds by phase: steps (with their per-chunk metric reads),
+    # surgery, test renders, saves (artifacts and checkpoints), extraction
+    seconds: Dict[str, float] = dataclasses.field(default_factory=dict)
+
+
+def _chunk_metrics(ms: List[dict]) -> Dict[str, np.ndarray]:
+    """The per-step metric scalars of a chunk as {name: [k] float64}, read
+    from the device in one transfer."""
+    keys = list(ms[0])
+    rows = torch.stack([torch.stack([m[key].detach().to(torch.float64) for key in keys])
+                        for m in ms])
+    host = rows.cpu().numpy()
+    return {key: host[:, i] for i, key in enumerate(keys)}
+
+
+def train_scene(
+    cameras: Sequence[Camera],
+    edge_maps: Sequence,
+    seed_points: np.ndarray,
+    model_cfg: ModelConfig,
+    opt_cfg: OptimizationConfig,
+    pipe_cfg: PipelineConfig,
+    model_path: str,
+    test_cameras: Sequence[Camera] = (),
+    test_edge_maps: Sequence = (),
+    test_iterations: Sequence[int] = (3000, 10000),
+    save_iterations: Sequence[int] = (),
+    checkpoint_iterations: Sequence[int] = (),
+    start_checkpoint: Optional[str] = None,
+    log_every: int = 10,
+    quiet: bool = False,
+    seed: int = 0,
+    scan_chunk: int = 100,
+    dump_images: bool = True,
+    views_per_step: int = 1,
+    n_devices: Optional[int] = None,
+    profile_dir: Optional[str] = None,
+    device="cuda",
+) -> TrainResult:
+    """Train one scene end to end on `device`.  The cameras and edge maps
+    (numpy or tensors) must be on that device or the host; the state is
+    float32, as in the JAX package."""
+    if views_per_step > 1 or n_devices not in (None, 1):
+        raise NotImplementedError(
+            "views_per_step > 1 and n_devices are the data-parallel path, which the "
+            "multi-device slice of the port (ROADMAP slice 11) brings; this driver "
+            "trains on one device"
+        )
+    dev = resolve_device(device)
+    m = model_cfg.n_gaussians
+    state = cs.init_state(seed_points, n_views=len(cameras), n_gaussians=m, device=dev)
+    ts = init_train_state(state)
+    first_iter = 0
+    if start_checkpoint:
+        cap, _ = ckpt_mod.checkpoint_capacity(start_checkpoint)
+        if cap != state.capacity:
+            # a template at the saved capacity; every leaf comes from the
+            # file, so the first `cap` seeds stand in when surgery shrank the
+            # state below the seed count (the JAX driver pads all the seeds
+            # into the template and fails there)
+            state = cs.init_state(np.asarray(seed_points)[:cap], n_views=len(cameras),
+                                  n_gaussians=m, capacity=cap, device=dev)
+            ts = init_train_state(state)
+        ts = ckpt_mod.load_checkpoint(start_checkpoint, ts)
+        first_iter = int(ts.step)
+
+    bg = 1.0 if model_cfg.white_background else 0.0
+    rng = random.Random(seed)
+    if opt_cfg.random_background:
+        bg = rng.random()
+
+    if not all(c.height == cameras[0].height and c.width == cameras[0].width
+               for c in cameras):
+        raise ValueError(
+            "train_scene requires uniform image sizes across views (the edge "
+            "maps are stacked on the device); resize with -r or split the scene"
+        )
+    logger = JsonlLogger(model_path, quiet=quiet)
+    save_scene_artifacts(cameras, seed_points, model_path)
+    dt = ts.params["curve_points"].dtype
+    gt_all = torch.stack([torch.as_tensor(e) for e in edge_maps]).to(device=dev, dtype=dt)
+    test_gts = [extract_mod.host_array(e) for e in test_edge_maps]
+    view_stack: List[int] = []
+    t_start = time.time()
+    seconds = dict(steps=0.0, surgery=0.0, test_renders=0.0, saves=0.0, extraction=0.0)
+    events_log: List[dict] = []
+    scan_chunk = max(1, min(scan_chunk, opt_cfg.iterations - first_iter))
+    plan = chunk_plan(
+        first_iter, opt_cfg,
+        build_events(first_iter, opt_cfg, test_iterations, save_iterations,
+                     checkpoint_iterations),
+        scan_chunk,
+    )
+    # learned per-view exposure (the reference's train_test_exp): each step
+    # applies its train view's row to the render inside the loss
+    use_exp = model_cfg.train_test_exp
+
+    k_floor = 128  # raised whenever a tile_capacity overflows
+    b_floor = 256  # raised whenever the big tier overflows
+    peak_window: List[int] = []
+    bigpeak_window: List[int] = []
+
+    def cap_event(iteration, kind, old, new, why):
+        events_log.append(dict(iter=iteration, kind=kind, old=old, new=new, why=why))
+
+    profiled = False
+    for ch in plan:
+        iteration, k = ch.start, ch.k
+        use_mask, conn_on = ch.use_mask, ch.conn_on
+        idxs = []
+        for _ in range(k):
+            if not view_stack:
+                view_stack = list(range(len(cameras)))
+            idxs.append(view_stack.pop(rng.randrange(len(view_stack))))
+        t_chunk = time.time()
+        # profile the second chunk (the first one pays the kernel builds)
+        prof = None
+        if profile_dir is not None and iteration > first_iter and not profiled:
+            from torch.profiler import ProfilerActivity, profile
+
+            acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if dev.type == "cuda" else [])
+            prof = profile(activities=acts)
+            prof.__enter__()
+            profiled = True
+        ms = []
+        for vi in idxs:
+            ts, mt = train_step(
+                ts, cameras[vi], gt_all[vi], bg, opt_cfg, pipe_cfg, use_mask=use_mask,
+                n_gaussians=m, conn_on=conn_on, view_idx=vi if use_exp else None,
+                use_exposure=use_exp,
+            )
+            ms.append(mt)
+        metrics = _chunk_metrics(ms)  # the chunk's one host sync
+        if prof is not None:
+            prof.__exit__(None, None, None)
+            os.makedirs(profile_dir, exist_ok=True)
+            prof.export_chrome_trace(os.path.join(profile_dir, "trace.json"))
+            if not quiet:
+                print(f"profiler trace -> {profile_dir}", flush=True)
+        seconds["steps"] += time.time() - t_chunk
+
+        ov = int(metrics["overflow"].sum())
+        tol = pipe_cfg.overflow_tolerance * float(metrics["n_visible"].sum())
+        peak_window.append(int(metrics["tile_peak"].max()))
+        bigpeak_window.append(int(metrics["big_peak"].max()))
+        if 0 < ov <= tol:
+            k_floor = max(k_floor, pipe_cfg.tile_capacity)
+            print(
+                f"[{iteration + k:6d}] binning dropped {ov} tile candidates "
+                f"(within tolerance {tol:.0f}; occluded tail, not growing)",
+                flush=True,
+            )
+        elif ov > 0:
+            print(
+                f"[{iteration + k:6d}] WARNING: binning dropped {ov} tile "
+                f"candidates this chunk (tile_capacity {pipe_cfg.tile_capacity}"
+                f", policy {pipe_cfg.overflow_policy})",
+                flush=True,
+            )
+            if pipe_cfg.overflow_policy == "raise":
+                raise RuntimeError(
+                    f"tile binning overflow ({ov} candidates dropped at "
+                    f"tile_capacity={pipe_cfg.tile_capacity}); raise "
+                    "--tile-capacity or use overflow_policy='grow'"
+                )
+            if (pipe_cfg.overflow_policy == "grow"
+                    and pipe_cfg.tile_capacity < pipe_cfg.max_tile_capacity):
+                old = pipe_cfg.tile_capacity
+                pipe_cfg = dataclasses.replace(
+                    pipe_cfg, tile_capacity=min(old * 2, pipe_cfg.max_tile_capacity))
+                k_floor = max(k_floor, pipe_cfg.tile_capacity)
+                cap_event(iteration + k, "tile_capacity", old, pipe_cfg.tile_capacity, "grow")
+                print(f"[{iteration + k:6d}] growing tile_capacity -> "
+                      f"{pipe_cfg.tile_capacity} (from the next chunk)", flush=True)
+        # the big-rect tier grows on its own overflow count, so that the
+        # right capacity grows
+        bov = int(metrics["big_overflow"].sum())
+        if bov > 0:
+            print(
+                f"[{iteration + k:6d}] WARNING: big-rect tier dropped {bov} "
+                f"candidate slots (big_capacity {pipe_cfg.big_capacity})",
+                flush=True,
+            )
+            if (pipe_cfg.overflow_policy == "grow"
+                    and pipe_cfg.big_capacity < pipe_cfg.max_big_capacity):
+                old = pipe_cfg.big_capacity
+                pipe_cfg = dataclasses.replace(
+                    pipe_cfg, big_capacity=min(old * 2, pipe_cfg.max_big_capacity))
+                b_floor = max(b_floor, pipe_cfg.big_capacity)
+                cap_event(iteration + k, "big_capacity", old, pipe_cfg.big_capacity, "grow")
+                print(f"[{iteration + k:6d}] growing big_capacity -> "
+                      f"{pipe_cfg.big_capacity} (from the next chunk)", flush=True)
+        # per-iteration wall time (the reference's iter_time scalar)
+        metrics["iter_time"] = np.full(k, (time.time() - t_chunk) / k, np.float32)
+        for j in range(k):
+            it_j = iteration + 1 + j
+            if it_j % log_every == 0:
+                logger.log(it_j, {kk: v[j] for kk, v in metrics.items()})
+        iteration += k
+        if iteration % (log_every * 50) < k:
+            logger.progress(iteration, int(ts.alive.sum()))
+
+        ops = surgery.fired_ops(iteration, opt_cfg)
+        if ops:
+            t0 = time.time()
+            ts = surgery.apply_schedule(ts, iteration, opt_cfg)
+            n_alive, cap = int(ts.alive.sum()), ts.alive.shape[0]
+            dt_s = time.time() - t0
+            seconds["surgery"] += dt_s
+            events_log.append(dict(iter=iteration, kind="surgery", ops=ops, curves=n_alive,
+                                   capacity=cap, seconds=dt_s))
+            if not quiet:
+                print(f"[{iteration:6d}] surgery -> {n_alive} curves (capacity {cap})",
+                      flush=True)
+
+        # adaptive tile capacity: shrink the K and big-tier tables toward
+        # the observed peaks (2x headroom, power of two, hysteresis)
+        if peak_window and iteration < opt_cfg.iterations:
+            want = want_tile_capacity(max(peak_window[-3:]), pipe_cfg.tile_capacity, k_floor)
+            want_b = want_tile_capacity(max(bigpeak_window[-3:]), pipe_cfg.big_capacity,
+                                        b_floor)
+            if want < pipe_cfg.tile_capacity or want_b < pipe_cfg.big_capacity:
+                pk = max(peak_window[-3:])
+                if want < pipe_cfg.tile_capacity:
+                    cap_event(iteration, "tile_capacity", pipe_cfg.tile_capacity, want, "shrink")
+                if want_b < pipe_cfg.big_capacity:
+                    cap_event(iteration, "big_capacity", pipe_cfg.big_capacity, want_b, "shrink")
+                pipe_cfg = dataclasses.replace(pipe_cfg, tile_capacity=want, big_capacity=want_b)
+                peak_window.clear()
+                bigpeak_window.clear()
+                if not quiet:
+                    print(f"[{iteration:6d}] shrinking tile_capacity -> {want} / "
+                          f"big_capacity -> {want_b} (observed peaks {pk})", flush=True)
+
+        if iteration in test_iterations and test_cameras:
+            t0 = time.time()
+            l1s, psnrs = [], []
+            for ti, (tc, tg) in enumerate(zip(test_cameras, test_gts)):
+                with torch.no_grad():
+                    out = eval_render(ts, tc, pipe_cfg, bg, use_mask=use_mask,
+                                      mask_threshold=opt_cfg.mask_threshold)
+                img = out["render"].cpu().numpy()
+                l1s.append(float(np.abs(img - tg).mean()))
+                psnrs.append(-10.0 * np.log10(float(np.mean((img - tg) ** 2)) + 1e-12))
+                if dump_images and ti < 5:
+                    save_debug_images(out, tg, model_path, iteration, ti)
+            seconds["test_renders"] += time.time() - t0
+            logger.log(iteration, {"test_l1": np.mean(l1s), "test_psnr": np.mean(psnrs)})
+            if not quiet:
+                print(f"[{iteration:6d}] test L1 {np.mean(l1s):.5f} "
+                      f"PSNR {np.mean(psnrs):.2f}", flush=True)
+
+        t0 = time.time()
+        if iteration in save_iterations:
+            save_model_artifacts(ts, model_path, iteration)
+        if iteration in checkpoint_iterations:
+            ckpt_mod.save_checkpoint(os.path.join(model_path, f"chkpnt{iteration}.npz"), ts)
+        seconds["saves"] += time.time() - t0
+
+    wall = time.time() - t_start
+    done = int(ts.step) - first_iter
+    if not quiet and done:
+        print(f"training done: {done} iters in {wall:.1f}s ({done / wall:.2f} it/s)",
+              flush=True)
+
+    t0 = time.time()
+    host = surgery.extract(ts)
+    edge_dict = extract_mod.curves_to_edge_dict(
+        host, merge_endpoints_flag=opt_cfg.merge_endpoints_flag)
+    if opt_cfg.visible_checking:
+        edge_dict = extract_mod.filter_visible_edges(edge_dict, cameras, edge_maps)
+    extract_mod.save_parametric_edges(edge_dict, model_path)
+    pts, _ = extract_mod.sample_edge_dict(edge_dict)
+    if len(pts):
+        extract_mod.save_edge_points_ply(pts, model_path)
+    logger.close()
+    seconds["extraction"] = time.time() - t0
+    seconds["train"] = wall
+    return TrainResult(ts=ts, edge_dict=edge_dict, metrics_path=logger.path,
+                       model_path=model_path, pipe_cfg=pipe_cfg, events=events_log,
+                       seconds=seconds)
+
+
+def _colormap_turbo(x: np.ndarray) -> np.ndarray:
+    """[H,W] in [0,1] -> [H,W,3] uint8 through a compact turbo-like
+    polynomial."""
+    x = np.clip(x, 0.0, 1.0)
+    r = np.clip(1.61 * x**3 - 0.64 * x**2 + 0.82 * x + 0.19, 0, 1)
+    g = np.clip(-3.2 * (x - 0.52) ** 2 + 0.92, 0, 1)
+    b = np.clip(2.55 * (1 - x) ** 3 - 0.3 * (1 - x) + 0.27, 0, 1)
+    return (np.stack([r, g, b], axis=-1) * 255).astype(np.uint8)
+
+
+def write_png(path: str, img: np.ndarray) -> None:
+    """An 8-bit greyscale [H, W] or RGB [H, W, 3] uint8 image as a PNG,
+    with the standard library alone (zlib, struct)."""
+    img = np.ascontiguousarray(img, np.uint8)
+    h, w = img.shape[:2]
+    color = 2 if img.ndim == 3 else 0
+    raw = np.concatenate([np.zeros((h, 1), np.uint8), img.reshape(h, -1)], axis=1)
+
+    def chunk(tag: bytes, data: bytes) -> bytes:
+        return (struct.pack(">I", len(data)) + tag + data
+                + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
+
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n")
+        f.write(chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, color, 0, 0, 0)))
+        f.write(chunk(b"IDAT", zlib.compress(raw.tobytes(), 6)))
+        f.write(chunk(b"IEND", b""))
+
+
+def save_debug_images(out, gt, model_path: str, iteration: int, view: int):
+    """PNGs of the render, ground truth, alpha, inverse depth (colour-mapped)
+    and direction map of one test view, under the JAX package's names."""
+    d = os.path.join(model_path, f"test_images/iter_{iteration:06d}")
+    os.makedirs(d, exist_ok=True)
+    name = lambda s: os.path.join(d, f"v{view:02d}_{s}.png")  # noqa: E731
+
+    def gray(s, a):
+        write_png(name(s), (np.clip(extract_mod.host_array(a).astype(np.float32), 0, 1) * 255)
+                  .astype(np.uint8))
+
+    gray("render", out["render"])
+    gray("gt", gt)
+    gray("alpha", out["alpha"])
+    invd = extract_mod.host_array(out["invdepth"]).astype(np.float32)
+    rng = invd.max() - invd.min()
+    write_png(name("depth"), _colormap_turbo((invd - invd.min()) / (rng if rng > 0 else 1.0)))
+    # direction map: [-1,1]^3 -> RGB
+    dir_img = np.moveaxis(extract_mod.host_array(out["dir"]).astype(np.float32), 0, -1)
+    write_png(name("dir"), (np.clip(dir_img * 0.5 + 0.5, 0, 1) * 255).astype(np.uint8))
+
+
+def save_scene_artifacts(cameras, seed_points, model_path: str):
+    """input.ply (the seed cloud) and cameras.json."""
+    os.makedirs(model_path, exist_ok=True)
+    write_ply(os.path.join(model_path, "input.ply"), np.asarray(seed_points))
+    entries = []
+    for i, cam in enumerate(cameras):
+        c2w = np.linalg.inv(extract_mod.host_array(cam.world_to_cam).astype(np.float64))
+        entries.append({
+            "id": i,
+            "img_name": f"{i:05d}",
+            "width": cam.width,
+            "height": cam.height,
+            "position": c2w[:3, 3].tolist(),
+            "rotation": [r.tolist() for r in c2w[:3, :3]],
+            "fx": cam.width / (2.0 * cam.tanfovx),
+            "fy": cam.height / (2.0 * cam.tanfovy),
+        })
+    with open(os.path.join(model_path, "cameras.json"), "w") as f:
+        json.dump(entries, f)
+
+
+def save_model_artifacts(ts: TrainState, model_path: str, iteration: int):
+    """Snapshots under point_cloud/iteration_<n>/: the curves as a point
+    cloud, the Gaussians as a cloud with tangent normals, an ellipsoid mesh
+    and a 3DGS-format PLY; and exposure.json.  The Gaussians are derived on
+    the host from one copy of the alive curves."""
+    out_dir = os.path.join(model_path, f"point_cloud/iteration_{iteration}")
+    os.makedirs(out_dir, exist_ok=True)
+    host = surgery.extract(ts)
+    if host.n == 0:
+        return
+    t = np.linspace(0, 1, 200)
+    pts = surgery.np_curve_points(host.params["curve_points"], t, host.is_bezier).reshape(-1, 3)
+    colors = np.random.default_rng(0).uniform(0.2, 1.0, size=(host.n, 3))
+    write_ply(os.path.join(out_dir, f"curve_step{iteration}.ply"), pts,
+              np.repeat(colors, len(t), axis=0))
+
+    exposure = ts.params["exposure"].detach().cpu()
+    state = cs.CurveState(
+        **{k: torch.as_tensor(v) for k, v in host.params.items()},
+        exposure=exposure,
+        is_bezier=torch.as_tensor(host.is_bezier),
+        alive=torch.ones((host.n,), dtype=torch.bool),
+    )
+    with torch.no_grad():
+        g = {k: v.numpy() for k, v in cs.gaussians(state).items()}
+    write_ply(os.path.join(out_dir, "gaussians.ply"), g["xyz"], normals=g["tangent"])
+    save_ellipsoid_mesh(
+        os.path.join(out_dir, f"ellipsoids_step{iteration}.ply"), g["xyz"], g["quat"],
+        g["scale"], host.is_bezier, 1.0 / (1.0 + np.exp(-host.params["mask_raw"])),
+    )
+    save_gaussian_ply(os.path.join(out_dir, "point_cloud.ply"), g["xyz"], g["opacity"],
+                      g["scale"], g["quat"])
+    exposure = exposure.numpy()
+    with open(os.path.join(model_path, "exposure.json"), "w") as f:
+        json.dump({str(i): exposure[i].tolist() for i in range(len(exposure))}, f)

@@ -4,9 +4,11 @@
 One step = gaussians -> render (training configuration) -> total_loss ->
 backward -> per-group Adam -> densification statistics.  PyTorch runs
 eagerly, so there is no compiled step; ``train_steps`` is a plain loop in
-place of the JAX package's ``lax.scan`` chunk.  ``eval_render`` renders
-every channel of the current state.  Topology surgery, the capacity
-policy and the training loop (``engine/loop.py``) belong to a later slice.
+place of the JAX package's ``lax.scan`` chunk.  With ``use_exposure`` the
+view's learned exposure (scale, offset) applies to the render and its group
+is trained.  ``eval_render`` renders every channel of the current state.
+The training loop, with topology surgery and the capacity policy, is
+``engine/loop.py``.
 """
 from __future__ import annotations
 
@@ -53,10 +55,11 @@ def init_train_state(state: cs.CurveState) -> TrainState:
     )
 
 
-# groups whose gradient is zero by construction: the renderer forces ones
-# colour, and the learned exposure (the JAX step's use_exposure) belongs to
-# the training-loop slice; they skip the gradient and Adam entirely
-DEAD_GROUPS = ("features_dc", "exposure")
+def dead_groups(use_exposure: bool = False):
+    """Groups whose gradient is zero by construction in a step: the
+    renderer forces ones colour, and the exposure enters the loss only with
+    ``use_exposure``.  They skip the gradient and Adam entirely."""
+    return ("features_dc",) + (() if use_exposure else ("exposure",))
 
 
 def step_grads(
@@ -69,15 +72,22 @@ def step_grads(
     use_mask: bool,
     n_gaussians: int,
     conn_on: bool | None = None,
+    view_idx: int | None = None,
+    use_exposure: bool = False,
 ):
     """Loss and gradients of one step, without the update.
 
     Returns (loss, aux, grads, offset_grad, visible, radii, telemetry):
     grads holds the live groups only, offset_grad is d loss / d mean2d
-    [C*M, 2] (pixel units), telemetry the binning counters."""
+    [C*M, 2] (pixel units), telemetry the binning counters.  With
+    ``use_exposure`` the row ``view_idx`` of the exposure applies to the
+    render, and the exposure group is live."""
+    if use_exposure and view_idx is None:
+        raise ValueError("use_exposure requires the step's view_idx")
+    dead = dead_groups(use_exposure)
     live = {k: v.detach().requires_grad_(True) for k, v in ts.params.items()
-            if k not in DEAD_GROUPS}
-    params = {**{k: ts.params[k] for k in DEAD_GROUPS}, **live}
+            if k not in dead}
+    params = {**{k: ts.params[k] for k in dead}, **live}
     state = cs.CurveState(**params, is_bezier=ts.is_bezier, alive=ts.alive)
     P = ts.alive.shape[0] * n_gaussians
     ref = ts.params["curve_points"]
@@ -92,6 +102,7 @@ def step_grads(
             render_geo=False, compute_invdepth=False,
             capacity=pipe_cfg.tile_capacity, big_capacity=pipe_cfg.big_capacity,
             backend=pipe_cfg.backend,
+            exposure=params["exposure"][view_idx] if use_exposure else None,
         )
         loss, aux = L.total_loss(state, out, gauss, gt_image, opt_cfg, use_mask, conn_on=conn_on)
         names = list(live)
@@ -114,11 +125,14 @@ def train_step(
     use_mask: bool,
     n_gaussians: int,
     conn_on: bool | None = None,
+    view_idx: int | None = None,
+    use_exposure: bool = False,
 ):
     """One training step; returns (new TrainState, metrics).  The input
     state is not modified."""
     _, aux, grads, goffset, visible, radii, telemetry = step_grads(
         ts, cam, gt_image, bg, opt_cfg, pipe_cfg, use_mask, n_gaussians, conn_on=conn_on,
+        view_idx=view_idx, use_exposure=use_exposure,
     )
     lrs = optim.group_lrs(opt_cfg, ts.step)
     if ts.opacity_frozen:
@@ -160,12 +174,18 @@ def train_steps(
     use_mask: bool,
     n_gaussians: int,
     conn_on: bool | None = None,
+    view_indices: Sequence[int] | None = None,
+    use_exposure: bool = False,
 ):
-    """Run len(cams) steps in order; returns (state, list of metrics)."""
+    """Run len(cams) steps in order; returns (state, list of metrics).
+    ``view_indices`` gives each step's view (``use_exposure`` only)."""
+    if use_exposure and view_indices is None:
+        raise ValueError("use_exposure requires per-step view_indices")
     metrics: List[dict] = []
-    for cam, gt in zip(cams, gts):
+    for i, (cam, gt) in enumerate(zip(cams, gts)):
         ts, m = train_step(ts, cam, gt, bg, opt_cfg, pipe_cfg, use_mask, n_gaussians,
-                           conn_on=conn_on)
+                           conn_on=conn_on, use_exposure=use_exposure,
+                           view_idx=view_indices[i] if use_exposure else None)
         metrics.append(m)
     return ts, metrics
 
@@ -186,8 +206,7 @@ def eval_render(
     exposure when ``use_exposure``.  It stays differentiable; callers that
     only read the values wrap it in ``torch.no_grad()``.  The JAX function's
     ``n_gaussians`` has no counterpart: it is unused there too."""
-    state = cs.CurveState(**ts.params, is_bezier=ts.is_bezier, alive=ts.alive)
-    gauss = cs.gaussians(state, use_mask=use_mask, mask_threshold=mask_threshold)
+    gauss = cs.gaussians(cs.curve_state_of(ts), use_mask=use_mask, mask_threshold=mask_threshold)
     if use_exposure and view_idx is None:
         raise ValueError("use_exposure requires the view's train index")
     return render(

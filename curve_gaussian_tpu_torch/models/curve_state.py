@@ -11,7 +11,8 @@ Learnable leaves (the ``trainable`` dict):
 
 Topology leaves: is_bezier [C] bool, alive [C] bool.  The curve count
 lives in a fixed capacity C with an ``alive`` mask, as in
-``curve_gaussian_tpu/models/curve_state.py``.
+``curve_gaussian_tpu/models/curve_state.py``; topology surgery
+(``models/surgery.py``) repacks the state at a power-of-two capacity.
 """
 from __future__ import annotations
 
@@ -63,6 +64,15 @@ class CurveState:
 
 def trainable(state: CurveState) -> Dict[str, torch.Tensor]:
     return {k: getattr(state, k) for k in TRAINABLE_FIELDS}
+
+
+def curve_state_of(ts) -> CurveState:
+    """The CurveState of a training state (its params and topology masks)."""
+    return CurveState(**ts.params, is_bezier=ts.is_bezier, alive=ts.alive)
+
+
+def inverse_sigmoid_np(x):
+    return np.log(x / (1.0 - x))
 
 
 def round_capacity(n: int) -> int:

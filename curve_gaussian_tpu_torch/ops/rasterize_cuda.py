@@ -13,12 +13,16 @@ one with T (1 - alpha) < 1e-4 ends the pixel without contributing.  With
 ones colour the colour is 1 - T (1 - bg).
 
 K2 ``blend_train_bwd`` replaces ``_make_bwd_moment_rmw_paired`` (and the
-unpaired ``_make_bwd_moment_rmw_kernel``).  One front-to-back pass carries
+unpaired ``_make_bwd_moment_rmw_kernel``); K6b ``blend_train_bwd_basis``
+(the ``basis`` flavor) replaces ``_make_bwd_moment_rmw_basis_kernel``.  One front-to-back pass carries
 T and the prefix pr += gc w, so that
 g_alpha = gc T_i + (base_inv + pr) / (1 - alpha), base_inv = -gtt finT - gc col,
 and reduces the six moments of D' = g_alpha G (D', D'dx, D'dy, D'dx^2,
 D'dx dy, D'dy^2) over each tile's pixels into a [P1, 8] accumulator;
 ``moments_to_dfields`` maps them linearly to d(mx, my, ca, cb, cc, opa).
+K6b reaches the same six moments from six raw sums of D' in tile-local
+pixel coordinates (weights at most 31^2) and a binomial recombination per
+instance; it exists as the JAX package's A/B formulation of the backward.
 The derivative of alpha ignores the 0.99 clamp (d alpha / d opa = G), as
 the JAX kernels and the original CUDA rasterizer do, so the backward is the
 hand-derived moment formula and never autograd through the clamp.
@@ -156,10 +160,10 @@ def blend_train_fwd_plain(fields, gidx, counts, bg, H: int, W: int):
     return _from_tiles(col, nty, ntx, H, W), _from_tiles(T, nty, ntx, H, W)
 
 
-def moment_rows_plain(fields, gidx, counts, col, finT, gc, gtt):
-    """K2's moments per instance slot, [T, K, 8] (columns 0-5), before any
-    reduction to Gaussians: the plain version of K5, and of K2 once
-    index-added.  Slots past the longest tile list stay zero."""
+def _adjoints(fields, gidx, counts, col, finT, gc, gtt):
+    """K2's front-to-back pass over the instance slots of every tile at
+    once: yields (j, D', dx, dy), each [T, 1024], for slot j, where
+    D' = g_alpha G of the contributing pairs and 0 elsewhere."""
     H, W = col.shape
     nty, ntx = tile_grid(H, W)
     px, py = _pixels(nty, ntx, fields.dtype, fields.device)
@@ -170,23 +174,73 @@ def moment_rows_plain(fields, gidx, counts, col, finT, gc, gtt):
     act = torch.ones(px.shape, dtype=torch.bool, device=px.device)
     pr = torch.zeros_like(px)
     zero = torch.zeros_like(px)
-    mom = fields.new_zeros(gidx.shape + (NF,))
     for j in range(int(counts.max()) if counts.numel() else 0):
         Ti = T
         G, ag, dx, dy, contrib, T, act = _composite_step(pay[:, j], px, py, T, act)
         pr = pr + gc_t * torch.where(contrib, ag * Ti, zero)
         gal = gc_t * Ti + (1.0 / (1.0 - ag)) * (binv + pr)
-        Dp = torch.where(contrib, gal, zero) * G
+        yield j, torch.where(contrib, gal, zero) * G, dx, dy
+
+
+def moment_rows_plain(fields, gidx, counts, col, finT, gc, gtt):
+    """K2's moments per instance slot, [T, K, 8] (columns 0-5), before any
+    reduction to Gaussians: the plain version of K5, and of K2 once
+    index-added.  Slots past the longest tile list stay zero."""
+    mom = fields.new_zeros(gidx.shape + (NF,))
+    for j, Dp, dx, dy in _adjoints(fields, gidx, counts, col, finT, gc, gtt):
         e1 = Dp * dx
         e2 = Dp * dy
         mom[:, j, :6] = torch.stack([Dp, e1, e2, e1 * dx, e1 * dy, e2 * dy], dim=-1).sum(dim=1)
     return mom
 
 
+def moment_rows_basis_plain(fields, gidx, counts, col, finT, gc, gtt):
+    """K6b's moments per instance slot, [T, K, 8]: the same D' as
+    ``moment_rows_plain``, reduced to the raw sums S0, Sx, Sy, Sxx, Sxy, Syy
+    in tile-local pixel coordinates (x' = x - 32 tx, y' = y - 32 ty), then
+    recombined around the instance's local centre (cx, cy) = mean - tile
+    origin, in the kernel's order of operations."""
+    nty, ntx = tile_grid(*col.shape)
+    p = torch.arange(TILE_PIX, device=fields.device)
+    lx = (p % TILE_W).to(fields.dtype)[None, :]
+    ly = (p // TILE_W).to(fields.dtype)[None, :]
+    t = torch.arange(nty * ntx, device=fields.device)
+    tx0 = ((t % ntx) * TILE_W).to(fields.dtype)
+    ty0 = ((t // ntx) * TILE_H).to(fields.dtype)
+    mom = fields.new_zeros(gidx.shape + (NF,))
+    for j, Dp, _, _ in _adjoints(fields, gidx, counts, col, finT, gc, gtt):
+        e1 = Dp * lx
+        e2 = Dp * ly
+        S0, Sx, Sy, Sxx, Sxy, Syy = (
+            v.sum(dim=1) for v in (Dp, e1, e2, e1 * lx, e1 * ly, e2 * ly))
+        mean = fields[gidx[:, j].long()]
+        cx = mean[:, 0] - tx0
+        cy = mean[:, 1] - ty0
+        mom[:, j, :6] = torch.stack([
+            S0,
+            cx * S0 - Sx,
+            cy * S0 - Sy,
+            cx * (cx * S0 - 2.0 * Sx) + Sxx,
+            cx * cy * S0 - cx * Sy - cy * Sx + Sxy,
+            cy * (cy * S0 - 2.0 * Sy) + Syy,
+        ], dim=-1)
+    return mom
+
+
+def _reduce_rows(fields, gidx, mom):
+    """Slot rows [T, K, 8] -> the per-Gaussian accumulator [P1, 8]."""
+    return torch.zeros_like(fields).index_add_(0, gidx.reshape(-1).long(), mom.reshape(-1, NF))
+
+
 def blend_train_bwd_plain(fields, gidx, counts, col, finT, gc, gtt):
     """Plain PyTorch K2: the [P1, 8] moment accumulator (columns 0-5)."""
-    mom = moment_rows_plain(fields, gidx, counts, col, finT, gc, gtt)
-    return torch.zeros_like(fields).index_add_(0, gidx.reshape(-1).long(), mom.reshape(-1, NF))
+    return _reduce_rows(fields, gidx, moment_rows_plain(fields, gidx, counts, col, finT, gc, gtt))
+
+
+def blend_train_bwd_basis_plain(fields, gidx, counts, col, finT, gc, gtt):
+    """Plain PyTorch K6b: K2's accumulator through the tile-local basis."""
+    return _reduce_rows(fields, gidx,
+                        moment_rows_basis_plain(fields, gidx, counts, col, finT, gc, gtt))
 
 
 def moments_to_dfields(M: torch.Tensor, fields: torch.Tensor) -> torch.Tensor:
@@ -211,11 +265,12 @@ def moments_to_dfields(M: torch.Tensor, fields: torch.Tensor) -> torch.Tensor:
 
 def _lib():
     """The blend kernels' library, ``csrc/tile_blend.cu``, with the argument
-    types of all five entry points (K1, K2 here; K3, K4, K5 in
+    types of all six entry points (K1, K2, K6b here; K3, K4, K5 in
     ``tile_blend_cuda``)."""
     lib = _build.load("tile_blend")
     if not getattr(lib, "_typed", False):
         for name, nptr, nint in (("blend_train_fwd", 6, 5), ("blend_train_bwd", 8, 5),
+                                 ("blend_train_bwd_basis", 8, 5),
                                  ("tile_blend_fwd", 8, 8), ("tile_blend_bwd", 12, 8),
                                  ("blend_moment_bwd", 8, 5)):
             fn = getattr(lib, name)
@@ -271,55 +326,75 @@ def blend_train_fwd(fields, gidx, counts, bg, H: int, W: int):
     return col, finT
 
 
-def blend_train_bwd(fields, gidx, counts, col, finT, gc, gtt):
-    """K2: moment accumulator [P1, 8] from the forward's col/finT and the
-    cotangents gc (colour) and gtt (final T), all [H, W]."""
-    if not fields.is_cuda:
-        return blend_train_bwd_plain(fields, gidx, counts, col, finT, gc, gtt)
+def _moment_launch(name, fields, gidx, counts, col, finT, gc, gtt):
+    """Launch the accumulating moment kernel `name` (K2 or K6b): [P1, 8]."""
     H, W = col.shape
     _check_tables(fields, gidx, counts, H, W)
-    for name, t in (("col", col), ("finT", finT), ("gc", gc), ("gtt", gtt)):
-        _check_image(name, t, H, W, fields.device)
+    for arg, t in (("col", col), ("finT", finT), ("gc", gc), ("gtt", gtt)):
+        _check_image(arg, t, H, W, fields.device)
     acc = torch.zeros_like(fields)  # the kernel adds into it
     lib = _lib()
     nty, ntx = tile_grid(H, W)
-    code = lib.blend_train_bwd(
+    code = getattr(lib, name)(
         fields.data_ptr(), gidx.data_ptr(), counts.data_ptr(), col.data_ptr(),
         finT.data_ptr(), gc.data_ptr(), gtt.data_ptr(), acc.data_ptr(),
         H, W, nty, ntx, gidx.shape[1],
         torch.cuda.current_stream(fields.device).cuda_stream,
     )
-    _build.check(lib, code, "blend_train_bwd")
+    _build.check(lib, code, name)
+    return acc
+
+
+def blend_train_bwd(fields, gidx, counts, col, finT, gc, gtt):
+    """K2: moment accumulator [P1, 8] from the forward's col/finT and the
+    cotangents gc (colour) and gtt (final T), all [H, W]."""
+    if not fields.is_cuda:
+        return blend_train_bwd_plain(fields, gidx, counts, col, finT, gc, gtt)
+    acc = _moment_launch("blend_train_bwd", fields, gidx, counts, col, finT, gc, gtt)
     blend_train_bwd.launches += 1
+    return acc
+
+
+def blend_train_bwd_basis(fields, gidx, counts, col, finT, gc, gtt):
+    """K6b: K2's moment accumulator [P1, 8] through six tile-local raw sums
+    per instance and their recombination (the ``basis`` flavor of the
+    training backward); same arguments as ``blend_train_bwd``."""
+    if not fields.is_cuda:
+        return blend_train_bwd_basis_plain(fields, gidx, counts, col, finT, gc, gtt)
+    acc = _moment_launch("blend_train_bwd_basis", fields, gidx, counts, col, finT, gc, gtt)
+    blend_train_bwd_basis.launches += 1
     return acc
 
 
 blend_train_fwd.launches = 0
 blend_train_bwd.launches = 0
+blend_train_bwd_basis.launches = 0
 
 
 class BlendTrain(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, fields, gather_idx, counts, bg, H: int, W: int):
+    def forward(ctx, fields, gather_idx, counts, bg, H: int, W: int, basis: bool):
         col, finT = blend_train_fwd(fields, gather_idx, counts, bg, H, W)
         ctx.save_for_backward(fields, gather_idx, counts, col, finT)
         ctx.bg_shape = bg.shape
+        ctx.basis = basis
         return col, finT
 
     @staticmethod
     def backward(ctx, gc, gtt):
         fields, gidx, counts, col, finT = ctx.saved_tensors
         gc = gc.contiguous()
-        acc = blend_train_bwd(fields, gidx, counts, col, finT, gc, gtt.contiguous())
+        bwd = blend_train_bwd_basis if ctx.basis else blend_train_bwd
+        acc = bwd(fields, gidx, counts, col, finT, gc, gtt.contiguous())
         dfields = moments_to_dfields(acc, fields)
         dbg = (gc * finT).sum().reshape(ctx.bg_shape)
-        return dfields, None, None, dbg, None, None
+        return dfields, None, None, dbg, None, None, None
 
 
-def blend_train(fields, gather_idx, counts, bg, H: int, W: int):
+def blend_train(fields, gather_idx, counts, bg, H: int, W: int, basis: bool = False):
     """Differentiable training blend: (col, finT), each [H, W].
 
     fields [P1, 8] from ``stack_fields(pre)``; gather_idx [T, K] int32 and
     counts [T] int32 from the binning; bg [1].  Gradients flow to fields
-    (columns 0-5) and bg."""
-    return BlendTrain.apply(fields, gather_idx, counts, bg, H, W)
+    (columns 0-5) and bg, through K2, or K6b with ``basis``."""
+    return BlendTrain.apply(fields, gather_idx, counts, bg, H, W, basis)

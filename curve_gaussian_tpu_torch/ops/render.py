@@ -16,10 +16,13 @@ configurations carry):
 
 - the training channel set (``render_geo=False``, ``compute_invdepth=False``,
   ones colour) takes ``blend_train`` (K1 + K2) when ``CGT_BLEND_FLAVOR`` is
-  unset, empty or ``"train"``; ``"table"`` takes ``tile_blend`` with K3 + K4,
-  ``"indirect"`` K3 + K5;
-- every other channel set takes ``tile_blend`` with K3 + K4, whatever the
-  flavor.
+  unset, empty or ``"train"``; ``"basis"`` takes K1 + K6b (the JAX
+  package's ``USE_BASIS_BWD``), ``"table"`` takes ``tile_blend`` with
+  K3 + K4, ``"indirect"`` K3 + K5;
+- every other channel set takes ``tile_blend`` with K3 + K4.  The
+  ``basis`` backward exists only for the training set, so under that flavor
+  a differentiable render of another set raises; one without gradients (an
+  eval render, ``make_scene``) runs K3 alone.
 
 An unknown flavor raises; the flavor is read only on this backend, as in
 the JAX package.  Where this differs from the JAX package: its
@@ -49,7 +52,7 @@ from .rasterize_cuda import blend_train, stack_fields
 from .rasterize_ref import membership, rasterize_reference
 from .tile_blend_cuda import tile_blend
 
-_FLAVORS = ("", "table", "indirect", "train")
+_FLAVORS = ("", "table", "indirect", "train", "basis")
 
 
 def _flavor() -> str:
@@ -113,8 +116,9 @@ def render(
     train_cfg = not render_geo and not compute_invdepth and color_ones
     flavor = _flavor() if backend == "pallas" else ""  # the oracle has no flavors
 
-    if backend == "pallas" and train_cfg and flavor in ("", "train"):
-        img, finT = blend_train(stack_fields(pre), binning.gather_idx, binning.counts, bg_t, H, W)
+    if backend == "pallas" and train_cfg and flavor in ("", "train", "basis"):
+        img, finT = blend_train(stack_fields(pre), binning.gather_idx, binning.counts, bg_t, H, W,
+                                basis=flavor == "basis")
         invd = img.new_zeros((H, W))
         am = img.new_zeros((4, H, W))
     else:
@@ -131,6 +135,10 @@ def render(
         else:
             fields = stack_fields(pre, color, allmap, geo=render_geo, invd=compute_invdepth,
                                   ones=color_ones)
+            if flavor == "basis" and fields.requires_grad:
+                raise ValueError(
+                    "CGT_BLEND_FLAVOR=basis has a backward only for the training channel "
+                    "set (render_geo=False, compute_invdepth=False, ones colour)")
             img, invd, finT, am = tile_blend(
                 fields, binning.gather_idx, binning.counts, bg_t, H, W, render_geo,
                 compute_invdepth, color_ones, moment_bwd=train_cfg and flavor == "indirect",

@@ -16,8 +16,11 @@ import pytest
 import torch
 
 import curve_gaussian_tpu_torch
-from curve_gaussian_tpu_torch import convert
+from curve_gaussian_tpu_torch import _build, convert
+from curve_gaussian_tpu_torch import train as ptrain_cli
+from curve_gaussian_tpu_torch.config import ModelConfig, OptimizationConfig, PipelineConfig
 from curve_gaussian_tpu_torch.data import synthetic
+from curve_gaussian_tpu_torch.engine import loop as ploop
 from curve_gaussian_tpu_torch.models import curve_state as pcs
 from curve_gaussian_tpu_torch.ops import camera as pcam
 from curve_gaussian_tpu_torch.ops import rasterize_cuda as prc
@@ -37,7 +40,11 @@ def _modules():
 
 def test_importing_every_module_loads_no_jax():
     mods = _modules()
-    assert len(mods) >= 24 and "curve_gaussian_tpu_torch.ops.tile_blend_cuda" in mods, mods
+    assert len(mods) >= 35 and "curve_gaussian_tpu_torch.ops.tile_blend_cuda" in mods, mods
+    for m in ("engine.loop", "engine.checkpoint", "models.surgery", "models.fitting",
+              "eval.extract", "eval.metrics", "data.ply", "models.ellipsoids",
+              "models.gaussian_ply", "train"):
+        assert f"curve_gaussian_tpu_torch.{m}" in mods, m
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -82,11 +89,40 @@ def test_entry_points_default_to_the_card():
         lambda: convert.state_from_numpy(
             {k: np.zeros((2, 1)) for k in pcs.TRAINABLE_FIELDS}, [True] * 2, [True] * 2),
         lambda: curve_gaussian_tpu_torch.resolve_device(),
+        lambda: ploop.train_scene([], [], pts, ModelConfig(), OptimizationConfig(),
+                                  PipelineConfig(), "unused"),
+        lambda: ptrain_cli.main(["--synthetic", "--iterations", "2", "--image-size", "32"]),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             call()
     assert pcs.init_state(pts, n_views=1, device="cpu").curve_points.device.type == "cpu"
+
+
+class _ClaimsCuda(torch.Tensor):
+    """A CPU tensor that reports itself as a CUDA tensor."""
+
+    @property
+    def is_cuda(self):
+        return True
+
+
+def test_basis_wrapper_raises_without_its_kernel(monkeypatch):
+    """On a CUDA tensor the K6b wrapper launches its kernel or raises: with
+    no kernel library it raises, and neither falls back to the plain
+    version nor counts a launch."""
+    def no_library(name):
+        raise RuntimeError(f"cannot build {name}")
+
+    monkeypatch.setattr(_build, "load", no_library)
+    H, W, *args = _small_blend_inputs("cpu")
+    fields, gidx, counts, bg, gc, gtt = args
+    col, finT = prc.blend_train_fwd(fields, gidx, counts, bg, H, W)
+    n = prc.blend_train_bwd_basis.launches
+    with pytest.raises(RuntimeError, match="cannot build tile_blend"):
+        prc.blend_train_bwd_basis(fields.as_subclass(_ClaimsCuda), gidx, counts, col, finT, gc,
+                                  gtt)
+    assert prc.blend_train_bwd_basis.launches == n
 
 
 def _small_blend_inputs(device):
@@ -136,11 +172,13 @@ CHANNEL_SETS = [(True, True, True), (False, False, True), (True, True, False)]
 
 def test_wrappers_launch_nothing_on_cpu():
     wrappers = (prc.blend_train_fwd, prc.blend_train_bwd, psc.ssim_fwd, psc.ssim_bwd,
-                ptb.tile_blend_fwd, ptb.tile_blend_bwd, ptb.blend_moment_bwd)
+                ptb.tile_blend_fwd, ptb.tile_blend_bwd, ptb.blend_moment_bwd,
+                prc.blend_train_bwd_basis)
     before = [w.launches for w in wrappers]
     H, W, fields, gidx, counts, bg, gc, gtt = _small_blend_inputs("cpu")
     col, finT = prc.blend_train_fwd(fields, gidx, counts, bg, H, W)
     prc.blend_train_bwd(fields, gidx, counts, col, finT, gc, gtt)
+    prc.blend_train_bwd_basis(fields, gidx, counts, col, finT, gc, gtt)
     psc.ssim_fwd(col, gc)
     psc.ssim_bwd(col, gc, torch.ones(()))
     for geo, invd, ones in CHANNEL_SETS:
@@ -148,7 +186,7 @@ def test_wrappers_launch_nothing_on_cpu():
         outs = ptb.tile_blend_fwd(f, gidx, counts, bg, H, W, geo, invd, ones)
         ptb.tile_blend_bwd(f, gidx, counts, outs, _cotangents(H, W, "cpu"), geo, invd, ones)
     ptb.blend_moment_bwd(fields, gidx, counts, col, finT, gc, gtt)
-    assert [w.launches for w in wrappers] == before == [0] * 7
+    assert [w.launches for w in wrappers] == before == [0] * 8
 
 
 @pytest.mark.cuda
@@ -189,3 +227,11 @@ def test_kernels_match_plain_on_card():
     mom = ptb.blend_moment_bwd(fields, gidx, counts, col, finT, gc, gtt)
     mom_p = ptb.blend_moment_bwd_plain(fields, gidx, counts, col, finT, gc, gtt)
     torch.testing.assert_close(mom, mom_p, atol=1e-4 * float(mom_p.abs().max()), rtol=0)
+    # K6b: against its plain version, and (the same function) against K2
+    n6 = prc.blend_train_bwd_basis.launches
+    acc6 = prc.blend_train_bwd_basis(fields, gidx, counts, col, finT, gc, gtt)
+    acc6_p = prc.blend_train_bwd_basis_plain(fields, gidx, counts, col, finT, gc, gtt)
+    assert prc.blend_train_bwd_basis.launches == n6 + 1
+    d6, d6_p, d2 = (prc.moments_to_dfields(a, fields) for a in (acc6, acc6_p, acc))
+    torch.testing.assert_close(d6, d6_p, atol=1e-4 * float(d6_p.abs().max()), rtol=0)
+    torch.testing.assert_close(d6, d2, atol=1e-3 * float(d2.abs().max()), rtol=0)
