@@ -12,9 +12,12 @@
    version on the card, at the shapes the main path gives it, and times
    both (CUDA events, median), beside the least time the card could take
    (``bound_ms``; a blend kernel's operations are counted over the
-   (instance, pixel) pairs this run's data makes it visit and those that
-   contribute) and, for SSIM, a cuDNN conv2d SSIM (``library_ms``, never
-   called by the port).
+   (instance, pixel) pairs of this run's data that pass the alpha gate and
+   those that contribute) and, for SSIM, a cuDNN conv2d SSIM
+   (``library_ms``, never called by the port).  K1 and K2 are also held
+   against the kernels that still run their first design on the same
+   inputs (K3 at (F, F, T), bitwise; K6b) and timed in turns with them;
+   the tile lists and what K1/K2's cull skips are printed.
 4. Checks one whole training step on the card against the same step on
    the CPU (plain versions) on a small scene.
 5. Runs the main path at the bench configuration of the JAX package:
@@ -65,6 +68,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -96,9 +100,10 @@ PEAK_EX2_PER_S = PEAK_F32_FLOP_PER_S / 16
 
 # Float operations of the blend kernels, counted from their source (a
 # negation is a free operand modifier), charged to the (instance, pixel)
-# pairs of this run's data that run them: every live pair (the pixel is in
-# the image and has not stopped) evaluates the gate; only a contributing
-# pair (it passes the gate and the T test) does the rest.
+# pairs of this run's data that need them: the gate to every candidate (a
+# live pair inside the instance's alpha >= 1/255 support, where it passes;
+# a pair outside needs no evaluation, as K1/K2 show by skipping it); the
+# rest only to a contributing pair (a candidate that passes the T test).
 EXPF_OPS = 10  # expf's SASS on sm_90a: 4 FFMA (2 each), FADD, FMUL; and a MUFU.EX2
 GATE_OPS = 2 + 9 + EXPF_OPS + 2 + 2  # offsets, power, expf, alpha (mul, min), two gates
 T_OPS = 3  # alpha T, T - alpha T, the T test
@@ -127,39 +132,86 @@ def k4_ops(nch: int, ngch: int) -> int:
 
 
 def pair_counts(fields, gidx, counts, H: int, W: int):
-    """(live, contributing) (instance, pixel) pairs of one blend's inputs,
-    and the instances with a contributing pair, from the plain
-    front-to-back pass."""
+    """Counts of one blend's inputs, from the plain front-to-back pass:
+    (instance, pixel) pairs that are live (the pixel is in the image and has
+    not stopped, the slot is listed), candidates (live and through the gate
+    power <= 0, alpha >= 1/255) and contributing (candidates that pass the T
+    test); the instances with a contributing pair; and, for K1/K2's cull:
+    the live pairs inside the box of a warp that evaluates them (its 8x4
+    pixel rectangle meets the instance's ``support_box``), the (warp,
+    instance) visits, and the (instance, 16x16 quarter) pairs with a
+    contributing pixel, each of which lands up to six of K2's atomics."""
+    ww, wh = 8, 4  # K1/K2's warp rectangle (csrc/tile_blend.cu: CULL_WW x CULL_WH)
     with torch.no_grad():
         nty, ntx = tile_grid(H, W)
-        px, py = RC._pixels(nty, ntx, fields.dtype, fields.device)
+        dev = fields.device
+        px, py = RC._pixels(nty, ntx, fields.dtype, dev)
         pay = fields[gidx.long()]
+        box = RC.support_box(fields)[gidx.long()]  # [T, K, 4]
+        p = torch.arange(RC.TILE_PIX, device=dev)
+        lx, ly = p % RC.TILE_W, p // RC.TILE_W
+        wid = (ly // wh) * (RC.TILE_W // ww) + lx // ww  # warp rectangle of each pixel
+        nw = int(wid.max()) + 1
+        w = torch.arange(nw, device=dev)
+        ox = ((torch.arange(nty * ntx, device=dev) % ntx) * RC.TILE_W)[:, None]
+        oy = ((torch.arange(nty * ntx, device=dev) // ntx) * RC.TILE_H)[:, None]
+        rx0 = (ox + (w % (RC.TILE_W // ww)) * ww).float()
+        ry0 = (oy + (w // (RC.TILE_W // ww)) * wh).float()
+        quarter = (ly // 16) * 2 + lx // 16
         act = (px < W) & (py < H)
         T = torch.ones_like(px)
-        live = torch.zeros((), dtype=torch.int64, device=fields.device)
-        contrib_n = torch.zeros_like(live)
-        inst_n = torch.zeros_like(live)
+        z = torch.zeros((), dtype=torch.int64, device=dev)
+        n = dict(live=z, cand=z, contrib=z, inst=z, evaluated=z, visits=z, quarter_hits=z)
         for j in range(int(counts.max())):
             listed = (j < counts)[:, None]
-            live += (act & listed).sum()
-            _, _, _, _, contrib, T, act = RC._composite_step(pay[:, j], px, py, T, act)
-            contrib_n += (contrib & listed).sum()
-            inst_n += (contrib & listed).any(dim=1).sum()
-    return int(live), int(contrib_n), int(inst_n)
+            live = act & listed
+            b = box[:, j]
+            meets = ((b[:, 0:1] <= rx0 + (ww - 1)) & (b[:, 1:2] >= rx0)
+                     & (b[:, 2:3] <= ry0 + (wh - 1)) & (b[:, 3:4] >= ry0))  # [T, nw]
+            n["live"] = n["live"] + live.sum()
+            n["evaluated"] = n["evaluated"] + (meets[:, wid] & live).sum()
+            warp_live = torch.zeros(meets.shape, dtype=torch.int32, device=dev).index_add_(
+                1, wid, live.int())
+            n["visits"] = n["visits"] + (meets & (warp_live > 0)).sum()
+            was = act
+            _, ag, _, _, contrib, T, act = RC._composite_step(pay[:, j], px, py, T, act)
+            n["cand"] = n["cand"] + (was & listed & (ag > 0)).sum()
+            c = contrib & listed
+            n["contrib"] = n["contrib"] + c.sum()
+            n["inst"] = n["inst"] + c.any(dim=1).sum()
+            qhit = torch.zeros((c.shape[0], 4), dtype=torch.int32, device=dev).index_add_(
+                1, quarter, c.int())
+            n["quarter_hits"] = n["quarter_hits"] + (qhit > 0).sum()
+    return {k: int(v) for k, v in n.items()}
 
 
 def blend_bound(nbytes: float, pairs, contrib_ops: int, inst_ops: int = 0):
-    """bound_ms of a blend kernel: GATE_OPS for each live pair, contrib_ops
-    for each contributing pair, inst_ops for each contributing instance,
-    one exp2 per live pair."""
-    live, contrib, inst = pairs
-    return bound_ms(nbytes, live * GATE_OPS + contrib * contrib_ops + inst * inst_ops, live)
+    """bound_ms of a blend kernel: GATE_OPS and one exp2 for each candidate
+    pair (a pair outside the instance's alpha >= 1/255 support needs no
+    evaluation: K1/K2 skip it), contrib_ops for each contributing pair,
+    inst_ops for each contributing instance."""
+    ops = pairs["cand"] * GATE_OPS + pairs["contrib"] * contrib_ops + pairs["inst"] * inst_ops
+    return bound_ms(nbytes, ops, pairs["cand"])
 
 
 def pairs_note(pairs) -> str:
-    live, contrib, inst = pairs
-    return (f"pairs live {live} contributing {contrib} ({100 * contrib / max(live, 1):.2f}%), "
-            f"contributing instances {inst}")
+    live = max(pairs["live"], 1)
+    return (f"pairs live {pairs['live']} candidate {pairs['cand']} "
+            f"({100 * pairs['cand'] / live:.2f}%) contributing {pairs['contrib']} "
+            f"({100 * pairs['contrib'] / live:.2f}%), contributing instances {pairs['inst']}")
+
+
+def cull_note(pairs, counts) -> str:
+    """The tile lists and what K1/K2's cull makes of them."""
+    c = counts.double()
+    return (f"tile lists mean {float(c.mean()):.1f} p90 {float(torch.quantile(c, 0.9)):.0f} "
+            f"peak {int(c.max())}; cull (8x4 warp rectangles, counted on the float32 "
+            f"mirror of the box, not in the kernels): live pairs "
+            f"inside the boxes of the warps that evaluate them {pairs['evaluated']} "
+            f"({100 * pairs['evaluated'] / max(pairs['live'], 1):.2f}% of live), (warp, "
+            f"instance) visits {pairs['visits']}; K2 atomics <= 6 x {pairs['quarter_hits']} "
+            f"(instance, quarter) pairs with a contributing pixel (first design: 6 x "
+            f"{pairs['inst']} (instance, tile))")
 
 
 # tolerances of kernel against plain version (max error over max |plain|)
@@ -187,10 +239,10 @@ TOL = {
 # up to ~31^2 times the result's size in float32
 BASIS_TOL = 1e-3
 # the table and indirect flavors' gradients against the default flavor's,
-# per parameter group (max error over max |default|).  The forward is the
-# same kernel (K1 is K3's training instantiation), so only the backward
-# differs: K4 forms each pixel's field gradients and sums them per slot, K2
-# sums moments and maps them to fields per Gaussian, in float32 sums of
+# per parameter group (max error over max |default|).  The forwards (K1;
+# K3 at (F, F, T)) agree bitwise, so only the backward differs: K4 forms
+# each pixel's field gradients and sums them per slot, K2 sums moments and
+# maps them to fields per Gaussian, in float32 sums of
 # ~1e5 terms of both signs in other orders.  K2 against its own plain
 # version reads ~1e-7 here; 1e-3 leaves room for that cancellation.
 FLAVOR_TOL = 1e-3
@@ -266,9 +318,14 @@ def main() -> None:
     logs = _build.build_all()
     print(f"built {sorted(logs)} in {time.time() - t0:.1f} s", flush=True)
     for name, log in logs.items():
+        fn = ""
         for line in log.splitlines():
-            if "registers" in line or "bytes stack frame" in line:
-                print(f"  ptxas {name}: {line.strip()}")
+            if "Compiling entry function" in line:
+                m = re.search(r"([a-z_]+_kernel)(I((?:Lb[01]E)+)E)?", line)
+                fn = (m.group(1) + "<" + ",".join(re.findall(r"Lb([01])E", m.group(3) or ""))
+                      + ">") if m else line.strip()
+            elif "registers" in line or "bytes stack frame" in line:
+                print(f"  ptxas {name} {fn}: {line.strip()}")
 
     # -- bench configuration ---------------------------------------------------
     H = W = 512
@@ -299,6 +356,7 @@ def main() -> None:
     pairs = pair_counts(fields, gidx, counts, H, W)
     print(f"blend inputs: P1={P1} T={Tn} K={K} instances={n_inst} "
           f"peak={int(binning.peak)} {pairs_note(pairs)}", flush=True)
+    print(f"blend inputs: {cull_note(pairs, counts)}", flush=True)
 
     col, finT = RC.blend_train_fwd(fields, gidx, counts, bg, H, W)
     col_p, finT_p = RC.blend_train_fwd_plain(fields, gidx, counts, bg, H, W)
@@ -339,6 +397,7 @@ def main() -> None:
             lambda: RC.blend_train_bwd_plain(fields, gidx, counts, col, finT, gc, gtt), 3),
         bound_ms=b2, bound_by=by2, library_ms=None,
     ))
+    yardsticks((fields, gidx, counts, col, finT, gc, gtt), bg)
 
     # SSIM on the main path's pair: the render against its ground truth
     a, b = col.contiguous(), gts[0]
@@ -476,6 +535,32 @@ WRAPPERS = {
     "blend_moment_bwd": TB.blend_moment_bwd,
     "blend_train_bwd_basis": RC.blend_train_bwd_basis,
 }
+
+
+def yardsticks(inputs, bg):
+    """K1 and K2 against the kernels that still run their first design on
+    the same inputs: K3 at (F, F, T) computes K1's function (bitwise, or
+    fail), K6b K2's accumulator; each pair timed in turns (first design,
+    K1/K2, K1/K2, first design: medians of CUDA-event timings)."""
+    fields, gidx, counts, col, finT, gc, gtt = inputs
+    H, W = col.shape
+    col3, _, fin3, _ = TB.tile_blend_fwd(fields, gidx, counts, bg, H, W, False, False, True)
+    torch.cuda.synchronize()
+    same = torch.equal(col, col3) and torch.equal(finT, fin3)
+    print(f"kernel blend_train_fwd against tile_blend_fwd (F, F, T): bitwise equal {same}",
+          flush=True)
+    if not same:
+        fail("K1 and K3 at (F, F, T) disagree on the same inputs")
+    for new, old, label in (
+            (lambda: RC.blend_train_fwd(fields, gidx, counts, bg, H, W),
+             lambda: TB.tile_blend_fwd(fields, gidx, counts, bg, H, W, False, False, True),
+             "blend_train_fwd against tile_blend_fwd (F, F, T)"),
+            (lambda: RC.blend_train_bwd(*inputs), lambda: RC.blend_train_bwd_basis(*inputs),
+             "blend_train_bwd against blend_train_bwd_basis")):
+        t = [cuda_ms(f, 20) for f in (old, new, new, old)]
+        print(f"turns {label}: first design {t[0]:.4f} ms, new {t[1]:.4f} ms, new "
+              f"{t[2]:.4f} ms, first design {t[3]:.4f} ms; new / first design "
+              f"{(t[1] + t[2]) / (t[0] + t[3]):.3f}", flush=True)
 
 
 def run_path(name: str, fn, must: tuple, must_not: tuple = ()):

@@ -1,28 +1,28 @@
-// Tile blend for Hopper (sm_90a): the forward of every channel set (K3,
-// whose training instantiation is K1), the per-slot backward of every field
-// (K4), and the moment backward of the training channel set, reduced into a
-// per-Gaussian accumulator (K2, or K6b through a tile-local basis) or written
-// per slot (K5).  Plain C interface, loaded with ctypes by
+// Tile blend for Hopper (sm_90a): the training forward and moment backward
+// (K1, K2: culled per warp, see their section below), the forward of every
+// channel set (K3), the per-slot backward of every field (K4), and the
+// moment backward of the training channel set through a tile-local basis
+// (K6b) or written per slot (K5).  Plain C interface, loaded with ctypes by
 // curve_gaussian_tpu_torch/ops/rasterize_cuda.py (K1, K2, K6b) and
 // tile_blend_cuda.py (K3, K4, K5).
 //
 // Replaces the Pallas kernels of curve_gaussian_tpu/ops/rasterize_pallas.py:
 //   K1  _make_fwd_train_paired (and its unpaired odd-width form
 //       _make_fwd_kernel(False, False, True)): front-to-back compositing of
-//       the training channel set, here fwd<GEO=0, INVD=0, ONES=1>
+//       the training channel set, here blend_train_fwd_kernel
 //   K2  _make_bwd_moment_rmw_paired (and the unpaired
 //       _make_bwd_moment_rmw_kernel): six moments per (Gaussian, tile)
-//       reduced into a [P1, 8] accumulator, here moment<PER_SLOT=0, BASIS=0>
+//       reduced into a [P1, 8] accumulator, here blend_train_bwd_kernel
 //   K3  _make_fwd_kernel(geo, invd, ones, indirect): compositing of the
 //       colour channel (ones or a per-splat colour), the inverse depth and
 //       the four allmap channels
 //   K4  _make_bwd_kernel(geo, invd, ones, indirect): the gradient of every
 //       field of every instance slot, written to a [T, K, NF] table
 //   K5  _make_bwd_moment_kernel(indirect=True): K2's six moments written per
-//       slot to a [T, K, 8] table, here moment<PER_SLOT=1, BASIS=0>
+//       slot to a [T, K, 8] table, here moment<BASIS=0>
 //   K6b _make_bwd_moment_rmw_basis_kernel (USE_BASIS_BWD): K2's six moments
 //       through six raw tile-local sums of D' and a binomial recombination
-//       per instance, here moment<PER_SLOT=0, BASIS=1>
+//       per instance, here moment<BASIS=1>
 // The slot -> Gaussian reduction of K4's and K5's tables is an index_add_
 // outside the kernels, as the JAX package leaves it to an XLA scatter-add.
 // The TPU layout is not copied: no tile pairing, no (8,128) register tiles,
@@ -30,14 +30,16 @@
 // MXU combiners, no [T, K, NF] payload table (the fields are read through
 // gather_idx).
 //
-// Layout: one block per 32x32 tile, 256 threads; thread t owns the pixel
-// column t % 32 and the rows t / 32 + 8 k (k = 0..3).  Instances come from
-// gather_idx[tile, :counts[tile]] (depth order).  The kernels are templated
-// on the channel set <GEO, INVD, ONES>, so every loop over channels unrolls
-// at compile time.  Fields are staged in shared memory from fields[P1, NF]
-// through gather_idx, one row per thread, as NF/4 float4 loads.  A tile's
-// loop ends at the first chunk boundary where every pixel of it is done
-// (__syncthreads_or).
+// Layout of K3-K6b: one block per 32x32 tile, 256 threads; thread t owns
+// the pixel column t % 32 and the rows t / 32 + 8 k (k = 0..3).  Instances
+// come from gather_idx[tile, :counts[tile]] (depth order).  The kernels are
+// templated on the channel set <GEO, INVD, ONES>, so every loop over
+// channels unrolls at compile time.  Fields are staged in shared memory
+// from fields[P1, NF] through gather_idx, one row per thread, as NF/4
+// float4 loads.  A tile's loop ends at the first chunk boundary where every
+// pixel of it is done (__syncthreads_or).  K1 and K2 stage the same way but
+// split each tile over four blocks and skip the pairs that cannot pass the
+// gate (their section below).
 //
 // What bounds them: per-pixel serial chains and one expf per (instance,
 // pixel), so instruction throughput, not bytes (a tile's fields are a few
@@ -45,13 +47,15 @@
 // output) and reduces up to 12 values per instance across the block (warp
 // shuffles, then shared memory).  K4 and K5 write each slot's row once, with
 // no atomics, so their results do not depend on the order in which blocks
-// run; K2 lands one atomicAdd per nonzero moment, so the last bits of its
-// accumulator vary from run to run.
+// run; K2 and K6b land one atomicAdd per nonzero moment, so the last bits of
+// their accumulators vary from run to run.
 //
 // Built with -fmad=false so that the arithmetic rounds like the plain
 // PyTorch versions' separate elementwise operations; expf (not __expf).
 
 #include <cuda_runtime.h>
+
+#include <cmath>
 
 namespace {
 
@@ -106,13 +110,14 @@ __device__ __forceinline__ void stage_fields(float (*s_f)[CHUNK], const float* _
 }
 
 // ---------------------------------------------------------------------------
-// K3 (and K1): forward
+// K3: forward
 // ---------------------------------------------------------------------------
 //
 // It writes col and finT, invd only when INVD and am only when GEO: the
-// caller supplies zeros for a gated channel, and K1 has none to write.  The
+// caller supplies zeros for a gated channel.  At <false, false, true> it
+// computes K1's function with K1's first design, bit for bit.  The
 // six geometry fields are staged in arrays of their own: with every field
-// in one [NFIELD][CHUNK] array, <false, false, true> (K1) ran measurably
+// in one [NFIELD][CHUNK] array, <false, false, true> ran measurably
 // slower on an H100.
 
 template <bool GEO, bool INVD, bool ONES>
@@ -369,15 +374,15 @@ tile_blend_bwd_kernel(const float* __restrict__ fields, const int* __restrict__ 
 }
 
 // ---------------------------------------------------------------------------
-// K2, K5 and K6b: moments of the training channel set
+// K5 and K6b: moments of the training channel set
 // ---------------------------------------------------------------------------
 //
 // One front-to-back pass carries T and the prefix pr += gc w, which gives
 // g_alpha = gc Ti + (base_inv + pr) / (1 - alpha), base_inv = -gtt finT - gc col,
 // and D' = g_alpha G.  The six moments (D', D'dx, D'dy, D'dx^2, D'dx dy,
-// D'dy^2) of each instance are reduced over the tile's pixels, then either
-// added into the Gaussian's row of out[P1, 8] (K2: atomicAdd, nonzero sums
-// only) or written to the slot's row of out[T, K, 8] (K5, PER_SLOT).
+// D'dy^2) of each instance are reduced over the tile's pixels and written
+// to the slot's row of out[T, K, 8] (K5).  K2 computes them with
+// the culled design below; this pass is K2's first design.
 //
 // BASIS (K6b) reduces instead the raw sums of D' against the pixel's
 // tile-local coordinates x' = x - 32 tx, y' = y - 32 ty (S0, Sx, Sy, Sxx,
@@ -393,7 +398,7 @@ tile_blend_bwd_kernel(const float* __restrict__ fields, const int* __restrict__ 
 // coordinates the weights would reach 511^2 and the recombination would
 // cancel the gradient away.
 
-template <bool PER_SLOT, bool BASIS>
+template <bool BASIS>
 __global__ void __launch_bounds__(NTHREADS)
 blend_moment_bwd_kernel(const float* __restrict__ fields, const int* __restrict__ gidx,
                         const int* __restrict__ counts, const float* __restrict__ col,
@@ -401,7 +406,6 @@ blend_moment_bwd_kernel(const float* __restrict__ fields, const int* __restrict_
                         const float* __restrict__ gtt, float* __restrict__ out,
                         int H, int W, int ntx, int K) {
   static_assert(BWD_CHUNK * 6 <= NTHREADS, "one pass of the block writes a chunk's moments");
-  static_assert(!(PER_SLOT && BASIS), "the basis flavor reduces into the accumulator");
   __shared__ float s_f[6][BWD_CHUNK];
   __shared__ int s_id[BWD_CHUNK];
   __shared__ float s_red[NWARPS][BWD_CHUNK][6];
@@ -440,7 +444,7 @@ blend_moment_bwd_kernel(const float* __restrict__ fields, const int* __restrict_
     if (!__syncthreads_or(any)) break;
     const int cnt = min(BWD_CHUNK, n - base);
     stage_fields<6, 8, BWD_CHUNK>(s_f, fields, ids, base, n);
-    if (!PER_SLOT && threadIdx.x < cnt) s_id[threadIdx.x] = ids[base + threadIdx.x];
+    if (BASIS && threadIdx.x < cnt) s_id[threadIdx.x] = ids[base + threadIdx.x];
     __syncthreads();
     for (int jj = 0; jj < cnt; ++jj) {
       const float mx = s_f[0][jj], my = s_f[1][jj], ca = s_f[2][jj];
@@ -525,10 +529,311 @@ blend_moment_bwd_kernel(const float* __restrict__ fields, const int* __restrict_
       float s = 0.0f;
 #pragma unroll
       for (int w = 0; w < NWARPS; ++w) s += s_red[w][jj][q];
-      if constexpr (PER_SLOT) {
-        out[((size_t)tile * K + base + jj) * 8 + q] = s;
-      } else if (s != 0.0f) {
-        atomicAdd(out + 8 * (size_t)s_id[jj] + q, s);
+      out[((size_t)tile * K + base + jj) * 8 + q] = s;
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K1 and K2: the training blend, culled per warp
+// ---------------------------------------------------------------------------
+//
+// What bounded the first design (K3's and K6b's layout above) on an H100:
+// one 256-thread block per 32x32 tile put the longest lists (up to ~760
+// instances at the bench shape, three times the mean) on single SMs with
+// too few warps to hide the latency of expf and of each pixel's serial
+// chain, while 96% of the (instance, pixel) pairs it visited failed the
+// alpha gate yet paid the power and expf.  The pairs' arithmetic stays as
+// it was (power_of, expf, fminf(ALPHA_MAX, .), the two gates, the T test,
+// K2's prefix identity and moments, -fmad=false); the design removes work
+// that cannot contribute and spreads the rest:
+//
+// - A conservative box per staged instance (support_box, one thread per
+//   instance): the axis-aligned box of its alpha >= 1/255 ellipse
+//   (half-widths sqrt(2 t cc / det), sqrt(2 t ca / det), t = ln(255 op)),
+//   grown so that no pair outside it can pass the gate in float32: det is
+//   lowered by BOX_DET_SLACK times |ca cc| + cb^2, which covers its own
+//   rounding and that of the power at a pixel (at most ~40 ulp of
+//   ca dx^2 + cc dy^2 + 2 |cb dx dy|), t gains BOX_T_SLACK for the ulps of
+//   logf and expf, and the half-widths grow by BOX_GROW and BOX_PX pixels.
+//   op < 1/255 (less BOX_T_EMPTY) gives an empty box, a conic that is not
+//   positive definite after the lowering or a box that is not finite the
+//   whole plane.  A pair that fails the gate changes neither T, nor
+//   liveness, nor any sum, so skipping it keeps every result exact: K1
+//   stays bitwise equal to its plain version and to K3 at <F, F, T>.
+//   rasterize_cuda.py::support_box is its float32 mirror.
+// - Each warp owns a compact 8 x 4 pixel rectangle, one pixel per thread
+//   (8 x 8 rectangles with two pixels per thread ran 13-16% slower on an
+//   NVIDIA H100 80GB HBM3 at 700 W: PERF.md).
+//   It tests 32 staged instances at a time, one per lane, against its
+//   rectangle, and walks the ballot's set bits from low to high (__ffs),
+//   which keeps the depth order of gather_idx.  A warp whose pixels are
+//   all done skips the rest of the chunk; the block stops at the first
+//   chunk boundary where all its pixels are done.
+// - Four blocks share a tile's list, one per 16x16 quarter, each culling
+//   against its own warps' rectangles: 1,024 blocks at 512^2, so a heavy
+//   list is walked by four SMs with more warps each.  K1 needs no step
+//   across blocks.  K2 reduces a visited instance's six moments across the
+//   warp only when some lane contributed (9 shuffles: the sums transpose
+//   across the lanes), adds them into the block's shared row of the
+//   instance, and one thread per instance that some warp hit lands one
+//   atomicAdd per nonzero moment: atomics grow with the quarters an
+//   instance reaches, not four times.
+//
+// What bounds them now: they evaluate 14% of the live pairs and run 4-6
+// times faster than the first design, yet stay ~40 times above the bytes
+// their inputs must move (PERF.md): the latency of each chunk's dependent
+// loads on the longest lists and the serial chains of the pixels that
+// remain, in shares not yet measured.
+
+constexpr int CULL_SUB = 16;  // a block covers one 16x16 quarter of a tile
+constexpr int CULL_NT = CULL_SUB * CULL_SUB;  // threads per block, one pixel each
+constexpr int CULL_WW = 8;  // a warp's rectangle: CULL_WW columns, CULL_WH rows
+constexpr int CULL_WH = 32 / CULL_WW;
+constexpr int CULL_CHUNK = CULL_NT;  // instances staged per chunk, one per thread
+static_assert((CULL_SUB / CULL_WW) * (CULL_SUB / CULL_WH) * 32 == CULL_NT,
+              "the warps' rectangles tile the quarter");
+
+constexpr float BOX_GROW = 1.001f;  // relative growth of the half-widths
+constexpr float BOX_PX = 1.0f;      // and absolute, in pixels
+constexpr float BOX_T_SLACK = 1e-5f;
+constexpr float BOX_DET_SLACK = 4e-6f;
+constexpr float BOX_T_EMPTY = 2e-5f;
+
+// The box [x0, x1] x [y0, y1] (pixel coordinates) outside which no pixel
+// passes the gate power <= 0, min(0.99, op e^power) >= 1/255.
+__device__ __forceinline__ void support_box(float mx, float my, float ca, float cb, float cc,
+                                            float op, float& x0, float& x1, float& y0,
+                                            float& y1) {
+  const float t = logf(255.0f * op);
+  const float cacc = ca * cc;
+  const float cb2 = cb * cb;
+  const float dlo = (cacc - cb2) - BOX_DET_SLACK * (fabsf(cacc) + cb2);
+  const float t2 = 2.0f * (fmaxf(t, 0.0f) + BOX_T_SLACK);
+  const float hx = sqrtf(t2 * cc / dlo) * BOX_GROW + BOX_PX;
+  const float hy = sqrtf(t2 * ca / dlo) * BOX_GROW + BOX_PX;
+  x0 = mx - hx;
+  x1 = mx + hx;
+  y0 = my - hy;
+  y1 = my + hy;
+  if (t < -BOX_T_EMPTY) {
+    x0 = y0 = INFINITY;
+    x1 = y1 = -INFINITY;
+  } else if (isnan(t) || !(dlo > 0.0f) || !(isfinite(x0) && isfinite(x1) && isfinite(y0) &&
+                                             isfinite(y1))) {
+    x0 = y0 = -INFINITY;
+    x1 = y1 = INFINITY;
+  }
+}
+
+// A chunk of a tile's list in shared memory: the six fields and the box.
+struct Staged {
+  float mx[CULL_CHUNK], my[CULL_CHUNK], ca[CULL_CHUNK], cb[CULL_CHUNK], cc[CULL_CHUNK],
+      op[CULL_CHUNK];
+  float x0[CULL_CHUNK], x1[CULL_CHUNK], y0[CULL_CHUNK], y1[CULL_CHUNK];
+};
+
+// Stages list entry base + threadIdx.x when it is below n; returns its
+// Gaussian.
+__device__ __forceinline__ int stage(Staged& s, const float* __restrict__ fields,
+                                     const int* __restrict__ ids, int base, int n) {
+  const int i = threadIdx.x;
+  const int j = base + i;
+  if (j >= n) return -1;
+  const int id = ids[j];
+  const float4* row = reinterpret_cast<const float4*>(fields) + (size_t)id * 2;
+  const float4 a = row[0];
+  const float4 b = row[1];
+  s.mx[i] = a.x;
+  s.my[i] = a.y;
+  s.ca[i] = a.z;
+  s.cb[i] = a.w;
+  s.cc[i] = b.x;
+  s.op[i] = b.y;
+  support_box(a.x, a.y, a.z, a.w, b.x, b.y, s.x0[i], s.x1[i], s.y0[i], s.y1[i]);
+  return id;
+}
+
+// The thread's pixel (gx, gy) and its warp's rectangle, in the quarter
+// blockIdx.x % 4 of tile blockIdx.x / 4.
+struct Pixels {
+  int tile, gx, gy;
+  float rx0, rx1, ry0, ry1;
+};
+
+__device__ __forceinline__ Pixels pixels_of(int ntx) {
+  const int tile = blockIdx.x >> 2;
+  const int q = blockIdx.x & 3;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int wx =
+      (tile % ntx) * TILE + (q & 1) * CULL_SUB + (warp % (CULL_SUB / CULL_WW)) * CULL_WW;
+  const int wy =
+      (tile / ntx) * TILE + (q >> 1) * CULL_SUB + (warp / (CULL_SUB / CULL_WW)) * CULL_WH;
+  return Pixels{tile,      wx + lane % CULL_WW,          wy + lane / CULL_WW,
+                (float)wx, (float)(wx + CULL_WW - 1),    (float)wy,
+                (float)(wy + CULL_WH - 1)};
+}
+
+// Calls visit(i) for each staged instance i < cnt whose box meets the
+// warp's rectangle, in list order, while some lane's pixel is live (visit
+// updates act).
+template <class Visit>
+__device__ __forceinline__ void walk(const Staged& s, int cnt, const Pixels& p, const bool& act,
+                                     Visit visit) {
+  const int lane = threadIdx.x & 31;
+  for (int g = 0; g < cnt; g += 32) {
+    if (!__any_sync(0xffffffffu, act)) return;
+    const int i = g + lane;
+    const bool meets = i < cnt && s.x0[i] <= p.rx1 && s.x1[i] >= p.rx0 && s.y0[i] <= p.ry1 &&
+                       s.y1[i] >= p.ry0;
+    for (unsigned m = __ballot_sync(0xffffffffu, meets); m != 0u; m &= m - 1u) {
+      visit(g + __ffs(m) - 1);
+    }
+  }
+}
+
+// Sums v[0..5] over the warp: lane l < 24 returns the sum of v[l / 4].
+// Each exchange halves the values a lane carries (9 shuffles, not 30).
+__device__ __forceinline__ float warp_sum6(const float (&m)[6]) {
+  const int lane = threadIdx.x & 31;
+  float v[8] = {m[0], m[1], m[2], m[3], m[4], m[5], 0.0f, 0.0f};
+#pragma unroll
+  for (int half = 4, off = 16; half >= 1; half >>= 1, off >>= 1) {
+    const bool up = lane & off;
+#pragma unroll
+    for (int i = 0; i < half; ++i) {
+      const float send = up ? v[i] : v[i + half];
+      const float keep = up ? v[i + half] : v[i];
+      v[i] = keep + __shfl_xor_sync(0xffffffffu, send, off);
+    }
+  }
+  v[0] += __shfl_xor_sync(0xffffffffu, v[0], 2);
+  v[0] += __shfl_xor_sync(0xffffffffu, v[0], 1);
+  return v[0];
+}
+
+__global__ void __launch_bounds__(CULL_NT)
+blend_train_fwd_kernel(const float* __restrict__ fields, const int* __restrict__ gidx,
+                       const int* __restrict__ counts, const float* __restrict__ bg,
+                       float* __restrict__ col, float* __restrict__ finT, int H, int W, int ntx,
+                       int K) {
+  __shared__ Staged s;
+  const Pixels p = pixels_of(ntx);
+  const float px = (float)p.gx, py = (float)p.gy;
+  float T = 1.0f;
+  bool act = (p.gx < W) && (p.gy < H);
+
+  const int n = counts[p.tile];
+  const int* ids = gidx + (size_t)p.tile * K;
+  for (int base = 0; base < n; base += CULL_CHUNK) {
+    if (!__syncthreads_or(act)) break;  // also the barrier before restaging
+    stage(s, fields, ids, base, n);
+    __syncthreads();
+    walk(s, min(CULL_CHUNK, n - base), p, act, [&](int i) {
+      if (!act) return;
+      const float dx = s.mx[i] - px;
+      const float dy = s.my[i] - py;
+      const float power = power_of(s.ca[i], s.cb[i], s.cc[i], dx, dy);
+      const float alpha = fminf(ALPHA_MAX, s.op[i] * expf(power));
+      if (power <= 0.0f && alpha >= ALPHA_EPS) {
+        const float rem = T - alpha * T;
+        if (rem >= T_EPS) {
+          T = rem;
+        } else {
+          act = false;  // the instance that fails the T test is excluded
+        }
+      }
+    });
+  }
+
+  if (p.gx < W && p.gy < H) {
+    const size_t o = (size_t)p.gy * W + p.gx;
+    col[o] = 1.0f - T * (1.0f - bg[0]);  // the conservation form of ones colour
+    finT[o] = T;
+  }
+}
+
+__global__ void __launch_bounds__(CULL_NT)
+blend_train_bwd_kernel(const float* __restrict__ fields, const int* __restrict__ gidx,
+                       const int* __restrict__ counts, const float* __restrict__ col,
+                       const float* __restrict__ finT, const float* __restrict__ gc,
+                       const float* __restrict__ gtt, float* __restrict__ acc, int H, int W,
+                       int ntx, int K) {
+  __shared__ Staged s;
+  __shared__ int s_id[CULL_CHUNK];
+  __shared__ bool s_hit[CULL_CHUNK];
+  __shared__ float s_mom[CULL_CHUNK][6];
+  const Pixels p = pixels_of(ntx);
+  const int lane = threadIdx.x & 31;
+  const float px = (float)p.gx, py = (float)p.gy;
+  float T = 1.0f, pr = 0.0f, gcv = 0.0f, binv = 0.0f;
+  bool act = (p.gx < W) && (p.gy < H);
+  if (act) {
+    const size_t o = (size_t)p.gy * W + p.gx;
+    gcv = gc[o];
+    binv = -gtt[o] * finT[o] - gc[o] * col[o];
+  }
+
+  const int n = counts[p.tile];
+  const int* ids = gidx + (size_t)p.tile * K;
+  for (int base = 0; base < n; base += CULL_CHUNK) {
+    if (!__syncthreads_or(act)) break;  // also the barrier before restaging
+    const int cnt = min(CULL_CHUNK, n - base);
+    const int id = stage(s, fields, ids, base, n);
+    if (threadIdx.x < cnt) {
+      s_id[threadIdx.x] = id;
+      s_hit[threadIdx.x] = false;
+#pragma unroll
+      for (int q = 0; q < 6; ++q) s_mom[threadIdx.x][q] = 0.0f;
+    }
+    __syncthreads();
+    walk(s, cnt, p, act, [&](int i) {
+      const float dx = s.mx[i] - px;
+      const float dy = s.my[i] - py;
+      float m[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+      bool hit = false;
+      if (act) {
+        const float power = power_of(s.ca[i], s.cb[i], s.cc[i], dx, dy);
+        const float G = expf(power);
+        const float alpha = fminf(ALPHA_MAX, s.op[i] * G);
+        if (power <= 0.0f && alpha >= ALPHA_EPS) {
+          const float aT = alpha * T;
+          const float rem = T - aT;
+          if (rem >= T_EPS) {
+            const float Ti = T;
+            T = rem;
+            pr = pr + gcv * aT;  // gc times the inclusive prefix
+            const float inv1a = 1.0f / (1.0f - alpha);
+            const float gal = gcv * Ti + inv1a * (binv + pr);
+            const float Dp = gal * G;
+            const float e1 = Dp * dx;
+            const float e2 = Dp * dy;
+            m[0] = Dp;
+            m[1] = e1;
+            m[2] = e2;
+            m[3] = e1 * dx;
+            m[4] = e1 * dy;
+            m[5] = e2 * dy;
+            hit = true;
+          } else {
+            act = false;
+          }
+        }
+      }
+      if (__any_sync(0xffffffffu, hit)) {
+        const float v = warp_sum6(m);
+        if (lane < 24 && (lane & 3) == 0) atomicAdd(&s_mom[i][lane >> 2], v);
+        if (lane == 0) s_hit[i] = true;
+      }
+    });
+    __syncthreads();
+    if (threadIdx.x < cnt && s_hit[threadIdx.x]) {
+      float* row = acc + 8 * (size_t)s_id[threadIdx.x];
+#pragma unroll
+      for (int q = 0; q < 6; ++q) {
+        const float v = s_mom[threadIdx.x][q];
+        if (v != 0.0f) atomicAdd(row + q, v);
       }
     }
   }
@@ -573,11 +878,12 @@ inline int channel_set(int geo, int invd, int ones) {
   return (geo ? 4 : 0) + (invd ? 2 : 0) + (ones ? 1 : 0);
 }
 
-template <bool PER_SLOT, bool BASIS>
+// BASIS: K6b, into the accumulator; else K5, per slot
+template <bool BASIS>
 int launch_moment(const void* fields, const void* gidx, const void* counts, const void* col,
                   const void* finT, const void* gc, const void* gtt, void* out, int H, int W,
                   int nty, int ntx, int K, void* stream) {
-  blend_moment_bwd_kernel<PER_SLOT, BASIS><<<nty * ntx, NTHREADS, 0, (cudaStream_t)stream>>>(
+  blend_moment_bwd_kernel<BASIS><<<nty * ntx, NTHREADS, 0, (cudaStream_t)stream>>>(
       (const float*)fields, (const int*)gidx, (const int*)counts, (const float*)col,
       (const float*)finT, (const float*)gc, (const float*)gtt, (float*)out, H, W, ntx, K);
   return (int)cudaGetLastError();
@@ -593,9 +899,9 @@ const char* cg_error_string(int code) { return cudaGetErrorString((cudaError_t)c
 int blend_train_fwd(const void* fields, const void* gidx, const void* counts, const void* bg,
                     void* col, void* finT, int H, int W, int nty, int ntx, int K,
                     void* stream) {
-  launch_fwd<false, false, true>((const float*)fields, (const int*)gidx, (const int*)counts,
-                                 (const float*)bg, (float*)col, nullptr, (float*)finT, nullptr,
-                                 H, W, nty, ntx, K, (cudaStream_t)stream);
+  blend_train_fwd_kernel<<<4 * nty * ntx, CULL_NT, 0, (cudaStream_t)stream>>>(
+      (const float*)fields, (const int*)gidx, (const int*)counts, (const float*)bg, (float*)col,
+      (float*)finT, H, W, ntx, K);
   return (int)cudaGetLastError();
 }
 
@@ -603,8 +909,10 @@ int blend_train_fwd(const void* fields, const void* gidx, const void* counts, co
 int blend_train_bwd(const void* fields, const void* gidx, const void* counts, const void* col,
                     const void* finT, const void* gc, const void* gtt, void* acc, int H, int W,
                     int nty, int ntx, int K, void* stream) {
-  return launch_moment<false, false>(fields, gidx, counts, col, finT, gc, gtt, acc, H, W, nty,
-                                     ntx, K, stream);
+  blend_train_bwd_kernel<<<4 * nty * ntx, CULL_NT, 0, (cudaStream_t)stream>>>(
+      (const float*)fields, (const int*)gidx, (const int*)counts, (const float*)col,
+      (const float*)finT, (const float*)gc, (const float*)gtt, (float*)acc, H, W, ntx, K);
+  return (int)cudaGetLastError();
 }
 
 // K6b: K2's moments through the tile-local basis, added into acc[P1, 8],
@@ -612,8 +920,8 @@ int blend_train_bwd(const void* fields, const void* gidx, const void* counts, co
 int blend_train_bwd_basis(const void* fields, const void* gidx, const void* counts,
                           const void* col, const void* finT, const void* gc, const void* gtt,
                           void* acc, int H, int W, int nty, int ntx, int K, void* stream) {
-  return launch_moment<false, true>(fields, gidx, counts, col, finT, gc, gtt, acc, H, W, nty,
-                                    ntx, K, stream);
+  return launch_moment<true>(fields, gidx, counts, col, finT, gc, gtt, acc, H, W, nty, ntx, K,
+                             stream);
 }
 
 // K3: invd and am are written only for a channel set that has them
@@ -643,8 +951,8 @@ int tile_blend_bwd(const void* fields, const void* gidx, const void* counts, con
 int blend_moment_bwd(const void* fields, const void* gidx, const void* counts, const void* col,
                      const void* finT, const void* gc, const void* gtt, void* mom, int H, int W,
                      int nty, int ntx, int K, void* stream) {
-  return launch_moment<true, false>(fields, gidx, counts, col, finT, gc, gtt, mom, H, W, nty,
-                                    ntx, K, stream);
+  return launch_moment<false>(fields, gidx, counts, col, finT, gc, gtt, mom, H, W, nty, ntx, K,
+                              stream);
 }
 
 }  // extern "C"

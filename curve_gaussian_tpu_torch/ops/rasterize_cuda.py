@@ -28,11 +28,13 @@ the JAX kernels and the original CUDA rasterizer do, so the backward is the
 hand-derived moment formula and never autograd through the clamp.
 
 What bounds the kernels on an H100: per-pixel serial chains of about twenty
-float operations and one ``expf`` per (instance, pixel), so instruction throughput,
-not memory (a tile's fields are a few KB).  See ``csrc/tile_blend.cu`` for what
-the design does about it: K1 is the training instantiation of the
-full-channel forward K3, and K2 shares its pass with K5.  K2 reduces with ``atomicAdd``, so the order of
-the float32 sums, and the last bits of the gradients, vary from run to run.
+float operations and one ``expf`` per (instance, pixel), so instruction
+throughput, not memory (a tile's fields are a few KB), and the longest tile
+lists.  See ``csrc/tile_blend.cu`` for what the design does about it: K1 and
+K2 split each tile over four blocks, and each warp skips the instances whose
+``support_box`` misses its pixel rectangle, which keeps every result exact.
+K2 and K6b reduce with ``atomicAdd``, so the order of the float32 sums, and
+the last bits of the gradients, vary from run to run.
 
 Every wrapper takes the plain PyTorch version for CPU tensors only; for a
 CUDA tensor it launches the kernel or raises.  The TPU layout of the JAX
@@ -124,6 +126,36 @@ def _to_tiles(img: torch.Tensor, nty: int, ntx: int) -> torch.Tensor:
 def _from_tiles(x: torch.Tensor, nty: int, ntx: int, H: int, W: int) -> torch.Tensor:
     img = x.reshape(nty, ntx, TILE_H, TILE_W).permute(0, 2, 1, 3)
     return img.reshape(nty * TILE_H, ntx * TILE_W)[:H, :W].contiguous()
+
+
+# slack of K1/K2's support box (csrc/tile_blend.cu: BOX_*)
+BOX_GROW, BOX_PX, BOX_T_SLACK, BOX_DET_SLACK, BOX_T_EMPTY = 1.001, 1.0, 1e-5, 4e-6, 2e-5
+
+
+def support_box(fields: torch.Tensor) -> torch.Tensor:
+    """[P1, 4] float32 (x0, x1, y0, y1): per field row, the pixel box
+    outside which no pixel passes the gate power <= 0, alpha >= 1/255.
+
+    The float32 mirror of K1/K2's ``support_box`` in ``csrc/tile_blend.cu``,
+    in its order of operations: the axis-aligned box of the ellipse
+    -power <= t = ln(255 op), with det lowered and t and the half-widths
+    grown enough to cover float32 rounding; empty when op < 1/255, the
+    whole plane when the conic is not positive definite or a value is not
+    finite.  A pixel p lies in the box when x0 <= p.x <= x1 and y0 <= p.y
+    <= y1."""
+    mx, my, ca, cb, cc, op = fields[:, :6].to(torch.float32).unbind(1)
+    t = torch.log(255.0 * op)
+    cacc = ca * cc
+    cb2 = cb * cb
+    dlo = (cacc - cb2) - BOX_DET_SLACK * (cacc.abs() + cb2)
+    t2 = 2.0 * (torch.clamp(t, min=0.0) + BOX_T_SLACK)
+    hx = torch.sqrt(t2 * cc / dlo) * BOX_GROW + BOX_PX
+    hy = torch.sqrt(t2 * ca / dlo) * BOX_GROW + BOX_PX
+    box = torch.stack([mx - hx, mx + hx, my - hy, my + hy], dim=1)
+    inf = torch.inf
+    whole = torch.isnan(t) | ~(dlo > 0.0) | ~torch.isfinite(box).all(dim=1)
+    box = torch.where(whole[:, None], box.new_tensor([-inf, inf, -inf, inf]), box)
+    return torch.where((t < -BOX_T_EMPTY)[:, None], box.new_tensor([inf, -inf, inf, -inf]), box)
 
 
 def _composite_step(f, px, py, T, act):

@@ -1,8 +1,9 @@
 """The port stands alone: no module of ``curve_gaussian_tpu_torch`` (nor
 ``chip_smoke.py``) imports JAX or the JAX package, entry points run on the
 card unless the caller asks for the CPU, and the kernel wrappers launch
-nothing for CPU tensors.  The last test needs a CUDA card and holds every
-kernel against its plain version there
+nothing for CPU tensors.  The last two tests need a CUDA card: they hold
+every kernel against its plain version there, and K1/K2's cull over the
+conics that stress its box
 (``pytest --noconftest -m cuda tests/test_torch_port_isolation.py``)."""
 import ast
 import os
@@ -26,6 +27,7 @@ from curve_gaussian_tpu_torch.ops import camera as pcam
 from curve_gaussian_tpu_torch.ops import rasterize_cuda as prc
 from curve_gaussian_tpu_torch.ops import ssim_cuda as psc
 from curve_gaussian_tpu_torch.ops import tile_blend_cuda as ptb
+from test_torch_port_cull_cases import FAMILIES, packed_family
 
 ROOT = Path(__file__).resolve().parent.parent
 PKG = ROOT / "curve_gaussian_tpu_torch"
@@ -200,6 +202,10 @@ def test_kernels_match_plain_on_card():
     assert prc.blend_train_fwd.launches == n0 + 1
     torch.testing.assert_close(col, col_p, atol=1e-6, rtol=0)
     torch.testing.assert_close(finT, finT_p, atol=1e-6, rtol=0)
+    # K3 at (F, F, T) computes K1's function with K1's first design: the
+    # same operations on every pair that passes the gate, so bitwise
+    col3, _, fin3, _ = ptb.tile_blend_fwd(fields, gidx, counts, bg, H, W, False, False, True)
+    assert torch.equal(col, col3) and torch.equal(finT, fin3)
     acc = prc.blend_train_bwd(fields, gidx, counts, col, finT, gc, gtt)
     acc_p = prc.blend_train_bwd_plain(fields, gidx, counts, col, finT, gc, gtt)
     torch.testing.assert_close(acc, acc_p, atol=1e-4 * float(acc_p.abs().max()), rtol=0)
@@ -235,3 +241,43 @@ def test_kernels_match_plain_on_card():
     d6, d6_p, d2 = (prc.moments_to_dfields(a, fields) for a in (acc6, acc6_p, acc))
     torch.testing.assert_close(d6, d6_p, atol=1e-4 * float(d6_p.abs().max()), rtol=0)
     torch.testing.assert_close(d6, d2, atol=1e-3 * float(d2.abs().max()), rtol=0)
+
+
+def _cull_family_exact(family, device):
+    """K1 and K2 over one family of ``test_torch_port_cull_cases``, one
+    instance per 2x2-tile block: K1 equal to its plain version and to K3 at
+    (F, F, T) bitwise; K2's moments within 1e-5 of each term mass from its
+    plain version.  With bg 0, gtt 0 and one instance per tile, D' = gc G
+    with gc in [1, 2) at every contributing pixel, so M0, M3 and M5 sum
+    positive terms and the terms of M1, M2 and M4 have at most the masses
+    sqrt(M0 M3), sqrt(M0 M5) and sqrt(M3 M5) (Cauchy-Schwarz)."""
+    H, W, fields, gidx, counts = packed_family(family, device)
+    bg = torch.zeros(1, device=device)
+    col, finT = prc.blend_train_fwd(fields, gidx, counts, bg, H, W)
+    col_p, finT_p = prc.blend_train_fwd_plain(fields, gidx, counts, bg, H, W)
+    col3, _, fin3, _ = ptb.tile_blend_fwd(fields, gidx, counts, bg, H, W, False, False, True)
+    assert torch.equal(col, col_p) and torch.equal(finT, finT_p), family
+    assert torch.equal(col, col3) and torch.equal(finT, fin3), family
+    g = torch.Generator().manual_seed(3)
+    gc = (1.0 + torch.rand((H, W), generator=g)).to(device)
+    gtt = torch.zeros_like(gc)
+    acc = prc.blend_train_bwd(fields, gidx, counts, col, finT, gc, gtt)
+    acc_p = prc.blend_train_bwd_plain(fields, gidx, counts, col, finT, gc, gtt)
+    m0, m3, m5 = acc_p[:, 0], acc_p[:, 3], acc_p[:, 5]
+    mass = torch.stack([m0, (m0 * m3).sqrt(), (m0 * m5).sqrt(), m3, (m3 * m5).sqrt(), m5], 1)
+    bad = ((acc - acc_p)[:, :6].abs() > 1e-5 * mass).any(dim=1)
+    assert not bool(bad.any()), (family, int(bad.sum()))
+    return int((m0 > 0).sum())  # the instances that contribute
+
+
+@pytest.mark.cuda
+def test_cull_exact_on_adversarial_conics():
+    """K1/K2's own box (device ``logf``/``sqrtf``) never skips a pair that
+    passes the gate, over the families whose float32 mirror
+    ``test_torch_port_cull.py`` checks on the CPU."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU form")
+    n1 = prc.blend_train_fwd.launches
+    for family in FAMILIES:
+        assert _cull_family_exact(family, "cuda") > 0, family  # some instance contributes
+    assert prc.blend_train_fwd.launches == n1 + len(FAMILIES)
