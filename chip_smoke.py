@@ -17,7 +17,10 @@
    (``library_ms``, never called by the port).  K1 and K2 are also held
    against the kernels that still run their first design on the same
    inputs (K3 at (F, F, T), bitwise; K6b) and timed in turns with them;
-   the tile lists and what K1/K2's cull skips are printed.
+   the tile lists and what K1/K2's cull skips are printed.  K8 must equal
+   its plain version; K7 and K8's launch shapes (blocks, blocks per SM,
+   waves) are printed, and one K7 call must run one device kernel
+   (counted by torch.profiler).
 4. Checks one whole training step on the card against the same step on
    the CPU (plain versions) on a small scene.
 5. Runs the main path at the bench configuration of the JAX package:
@@ -447,6 +450,9 @@ def main() -> None:
     ))
     for k in kernels:
         report(k)
+    if not (torch.equal(d1, d1p) and torch.equal(d2, d2p)):
+        fail("K8 is not equal to its plain version on the main path's pair")
+    ssim_checks(a, b)
 
     # -- one whole step on the card against the same step on the CPU ----------
     small_check()
@@ -561,6 +567,44 @@ def yardsticks(inputs, bg):
         print(f"turns {label}: first design {t[0]:.4f} ms, new {t[1]:.4f} ms, new "
               f"{t[2]:.4f} ms, first design {t[3]:.4f} ms; new / first design "
               f"{(t[1] + t[2]) / (t[0] + t[3]):.3f}", flush=True)
+
+
+def device_kernels(fn) -> dict:
+    """{name: count} of the device kernels one call of fn runs, after one
+    warm-up call (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            out[e.name] = out.get(e.name, 0) + 1
+    return out
+
+
+def ssim_checks(a, b) -> None:
+    """K7's and K8's launch shapes on the main path's pair (blocks, blocks
+    resident per SM, waves; K7's blocks must be the partial sums its wrapper
+    allocates), and the device kernels one K7 call runs, which must be one."""
+    H, W = a.shape
+    nsm = torch.cuda.get_device_properties(0).multi_processor_count
+    for name in ("ssim_fwd", "ssim_bwd"):
+        s = SC.launch_shape(name, H, W)
+        print(f"launch {name} at {H}x{W}: {s['blocks']} blocks of {s['threads']} threads, "
+              f"{s['smem']} B dynamic shared memory, {s['per_sm']} blocks per SM, "
+              f"{s['blocks'] / (s['per_sm'] * nsm):.3f} waves on {nsm} SMs", flush=True)
+        if s["blocks"] != -(-H // SC.TILE) * -(-W // SC.TILE):
+            fail(f"{name} launches {s['blocks']} blocks, not one per {SC.TILE}x{SC.TILE} tile")
+    ks = device_kernels(lambda: SC.ssim_fwd(a, b))
+    n = sum(ks.values())
+    print(f"one ssim_fwd call runs {n} device kernel(s) (torch.profiler): "
+          f"{ {k[:60]: c for k, c in ks.items()} }", flush=True)
+    if n != 1:
+        fail(f"one ssim_fwd call ran {n} device kernels, not 1")
 
 
 def run_path(name: str, fn, must: tuple, must_not: tuple = ()):

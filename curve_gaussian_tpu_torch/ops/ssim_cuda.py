@@ -3,16 +3,25 @@
 K7 ``ssim_fwd`` replaces ``curve_gaussian_tpu/ops/ssim_pallas.py::_fwd_kernel``
 and K8 ``ssim_bwd`` replaces ``_bwd_kernel``: mean SSIM of two single-channel
 [H, W] images with the 11-tap sigma-1.5 window and exact 'same' zero
-padding, and its gradient with respect to both images.  K7 writes one
-partial sum per 16x16 tile and the wrapper adds them and divides by H*W;
-K8 recomputes the moments on a halo tile, forms the four
-d(SSIM)/d(moment) maps scaled by g / (H W) and zero outside the image, and
-applies the adjoint blur, which is the blur itself because the window is
-symmetric.
+padding, and its gradient with respect to both images.  K8 recomputes the
+moments on a halo tile, forms the four d(SSIM)/d(moment) maps scaled by
+g / (H W) and zero outside the image, and applies the adjoint blur, which
+is the blur itself because the window is symmetric.
 
-What bounds them on an H100: about 250 (K7) and 450 (K8) float operations
-per pixel against 8 and 16 bytes of device memory, so instruction
-throughput, not bytes; see ``csrc/ssim.cu`` for the design.
+What sets their time on an H100: 250-450 float operations per pixel
+against 8-16 bytes of device memory, so instruction issue, not bytes.  The
+first design (16x16 tiles, one output per thread and pass) spent it on
+shared-memory loads of inputs and taps, on K8's halo (moments on 26x26 for
+a 16x16 tile) and on 1.55 waves of K8's blocks, and K7's value took three
+launches: 0.0178 ms (K7) and 0.0278 ms (K8) on an H100 80GB HBM3 at 700 W.
+The current design passes the taps by value, makes R outputs per thread
+and pass from R + 10 values held in registers, takes 32x32 tiles (one wave
+of 256 blocks at 512x512) and ends K7 in its own launch: the block that
+takes the last ticket adds the per-block partial sums in a fixed order, so
+the value is the same from run to run.  On the same card K7 takes 0.0108
+ms and K8 0.0155 ms; ptxas gives K7 64 registers and 42,168 B of dynamic
+shared memory (4 blocks per SM), K8 86 and 95,664 B (2 per SM).
+``csrc/ssim.cu`` has the design note, ``PERF.md`` §6 the measurements.
 
 Every wrapper takes the plain PyTorch version for CPU tensors only; for a
 CUDA tensor it launches the kernel or raises.  The plain versions accept
@@ -32,6 +41,7 @@ from .. import _build
 C1 = 0.01**2
 C2 = 0.03**2
 KERNEL_WINDOW = 11
+TILE = 32  # the kernels' output tile edge (csrc/ssim.cu: TW, TH); one K7 partial each
 
 _VP = ctypes.c_void_p
 _I = ctypes.c_int
@@ -44,10 +54,14 @@ def gaussian_window(window_size: int = 11, sigma: float = 1.5) -> np.ndarray:
     return (g / g.sum()).astype(np.float32)
 
 
+# the kernels' taps, read from host memory into a kernel argument at launch
+_TAPS = gaussian_window(KERNEL_WINDOW)
+
+
 @functools.lru_cache(maxsize=None)
 def _window(window_size: int, dtype, device) -> torch.Tensor:
-    """The taps on `device`, copied there once: a copy from host memory
-    synchronises the stream, which a training step must not do."""
+    """The plain versions' taps on `device`, copied there once: a copy from
+    host memory synchronises the stream, which a training step must not do."""
     return torch.tensor(gaussian_window(window_size), dtype=dtype, device=device)
 
 
@@ -108,15 +122,30 @@ def ssim_bwd_plain(img1, img2, g, window_size: int = 11):
     return d1, d2
 
 
+@functools.lru_cache(maxsize=None)
 def _lib():
     lib = _build.load("ssim")
-    if not getattr(lib, "_typed", False):
-        lib.ssim_fwd.argtypes = [_VP] * 4 + [_I] * 2 + [_VP]
-        lib.ssim_fwd.restype = _I
-        lib.ssim_bwd.argtypes = [_VP] * 6 + [_I] * 2 + [_VP]
-        lib.ssim_bwd.restype = _I
-        lib._typed = True
+    lib.ssim_prepare.argtypes = []
+    lib.ssim_prepare.restype = _I
+    lib.ssim_fwd.argtypes = [_VP] * 6 + [_I] * 2 + [_VP]
+    lib.ssim_fwd.restype = _I
+    lib.ssim_bwd.argtypes = [_VP] * 6 + [_I] * 2 + [_VP]
+    lib.ssim_bwd.restype = _I
+    lib.ssim_launch_shape.argtypes = [_I] * 3 + [ctypes.POINTER(_I)] * 4
+    lib.ssim_launch_shape.restype = _I
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _prepare(device) -> torch.Tensor:
+    """Once per device, before its first launch: lets K7 and K8 take their
+    dynamic shared memory there (``ssim_prepare``) and returns K7's ticket
+    counter, zeroed once; each launch leaves it at 0.  One counter per
+    device: the port runs one stream per device."""
+    lib = _lib()
+    with torch.cuda.device(device):
+        _build.check(lib, lib.ssim_prepare(), "ssim_prepare")
+    return torch.zeros(1, dtype=torch.int32, device=device)
 
 
 def _check_pair(img1, img2, window_size):
@@ -129,27 +158,24 @@ def _check_pair(img1, img2, window_size):
         raise ValueError("img1 and img2 must have one shape and one device")
 
 
-def _tiles(H: int, W: int):
-    return -(-W // 16), -(-H // 16)
-
-
 def ssim_fwd(img1: torch.Tensor, img2: torch.Tensor, window_size: int = 11):
-    """K7: mean SSIM of two [H, W] images (a 0-dim tensor)."""
+    """K7: mean SSIM of two [H, W] images (a 0-dim tensor), in one launch."""
     if not img1.is_cuda:
         return ssim_fwd_plain(img1, img2, window_size)
     _check_pair(img1, img2, window_size)
     H, W = img1.shape
-    gx, gy = _tiles(H, W)
-    partial = torch.empty(gx * gy, dtype=torch.float32, device=img1.device)
-    win = _window(window_size, torch.float32, img1.device)
+    ticket = _prepare(img1.device)
+    partial = torch.empty(-(-H // TILE) * -(-W // TILE), dtype=torch.float32, device=img1.device)
+    out = torch.empty((), dtype=torch.float32, device=img1.device)
     lib = _lib()
     code = lib.ssim_fwd(
-        img1.data_ptr(), img2.data_ptr(), win.data_ptr(), partial.data_ptr(), H, W,
+        img1.data_ptr(), img2.data_ptr(), _TAPS.ctypes.data, partial.data_ptr(),
+        ticket.data_ptr(), out.data_ptr(), H, W,
         torch.cuda.current_stream(img1.device).cuda_stream,
     )
     _build.check(lib, code, "ssim_fwd")
     ssim_fwd.launches += 1
-    return partial.sum() / (H * W)
+    return out
 
 
 def ssim_bwd(img1: torch.Tensor, img2: torch.Tensor, g: torch.Tensor, window_size: int = 11):
@@ -160,13 +186,13 @@ def ssim_bwd(img1: torch.Tensor, img2: torch.Tensor, g: torch.Tensor, window_siz
     if g.dtype != torch.float32 or g.numel() != 1 or g.device != img1.device:
         raise ValueError("g must be a float32 tensor of one element on the images' device")
     H, W = img1.shape
+    _prepare(img1.device)
+    g = g.contiguous()
     d1 = torch.empty_like(img1)
     d2 = torch.empty_like(img1)
-    g = g.contiguous()
-    win = _window(window_size, torch.float32, img1.device)
     lib = _lib()
     code = lib.ssim_bwd(
-        img1.data_ptr(), img2.data_ptr(), win.data_ptr(), g.data_ptr(), d1.data_ptr(),
+        img1.data_ptr(), img2.data_ptr(), _TAPS.ctypes.data, g.data_ptr(), d1.data_ptr(),
         d2.data_ptr(), H, W, torch.cuda.current_stream(img1.device).cuda_stream,
     )
     _build.check(lib, code, "ssim_bwd")
@@ -176,6 +202,19 @@ def ssim_bwd(img1: torch.Tensor, img2: torch.Tensor, g: torch.Tensor, window_siz
 
 ssim_fwd.launches = 0
 ssim_bwd.launches = 0
+
+
+def launch_shape(which: str, H: int, W: int) -> dict:
+    """K7's (``"ssim_fwd"``) or K8's (``"ssim_bwd"``) launch at [H, W] on the
+    current card: blocks, threads per block, dynamic shared memory and the
+    blocks resident per SM (the CUDA occupancy calculator)."""
+    _prepare(torch.device("cuda", torch.cuda.current_device()))
+    lib = _lib()
+    vals = [_I() for _ in range(4)]
+    code = lib.ssim_launch_shape({"ssim_fwd": 0, "ssim_bwd": 1}[which], H, W,
+                                 *(ctypes.byref(v) for v in vals))
+    _build.check(lib, code, f"launch_shape {which}")
+    return dict(zip(("blocks", "threads", "smem", "per_sm"), (v.value for v in vals)))
 
 
 class SSIMFused(torch.autograd.Function):

@@ -1,9 +1,9 @@
 """The port stands alone: no module of ``curve_gaussian_tpu_torch`` (nor
 ``chip_smoke.py``) imports JAX or the JAX package, entry points run on the
 card unless the caller asks for the CPU, and the kernel wrappers launch
-nothing for CPU tensors.  The last two tests need a CUDA card: they hold
-every kernel against its plain version there, and K1/K2's cull over the
-conics that stress its box
+nothing for CPU tensors.  The last three tests need a CUDA card: they hold
+every kernel against its plain version there, K7/K8 at shapes ragged
+against their tiles, and K1/K2's cull over the conics that stress its box
 (``pytest --noconftest -m cuda tests/test_torch_port_isolation.py``)."""
 import ast
 import os
@@ -281,3 +281,40 @@ def test_cull_exact_on_adversarial_conics():
     for family in FAMILIES:
         assert _cull_family_exact(family, "cuda") > 0, family  # some instance contributes
     assert prc.blend_train_fwd.launches == n1 + len(FAMILIES)
+
+
+# ragged against K7/K8's 32x32 tiles, and some below the 11-tap window
+SSIM_SHAPES = [(512, 512), (37, 300), (300, 37), (17, 300), (5, 7), (1, 33)]
+
+
+@pytest.mark.cuda
+def test_ssim_kernels_at_ragged_shapes_on_card():
+    """K8 equal to its plain version at every shape (the same per-pixel sums
+    in the same order); K7 within 1e-5 of its plain version (only its
+    partial sums run in another order), 1 within 1e-6 on identical images,
+    equal from call to call (the last block adds the partials in a fixed
+    order) and right at every size right after another (the ticket
+    resets), in one launch each."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU form")
+    rng = np.random.default_rng(5)
+    g = torch.full((), -0.3, device="cuda")
+    values, plains = [], []
+    for H, W in SSIM_SHAPES:
+        a = torch.tensor(rng.uniform(size=(H, W)), dtype=torch.float32, device="cuda")
+        b = torch.tensor(0.5 * rng.uniform(size=(H, W)) ** 3, dtype=torch.float32, device="cuda")
+        b = (0.5 * a + b).contiguous()  # correlated with a
+        n7, n8 = psc.ssim_fwd.launches, psc.ssim_bwd.launches
+        v = psc.ssim_fwd(a, b)
+        same = psc.ssim_fwd(a, a)
+        again = psc.ssim_fwd(a, b)
+        d = psc.ssim_bwd(a, b, g)
+        assert (psc.ssim_fwd.launches, psc.ssim_bwd.launches) == (n7 + 3, n8 + 1)
+        values.append(v)
+        plains.append(psc.ssim_fwd_plain(a, b))
+        assert torch.equal(v, again), (H, W)
+        assert abs(float(same) - 1.0) <= 1e-6, (H, W, float(same))
+        for k, k_p in zip(d, psc.ssim_bwd_plain(a, b, g)):
+            assert torch.equal(k, k_p), (H, W, float((k - k_p).abs().max()))
+    for (H, W), v, v_p in zip(SSIM_SHAPES, values, plains):
+        assert abs(float(v) - float(v_p)) <= 1e-5, (H, W, float(v), float(v_p))

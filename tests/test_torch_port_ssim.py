@@ -59,8 +59,11 @@ def test_fused_float32(shape):
     assert psc.ssim_fwd.launches == 0 and psc.ssim_bwd.launches == 0
 
 
-def test_float64_matches_ssim():
-    a, b = _pair((90, 77), np.float64, 3)
+@pytest.mark.parametrize("shape", [(90, 77), (5, 7), (1, 33), (17, 300)])
+def test_float64_matches_ssim(shape):
+    """Also at the shapes that are ragged against the kernels' 32x32 tiles or
+    smaller than the window."""
+    a, b = _pair(shape, np.float64, 3)
     jv, (ja, jb) = jax.value_and_grad(lambda x, y: jssim.ssim(x, y), argnums=(0, 1))(
         jnp.asarray(a), jnp.asarray(b))
     v, ga, gb = _port(a, b)
