@@ -2,7 +2,8 @@
 """Drive the PyTorch port of CurveGaussian on one CUDA card.
 
     python3 chip_smoke.py            # build, check, train; needs one GPU
-    python3 chip_smoke.py --profile  # also print a torch.profiler table of one step
+    python3 chip_smoke.py --profile  # also print torch.profiler tables of the bench step
+                                     # and of a step of the dataset scene
 
 1. Prints the card (``nvidia-smi`` name and power limit) and the torch,
    CUDA and nvcc versions.
@@ -17,10 +18,11 @@
    (``library_ms``, never called by the port).  K1 and K2 are also held
    against the kernels that still run their first design on the same
    inputs (K3 at (F, F, T), bitwise; K6b) and timed in turns with them;
-   the tile lists and what K1/K2's cull skips are printed.  K8 must equal
-   its plain version; K7 and K8's launch shapes (blocks, blocks per SM,
-   waves) are printed, and one K7 call must run one device kernel
-   (counted by torch.profiler).
+   the tile lists and what K1/K2's cull skips are printed.  K1 and K8
+   must equal their plain versions; K7 and K8's launch shapes (blocks,
+   blocks per SM, waves) are printed, and one K7 call must enqueue one
+   device kernel, launched by its wrapper (counted from a CUDA graph
+   capture of the call).
 4. Checks one whole training step on the card against the same step on
    the CPU (plain versions) on a small scene.
 5. Runs the main path at the bench configuration of the JAX package:
@@ -63,6 +65,22 @@
    and F-score; checks that the artifacts exist, that the checkpoint loads
    into a template leaf by leaf bitwise, and that a second run resumes
    from it to 600 and writes its own ``parametric_edges.json``.
+9. A dataset scene at the reference's operating point:
+   a. the port's scene maker at its defaults (50 views of 1600x1600, 24
+      Beziers and 8 lines, tile capacity 1024): K1 once per view, no view
+      overflowing;
+   b. ``load_scene`` at ``-r 2`` (800x800): ``read_png`` of view 0 must
+      equal the array written, and so must its re-encoding with Paeth on
+      every row; the load and one view's read (both unfilter paths) and
+      resize are timed on the host;
+   c. K1 (bitwise), K2, K7 and K8 (bitwise) against their plain versions on
+      one training step of the loaded scene, K3 (bitwise) on its eval
+      render's inputs, K7/K8's launch shapes and one K7 call's device work,
+      all at 800x800, and K1 (bitwise) on view 0 of the scene maker at
+      1600x1600;
+   d. ``train.main -s <scene> -r 2 --eval`` for 600 iterations with test
+      renders at 300 and 600: K1, K2, K7 and K8 once per step, K3 once per
+      test view, finite losses and ``eval.json``.
 
 Any failed check exits non-zero.  The last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -72,9 +90,11 @@ from __future__ import annotations
 import json
 import os
 import re
+import struct
 import subprocess
 import sys
 import time
+import zlib
 
 import numpy as np
 import torch
@@ -82,6 +102,7 @@ import torch.nn.functional as F
 
 from curve_gaussian_tpu_torch import _build
 from curve_gaussian_tpu_torch.config import OptimizationConfig, PipelineConfig
+from curve_gaussian_tpu_torch.data import png as PNG
 from curve_gaussian_tpu_torch.data import synthetic
 from curve_gaussian_tpu_torch.engine import train as T
 from curve_gaussian_tpu_torch.models import curve_state as cs
@@ -344,115 +365,12 @@ def main() -> None:
           f"{state.capacity * M} Gaussians, {H}x{W}, {n_views} views", flush=True)
 
     # -- kernels against their plain versions, at the main path's shapes ------
-    kernels = []
-    with torch.no_grad():
-        g = cs.gaussians(state)
-        pre = preprocess(g["xyz"], g["scale"], g["quat"], g["opacity"], cams[0],
-                         alive=g["alive"])
-        binning = bin_gaussians(pre, H, W, capacity=pipe_cfg.tile_capacity,
-                                big_capacity=pipe_cfg.big_capacity)
-        fields = RC.stack_fields(pre).contiguous()
-        gidx, counts = binning.gather_idx, binning.counts
-        bg = torch.zeros(1, device=dev)
-    n_inst = int(counts.sum())
-    P1, Tn, K = fields.shape[0], gidx.shape[0], gidx.shape[1]
-    pairs = pair_counts(fields, gidx, counts, H, W)
-    print(f"blend inputs: P1={P1} T={Tn} K={K} instances={n_inst} "
-          f"peak={int(binning.peak)} {pairs_note(pairs)}", flush=True)
-    print(f"blend inputs: {cull_note(pairs, counts)}", flush=True)
-
-    col, finT = RC.blend_train_fwd(fields, gidx, counts, bg, H, W)
-    col_p, finT_p = RC.blend_train_fwd_plain(fields, gidx, counts, bg, H, W)
-    torch.cuda.synchronize()
-    e1 = max(rel_err(col, col_p), rel_err(finT, finT_p))
-    fb = P1 * 32 + n_inst * 4 + Tn * 4 + 4 + 2 * H * W * 4
-    b1, by1 = blend_bound(fb, pairs, k3_ops(0))
-    kernels.append(dict(
-        name="blend_train_fwd", route="cuda", source=BLEND_SRC,
-        replaces="curve_gaussian_tpu/ops/rasterize_pallas.py:1180", launches=0, max_abs_err=
-        max((col - col_p).abs().max().item(), (finT - finT_p).abs().max().item()),
-        rel_err=e1,
-        ms=cuda_ms(lambda: RC.blend_train_fwd(fields, gidx, counts, bg, H, W), 20),
-        plain_ms=cuda_ms(lambda: RC.blend_train_fwd_plain(fields, gidx, counts, bg, H, W), 3),
-        bound_ms=b1, bound_by=by1, library_ms=None,
-    ))
-
-    # a realistic colour cotangent: the image loss's gradient at this render
-    img = col.clone().requires_grad_(True)
-    with torch.enable_grad():
-        lo = L.edge_aware_loss(img, gts[0]) + (1.0 - SC.ssim_fused(img, gts[0]))
-        (gc,) = torch.autograd.grad(lo, img)
-    gc = gc.contiguous()
-    gtt = (torch.randn(H, W, device=dev, generator=torch.Generator(dev).manual_seed(0))
-           * gc.abs().max()).contiguous()
-    acc = RC.blend_train_bwd(fields, gidx, counts, col, finT, gc, gtt)
-    acc_p = RC.blend_train_bwd_plain(fields, gidx, counts, col, finT, gc, gtt)
-    torch.cuda.synchronize()
-    e2 = rel_err(RC.moments_to_dfields(acc, fields), RC.moments_to_dfields(acc_p, fields))
-    bb = P1 * 32 + n_inst * 4 + Tn * 4 + 4 * H * W * 4 + P1 * 32
-    b2, by2 = blend_bound(bb, pairs, MOMENT_OPS)
-    kernels.append(dict(
-        name="blend_train_bwd", route="cuda", source=BLEND_SRC,
-        replaces="curve_gaussian_tpu/ops/rasterize_pallas.py:1310", launches=0,
-        max_abs_err=(acc - acc_p).abs().max().item(), rel_err=e2,
-        ms=cuda_ms(lambda: RC.blend_train_bwd(fields, gidx, counts, col, finT, gc, gtt), 20),
-        plain_ms=cuda_ms(
-            lambda: RC.blend_train_bwd_plain(fields, gidx, counts, col, finT, gc, gtt), 3),
-        bound_ms=b2, bound_by=by2, library_ms=None,
-    ))
-    yardsticks((fields, gidx, counts, col, finT, gc, gtt), bg)
-
-    # SSIM on the main path's pair: the render against its ground truth
-    a, b = col.contiguous(), gts[0]
-    win = torch.tensor(SC.gaussian_window(11), device=dev)
-    win2 = (win[:, None] * win[None, :])[None, None]
-
-    def conv_ssim(x, y):
-        m = F.conv2d(torch.stack([x, y, x * x, y * y, x * y])[:, None], win2, padding=5)[:, 0]
-        mu1, mu2, e11, e22, e12 = m
-        return (((2 * mu1 * mu2 + SC.C1) * (2 * (e12 - mu1 * mu2) + SC.C2))
-                / ((mu1 * mu1 + mu2 * mu2 + SC.C1) * (e11 - mu1 * mu1 + e22 - mu2 * mu2 + SC.C2))
-                ).mean()
-
-    v = SC.ssim_fwd(a, b)
-    v_p = SC.ssim_fwd_plain(a, b)
-    e7 = abs(v.item() - v_p.item())
-    b7, by7 = bound_ms(2 * H * W * 4, H * W * K7_OPS)
-    kernels.append(dict(
-        name="ssim_fwd", route="cuda", source="curve_gaussian_tpu_torch/csrc/ssim.cu",
-        replaces="curve_gaussian_tpu/ops/ssim_pallas.py:98", launches=0, max_abs_err=e7,
-        rel_err=e7, ms=cuda_ms(lambda: SC.ssim_fwd(a, b), 50),
-        plain_ms=cuda_ms(lambda: SC.ssim_fwd_plain(a, b), 10),
-        bound_ms=b7, bound_by=by7, library_ms=cuda_ms(lambda: conv_ssim(a, b), 50),
-    ))
-    gbar = torch.full((), -0.1, device=dev)
-    d1, d2 = SC.ssim_bwd(a, b, gbar)
-    d1p, d2p = SC.ssim_bwd_plain(a, b, gbar)
-    torch.cuda.synchronize()
-    e8 = max(rel_err(d1, d1p), rel_err(d2, d2p))
-    b8, by8 = bound_ms(4 * H * W * 4, H * W * K8_OPS)
-    ag = a.clone().requires_grad_(True)
-    bgr = b.clone().requires_grad_(True)
-
-    def conv_ssim_value():
-        with torch.enable_grad():
-            return conv_ssim(ag, bgr)
-
-    kernels.append(dict(
-        name="ssim_bwd", route="cuda", source="curve_gaussian_tpu_torch/csrc/ssim.cu",
-        replaces="curve_gaussian_tpu/ops/ssim_pallas.py:128", launches=0,
-        max_abs_err=max((d1 - d1p).abs().max().item(), (d2 - d2p).abs().max().item()),
-        rel_err=e8, ms=cuda_ms(lambda: SC.ssim_bwd(a, b, gbar), 50),
-        plain_ms=cuda_ms(lambda: SC.ssim_bwd_plain(a, b, gbar), 10),
-        bound_ms=b8, bound_by=by8,
-        library_ms=cuda_ms(lambda v: torch.autograd.grad(v, (ag, bgr)), 50,
-                           setup=conv_ssim_value),
-    ))
-    for k in kernels:
-        report(k)
-    if not (torch.equal(d1, d1p) and torch.equal(d2, d2p)):
-        fail("K8 is not equal to its plain version on the main path's pair")
-    ssim_checks(a, b)
+    inputs = step_inputs(state, cams[0], gts[0], pipe_cfg)
+    kernels, pairs, acc = train_kernels(inputs, gts[0], "", library=True)
+    fields, binning, col, finT, gc, gtt = inputs
+    yardsticks((fields, binning.gather_idx, binning.counts, col, finT, gc, gtt),
+               torch.zeros(1, device=dev))
+    ssim_checks(col, gts[0])
 
     # -- one whole step on the card against the same step on the CPU ----------
     small_check()
@@ -515,14 +433,17 @@ def main() -> None:
     kernels += full_channel(ts, cams, gts, opt_cfg, pipe_cfg, M, dev)
 
     # -- the basis flavor (K6b), on the main path's K2 inputs -------------------
-    kernels.append(basis_flavor((fields, gidx, counts, col, finT, gc, gtt), acc, pairs, ts,
-                                cams, gts, opt_cfg, pipe_cfg, M))
+    kernels.append(basis_flavor((fields, binning.gather_idx, binning.counts, col, finT, gc, gtt),
+                                acc, pairs, ts, cams, gts, opt_cfg, pipe_cfg, M))
 
     if profile:
         profile_step(step)
 
     # -- the training driver at full width ---------------------------------------
     driver(dev)
+
+    # -- a dataset scene at the reference's operating point ------------------------
+    dataset_scene(dev, profile)
 
     print(json.dumps({"kernels": [{k: v for k, v in d.items() if k != "rel_err"}
                                   for d in kernels]}), flush=True)
@@ -569,27 +490,53 @@ def yardsticks(inputs, bg):
               f"{(t[1] + t[2]) / (t[0] + t[3]):.3f}", flush=True)
 
 
-def device_kernels(fn) -> dict:
-    """{name: count} of the device kernels one call of fn runs, after one
-    warm-up call (torch.profiler)."""
-    from torch.profiler import ProfilerActivity, profile
+# CUgraphNodeType (cuda.h)
+GRAPH_NODE_TYPES = {0: "kernel", 1: "memcpy", 2: "memset", 3: "host", 4: "graph", 5: "empty",
+                    6: "wait_event", 7: "event_record", 8: "ext_semas_signal",
+                    9: "ext_semas_wait", 10: "mem_alloc", 11: "mem_free", 12: "batch_mem_op",
+                    13: "conditional"}
 
-    fn()
+
+def device_work(fn):
+    """({node type: count} of the device work one call of fn enqueues, the
+    launches the wrappers counted in that call).  The call is captured into
+    a CUDA graph, never replayed, whose nodes are read through the driver
+    API (``cuGraphGetNodes``): a count that does not depend on a profiler's
+    tracing."""
+    import ctypes
+
+    cu = ctypes.CDLL("libcuda.so.1")
+    for f in (cu.cuGraphGetNodes, cu.cuGraphNodeGetType):
+        f.restype = ctypes.c_int
+    fn()  # warm-up: every cached set-up of the wrapper happens outside the capture
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    before = {n: w.launches for n, w in WRAPPERS.items()}
+    g = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(g):
         fn()
-        torch.cuda.synchronize()
+    launches = {n: w.launches - before[n] for n, w in WRAPPERS.items() if w.launches != before[n]}
+    graph, n = ctypes.c_void_p(g.raw_cuda_graph()), ctypes.c_size_t(0)
+    if cu.cuGraphGetNodes(graph, None, ctypes.byref(n)) != 0:
+        fail("cuGraphGetNodes failed on the captured graph")
+    nodes = (ctypes.c_void_p * n.value)()
+    if n.value and cu.cuGraphGetNodes(graph, nodes, ctypes.byref(n)) != 0:
+        fail("cuGraphGetNodes failed on the captured graph")
     out = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            out[e.name] = out.get(e.name, 0) + 1
-    return out
+    for node in nodes:
+        t = ctypes.c_int(-1)
+        if cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(t)) != 0:
+            fail("cuGraphNodeGetType failed on the captured graph")
+        name = GRAPH_NODE_TYPES.get(t.value, str(t.value))
+        out[name] = out.get(name, 0) + 1
+    g.reset()
+    return out, launches
 
 
 def ssim_checks(a, b) -> None:
-    """K7's and K8's launch shapes on the main path's pair (blocks, blocks
-    resident per SM, waves; K7's blocks must be the partial sums its wrapper
-    allocates), and the device kernels one K7 call runs, which must be one."""
+    """K7's and K8's launch shapes on a pair (blocks, blocks resident per
+    SM, waves; K7's blocks must be the partial sums its wrapper allocates)
+    and the device work one K7 call enqueues, which must be one kernel,
+    launched by its wrapper (``device_work``)."""
     H, W = a.shape
     nsm = torch.cuda.get_device_properties(0).multi_processor_count
     for name in ("ssim_fwd", "ssim_bwd"):
@@ -599,12 +546,12 @@ def ssim_checks(a, b) -> None:
               f"{s['blocks'] / (s['per_sm'] * nsm):.3f} waves on {nsm} SMs", flush=True)
         if s["blocks"] != -(-H // SC.TILE) * -(-W // SC.TILE):
             fail(f"{name} launches {s['blocks']} blocks, not one per {SC.TILE}x{SC.TILE} tile")
-    ks = device_kernels(lambda: SC.ssim_fwd(a, b))
-    n = sum(ks.values())
-    print(f"one ssim_fwd call runs {n} device kernel(s) (torch.profiler): "
-          f"{ {k[:60]: c for k, c in ks.items()} }", flush=True)
-    if n != 1:
-        fail(f"one ssim_fwd call ran {n} device kernels, not 1")
+    nodes, launches = device_work(lambda: SC.ssim_fwd(a, b))
+    print(f"one ssim_fwd call at {H}x{W} enqueues {nodes} (CUDA graph capture), wrapper "
+          f"launches {launches}", flush=True)
+    if nodes != {"kernel": 1} or launches != {"ssim_fwd": 1}:
+        fail(f"one ssim_fwd call at {H}x{W} enqueued {nodes} with wrapper launches {launches}, "
+             f"not one kernel launched by ssim_fwd")
 
 
 def run_path(name: str, fn, must: tuple, must_not: tuple = ()):
@@ -639,32 +586,24 @@ def tile_inputs(state, cam, pipe_cfg, geo, invd, ones, color=None):
     return fields, b
 
 
-def tile_kernels(label, fields, b, H, W, geo, invd, ones, cots):
-    """K3 and K4 at one channel set against their plain versions, timed;
-    returns their two kernel entries."""
+def k3_entry(label, fields, b, H, W, geo, invd, ones, pairs=None):
+    """K3 at one channel set against its plain version (bitwise, or fail),
+    timed beside its bound; returns (its kernel entry, its outputs, the pair
+    counts)."""
     gidx, counts = b.gather_idx, b.counts
-    dev = fields.device
-    bg = torch.zeros(1, device=dev)
+    bg = torch.zeros(1, device=fields.device)
     outs = TB.tile_blend_fwd(fields, gidx, counts, bg, H, W, geo, invd, ones)
     outs_p = TB.tile_blend_fwd_plain(fields, gidx, counts, bg, H, W, geo, invd, ones)
-    dpay = TB.tile_blend_bwd(fields, gidx, counts, outs, cots, geo, invd, ones)
-    dpay_p = TB.tile_blend_bwd_plain(fields, gidx, counts, outs, cots, geo, invd, ones)
     torch.cuda.synchronize()
-    n_inst, P1, nf = int(counts.sum()), fields.shape[0], fields.shape[1]
-    chans = TB.channels(geo, invd, ones)
-    nch, ngch = len(chans), sum(c is not None for _, c in chans)
-    pairs = pair_counts(fields, gidx, counts, H, W)
+    n_inst, P1 = int(counts.sum()), fields.shape[0]
+    ngch = sum(c is not None for _, c in TB.channels(geo, invd, ones))
+    pairs = pair_counts(fields, gidx, counts, H, W) if pairs is None else pairs
     # bytes: K3 writes all 7 output images (a gated channel's zeros too);
-    # K4 needs only the images of the set's channels and their cotangents
-    nimg = 2 + (1 if invd else 0) + (4 if geo else 0)
-    tables = P1 * nf * 4 + n_inst * 4 + gidx.shape[0] * 4
     # accumulated channels: those with a field (the ones colour derives from T)
+    tables = P1 * fields.shape[1] * 4 + n_inst * 4 + gidx.shape[0] * 4
     b3, by3 = blend_bound(tables + 4 + 7 * H * W * 4, pairs, k3_ops(ngch))
-    b4, by4 = blend_bound(tables + 2 * nimg * H * W * 4 + dpay.numel() * 4, pairs,
-                          k4_ops(nch, ngch))
-    src = BLEND_SRC
-    fwd = dict(
-        name="tile_blend_fwd", route="cuda", source=src,
+    k = dict(
+        name="tile_blend_fwd", route="cuda", source=BLEND_SRC,
         replaces="curve_gaussian_tpu/ops/rasterize_pallas.py:368", launches=0,
         max_abs_err=max((o - p).abs().max().item() for o, p in zip(outs, outs_p)),
         rel_err=max(rel_err(o, p) for o, p in zip(outs, outs_p)),
@@ -674,8 +613,32 @@ def tile_kernels(label, fields, b, H, W, geo, invd, ones, cots):
                                                          invd, ones), 3),
         bound_ms=b3, bound_by=by3, library_ms=None,
     )
+    report(k, f"{label} (geo, invd, ones)={(geo, invd, ones)} H,W={H},{W} "
+              f"T={gidx.shape[0]} K={gidx.shape[1]} P1={P1} instances={n_inst} "
+              f"{pairs_note(pairs)}")
+    if not all(torch.equal(o, p) for o, p in zip(outs, outs_p)):
+        fail(f"K3 is not equal to its plain version on the {label} inputs")
+    return k, outs, pairs
+
+
+def tile_kernels(label, fields, b, H, W, geo, invd, ones, cots):
+    """K3 (bitwise) and K4 at one channel set against their plain versions,
+    timed; returns their two kernel entries."""
+    gidx, counts = b.gather_idx, b.counts
+    fwd, outs, pairs = k3_entry(label, fields, b, H, W, geo, invd, ones)
+    dpay = TB.tile_blend_bwd(fields, gidx, counts, outs, cots, geo, invd, ones)
+    dpay_p = TB.tile_blend_bwd_plain(fields, gidx, counts, outs, cots, geo, invd, ones)
+    torch.cuda.synchronize()
+    n_inst, P1, nf = int(counts.sum()), fields.shape[0], fields.shape[1]
+    chans = TB.channels(geo, invd, ones)
+    nch, ngch = len(chans), sum(c is not None for _, c in chans)
+    # bytes: K4 needs only the images of the set's channels and their cotangents
+    nimg = 2 + (1 if invd else 0) + (4 if geo else 0)
+    tables = P1 * nf * 4 + n_inst * 4 + gidx.shape[0] * 4
+    b4, by4 = blend_bound(tables + 2 * nimg * H * W * 4 + dpay.numel() * 4, pairs,
+                          k4_ops(nch, ngch))
     bwd = dict(
-        name="tile_blend_bwd", route="cuda", source=src,
+        name="tile_blend_bwd", route="cuda", source=BLEND_SRC,
         replaces="curve_gaussian_tpu/ops/rasterize_pallas.py:483", launches=0,
         max_abs_err=(dpay - dpay_p).abs().max().item(), rel_err=rel_err(dpay, dpay_p),
         ms=cuda_ms(lambda: TB.tile_blend_bwd(fields, gidx, counts, outs, cots, geo, invd, ones),
@@ -684,10 +647,9 @@ def tile_kernels(label, fields, b, H, W, geo, invd, ones, cots):
                                                          invd, ones), 3),
         bound_ms=b4, bound_by=by4, library_ms=None,
     )
-    for k in (fwd, bwd):
-        report(k, f"{label} (geo, invd, ones)={(geo, invd, ones)} H,W={H},{W} "
-                  f"T={gidx.shape[0]} K={gidx.shape[1]} P1={P1} instances={n_inst} "
-                  f"{pairs_note(pairs)}")
+    report(bwd, f"{label} (geo, invd, ones)={(geo, invd, ones)} H,W={H},{W} "
+                f"T={gidx.shape[0]} K={gidx.shape[1]} P1={P1} instances={n_inst} "
+                f"{pairs_note(pairs)}")
     return fwd, bwd
 
 
@@ -1051,6 +1013,315 @@ def driver(dev):
             os.path.join(resume_dir, "parametric_edges.json")):
         fail(f"the resumed run did not train {ck_it} -> {n_it} and write its "
              "parametric_edges.json")
+
+
+DATASET_DIR = os.path.join(DRIVER_DIR, "refscale")
+MAKER_ARGS = ["--out", DATASET_DIR]  # the scene maker's defaults: 1600x1600, 50 views
+DATASET_ARGS = ["-r", "2", "--eval", "--iterations", "600", "--test-iterations", "300", "600",
+                "--seed", "0", "--quiet"]
+
+
+def step_inputs(state, cam, gt, pipe_cfg):
+    """The blend and SSIM inputs of one training step of `state` at view
+    `cam` against `gt`: (fields, binning, render, final T, colour and T
+    cotangents), the cotangent the image loss's gradient at this render."""
+    H, W = cam.height, cam.width
+    with torch.no_grad():
+        g = cs.gaussians(state)
+        pre = preprocess(g["xyz"], g["scale"], g["quat"], g["opacity"], cam, alive=g["alive"])
+        b = bin_gaussians(pre, H, W, capacity=pipe_cfg.tile_capacity,
+                          big_capacity=pipe_cfg.big_capacity)
+        fields = RC.stack_fields(pre).contiguous()
+        col, finT = RC.blend_train_fwd(fields, b.gather_idx, b.counts,
+                                       torch.zeros(1, device=fields.device), H, W)
+    img = col.clone().requires_grad_(True)
+    with torch.enable_grad():
+        lo = L.edge_aware_loss(img, gt) + (1.0 - SC.ssim_fused(img, gt))
+        (gc,) = torch.autograd.grad(lo, img)
+    gc = gc.contiguous()
+    gen = torch.Generator(fields.device).manual_seed(0)
+    gtt = (torch.randn(H, W, device=fields.device, generator=gen) * gc.abs().max()).contiguous()
+    return fields, b, col, finT, gc, gtt
+
+
+def k1_entry(label, fields, b, H, W, pairs=None):
+    """K1 against its plain version (bitwise, or fail), timed beside its
+    bound; returns (its kernel entry, the pair counts)."""
+    gidx, counts = b.gather_idx, b.counts
+    bg = torch.zeros(1, device=fields.device)
+    col, finT = RC.blend_train_fwd(fields, gidx, counts, bg, H, W)
+    col_p, finT_p = RC.blend_train_fwd_plain(fields, gidx, counts, bg, H, W)
+    torch.cuda.synchronize()
+    n_inst, P1, Tn = int(counts.sum()), fields.shape[0], gidx.shape[0]
+    pairs = pair_counts(fields, gidx, counts, H, W) if pairs is None else pairs
+    b1, by1 = blend_bound(P1 * 32 + n_inst * 4 + Tn * 4 + 4 + 2 * H * W * 4, pairs, k3_ops(0))
+    k = dict(name="blend_train_fwd", route="cuda", source=BLEND_SRC,
+             replaces="curve_gaussian_tpu/ops/rasterize_pallas.py:1180", launches=0,
+             max_abs_err=max((col - col_p).abs().max().item(), (finT - finT_p).abs().max().item()),
+             rel_err=max(rel_err(col, col_p), rel_err(finT, finT_p)),
+             ms=cuda_ms(lambda: RC.blend_train_fwd(fields, gidx, counts, bg, H, W), 20),
+             plain_ms=cuda_ms(lambda: RC.blend_train_fwd_plain(fields, gidx, counts, bg, H, W), 3),
+             bound_ms=b1, bound_by=by1, library_ms=None)
+    report(k, label and f"{label} H,W={H},{W} T={Tn} K={gidx.shape[1]} P1={P1} "
+                        f"instances={n_inst} peak={int(b.peak)} {pairs_note(pairs)}")
+    if not (torch.equal(col, col_p) and torch.equal(finT, finT_p)):
+        fail(f"K1 is not equal to its plain version {label or 'on the main path'}")
+    return k, pairs
+
+
+def train_kernels(inputs, gt, label, library=False):
+    """K1 (bitwise), K2, K7 and K8 (bitwise) against their plain versions on
+    one training step's inputs (``step_inputs``), timed beside their bounds
+    and, with `library`, K7/K8 beside a cuDNN conv2d SSIM and its autograd
+    backward; returns (their four kernel entries, the pair counts, K2's
+    moments)."""
+    fields, b, col, finT, gc, gtt = inputs
+    gidx, counts = b.gather_idx, b.counts
+    H, W = col.shape
+    dev = col.device
+    n_inst, P1, Tn = int(counts.sum()), fields.shape[0], gidx.shape[0]
+    pairs = pair_counts(fields, gidx, counts, H, W)
+    print(f"blend inputs{label and ' ' + label}: P1={P1} T={Tn} K={gidx.shape[1]} "
+          f"instances={n_inst} peak={int(b.peak)} {pairs_note(pairs)}", flush=True)
+    print(f"blend inputs{label and ' ' + label}: {cull_note(pairs, counts)}", flush=True)
+    k1, _ = k1_entry(label, fields, b, H, W, pairs)
+
+    acc = RC.blend_train_bwd(fields, gidx, counts, col, finT, gc, gtt)
+    acc_p = RC.blend_train_bwd_plain(fields, gidx, counts, col, finT, gc, gtt)
+    torch.cuda.synchronize()
+    b2, by2 = blend_bound(P1 * 32 + n_inst * 4 + Tn * 4 + 4 * H * W * 4 + P1 * 32, pairs,
+                          MOMENT_OPS)
+    k2 = dict(
+        name="blend_train_bwd", route="cuda", source=BLEND_SRC,
+        replaces="curve_gaussian_tpu/ops/rasterize_pallas.py:1310", launches=0,
+        max_abs_err=(acc - acc_p).abs().max().item(),
+        rel_err=rel_err(RC.moments_to_dfields(acc, fields), RC.moments_to_dfields(acc_p, fields)),
+        ms=cuda_ms(lambda: RC.blend_train_bwd(fields, gidx, counts, col, finT, gc, gtt), 20),
+        plain_ms=cuda_ms(
+            lambda: RC.blend_train_bwd_plain(fields, gidx, counts, col, finT, gc, gtt), 3),
+        bound_ms=b2, bound_by=by2, library_ms=None)
+
+    # SSIM on the step's pair: the render against its ground truth
+    a = col.contiguous()
+    win = torch.tensor(SC.gaussian_window(11), device=dev)
+    win2 = (win[:, None] * win[None, :])[None, None]
+
+    def conv_ssim(x, y):
+        m = F.conv2d(torch.stack([x, y, x * x, y * y, x * y])[:, None], win2, padding=5)[:, 0]
+        mu1, mu2, e11, e22, e12 = m
+        return (((2 * mu1 * mu2 + SC.C1) * (2 * (e12 - mu1 * mu2) + SC.C2))
+                / ((mu1 * mu1 + mu2 * mu2 + SC.C1) * (e11 - mu1 * mu1 + e22 - mu2 * mu2 + SC.C2))
+                ).mean()
+
+    v, v_p = SC.ssim_fwd(a, gt), SC.ssim_fwd_plain(a, gt)
+    e7 = abs(v.item() - v_p.item())
+    b7, by7 = bound_ms(2 * H * W * 4, H * W * K7_OPS)
+    k7 = dict(
+        name="ssim_fwd", route="cuda", source="curve_gaussian_tpu_torch/csrc/ssim.cu",
+        replaces="curve_gaussian_tpu/ops/ssim_pallas.py:98", launches=0, max_abs_err=e7,
+        rel_err=e7, ms=cuda_ms(lambda: SC.ssim_fwd(a, gt), 50),
+        plain_ms=cuda_ms(lambda: SC.ssim_fwd_plain(a, gt), 10),
+        bound_ms=b7, bound_by=by7,
+        library_ms=cuda_ms(lambda: conv_ssim(a, gt), 50) if library else None)
+    gbar = torch.full((), -0.1, device=dev)
+    d1, d2 = SC.ssim_bwd(a, gt, gbar)
+    d1p, d2p = SC.ssim_bwd_plain(a, gt, gbar)
+    torch.cuda.synchronize()
+    b8, by8 = bound_ms(4 * H * W * 4, H * W * K8_OPS)
+    ag = a.clone().requires_grad_(True)
+    bgr = gt.clone().requires_grad_(True)
+
+    def conv_ssim_value():
+        with torch.enable_grad():
+            return conv_ssim(ag, bgr)
+
+    k8 = dict(
+        name="ssim_bwd", route="cuda", source="curve_gaussian_tpu_torch/csrc/ssim.cu",
+        replaces="curve_gaussian_tpu/ops/ssim_pallas.py:128", launches=0,
+        max_abs_err=max((d1 - d1p).abs().max().item(), (d2 - d2p).abs().max().item()),
+        rel_err=max(rel_err(d1, d1p), rel_err(d2, d2p)),
+        ms=cuda_ms(lambda: SC.ssim_bwd(a, gt, gbar), 50),
+        plain_ms=cuda_ms(lambda: SC.ssim_bwd_plain(a, gt, gbar), 10),
+        bound_ms=b8, bound_by=by8,
+        library_ms=cuda_ms(lambda v: torch.autograd.grad(v, (ag, bgr)), 50,
+                           setup=conv_ssim_value) if library else None)
+    shape = label and f"{label} H,W={H},{W}"
+    for k in (k2, k7, k8):
+        report(k, shape)
+    if not (torch.equal(d1, d1p) and torch.equal(d2, d2p)):
+        fail(f"K8 is not equal to its plain version {label or 'on the main path'}'s pair")
+    return [k1, k2, k7, k8], pairs, acc
+
+
+def dataset_scene(dev, profile=False):
+    """Phase 9 of the module docstring; with `profile`, a torch.profiler
+    table of two steps of the loaded scene."""
+    import shutil
+
+    from curve_gaussian_tpu_torch import train as TR
+    from curve_gaussian_tpu_torch.config import ModelConfig
+    from curve_gaussian_tpu_torch.data import dataset as DS
+    from curve_gaussian_tpu_torch.data.png import read_png, resize_bicubic_u8
+    from curve_gaussian_tpu_torch.scripts import make_ref_scale_scene as MK
+
+    # -- a. the scene ------------------------------------------------------------
+    shutil.rmtree(DATASET_DIR, ignore_errors=True)
+    mk_args = MK.parse_args(MAKER_ARGS)
+    t0 = time.time()
+    made, c = run_path("make_ref_scale_scene",
+                       lambda: MK.make_ref_scale_scene(MAKER_ARGS, quiet=True),
+                       ("blend_train_fwd",), ("blend_train_bwd", "tile_blend_fwd"))
+    sec = made["seconds"]
+    print(f"dataset scene: {mk_args.views} views of {mk_args.size}x{mk_args.size} in "
+          f"{time.time() - t0:.2f} s: render {sec['render']:.2f} s, write {sec['write']:.2f} s "
+          f"(host clock); overflow per view {made['overflow']}", flush=True)
+    if c["blend_train_fwd"] != mk_args.views or any(made["overflow"]):
+        fail(f"the scene maker launched K1 {c['blend_train_fwd']} times, not {mk_args.views}, "
+             f"or a view overflowed")
+
+    # -- b. load at -r 2 ------------------------------------------------------------
+    view0 = os.path.join(DATASET_DIR, "edge_DexiNed", "0000.png")
+    t0 = time.time()
+    scene = DS.load_scene(ModelConfig(source_path=DATASET_DIR, resolution=2), device=dev)
+    load_s = time.time() - t0
+    t0 = time.time()
+    u8 = read_png(view0)
+    read_s = time.time() - t0
+    paeth = os.path.join(DRIVER_DIR, "view0_paeth.png")
+    write_png_paeth(paeth, u8)
+    t0 = time.time()
+    u8_paeth = read_png(paeth)
+    paeth_s = time.time() - t0
+    t0 = time.time()
+    resize_bicubic_u8(u8, mk_args.size // 2, mk_args.size // 2)
+    resize_s = time.time() - t0
+    cam0 = scene.train_cameras[0]
+    H, W = cam0.height, cam0.width
+    print(f"dataset load: {len(scene.train_cameras)} views at {H}x{W} in {load_s:.2f} s "
+          f"(host clock; one view: read_png {read_s * 1e3:.1f} ms as written (filter 0, the "
+          f"row path), {paeth_s * 1e3:.1f} ms with Paeth on every row (the diagonal sweep), "
+          f"resize {resize_s * 1e3:.1f} ms); {len(scene.seed_points)} seed points, extent "
+          f"{scene.cameras_extent:.4f}", flush=True)
+    if not (np.array_equal(u8, made["first_view"]) and np.array_equal(u8_paeth, u8)):
+        fail("read_png of view 0, as written or with Paeth rows, differs from the array the "
+             "scene maker wrote")
+    if (H, W) != (mk_args.size // 2, mk_args.size // 2):
+        fail(f"the scene loaded at -r 2 is {H}x{W}")
+
+    # -- c. the kernels at the new shapes --------------------------------------------
+    pipe_cfg = PipelineConfig()
+    state = cs.init_state(scene.seed_points, n_views=len(scene.train_cameras), n_gaussians=12,
+                          device=dev)
+    gt = torch.as_tensor(scene.train_edge_maps[0], device=dev)
+    inputs = step_inputs(state, cam0, gt, pipe_cfg)
+    train_kernels(inputs, gt, "dataset step")
+    ssim_checks(inputs[2], gt)
+    fields3, b3 = tile_inputs(state, cam0, pipe_cfg, True, True, True)
+    k3_entry("dataset eval render", fields3, b3, H, W, True, True, True)
+    del fields3, b3
+
+    # K1 on the scene maker's splats at full size, view 0
+    _, _, splats = MK.scene_splats(mk_args, dev)
+    cam_full = synthetic.ring_cameras(mk_args.views, mk_args.size, mk_args.size, device=dev)[0]
+    with torch.no_grad():
+        pre = preprocess(*splats, cam_full)
+        bf = bin_gaussians(pre, mk_args.size, mk_args.size, capacity=mk_args.tile_capacity,
+                           big_capacity=1024)
+        ff = RC.stack_fields(pre).contiguous()
+    k1_entry("scene maker view 0", ff, bf, mk_args.size, mk_args.size)
+    del inputs, ff, bf, pre
+    if profile:
+        ts = T.init_train_state(state)
+        gts = [torch.as_tensor(m, device=dev) for m in scene.train_edge_maps[:4]]
+        opt_cfg = OptimizationConfig()
+
+        def step(i):
+            nonlocal ts
+            ts, _ = T.train_step(ts, scene.train_cameras[i % 4], gts[i % 4], 0.0, opt_cfg,
+                                 pipe_cfg, use_mask=False, n_gaussians=12)
+
+        for i in range(3):
+            step(i)
+        profile_step(step)
+        del ts, gts
+
+    # -- d. train it through the CLI ----------------------------------------------------
+    run_dir = os.path.join(DRIVER_DIR, "refscale_run")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    res, c = run_path("dataset driver",
+                      lambda: TR.main(["-s", DATASET_DIR, "--model-path", run_dir] + DATASET_ARGS),
+                      ("blend_train_fwd", "blend_train_bwd", "ssim_fwd", "ssim_bwd",
+                       "tile_blend_fwd"),
+                      ("tile_blend_bwd", "blend_moment_bwd", "blend_train_bwd_basis"))
+    main_s = time.time() - t0
+    peak = torch.cuda.max_memory_allocated()
+    a = TR.parse_args(DATASET_ARGS)
+    sec = res.seconds
+    iters = int(res.ts.step)
+    print(f"dataset driver: {iters} iterations in {sec['train']:.2f} s of train_scene, "
+          f"{iters / sec['train']:.3f} it/s (host clock); main() {main_s:.2f} s with the load "
+          f"and the eval; peak memory {peak / 2**30:.3f} GiB", flush=True)
+    print("dataset driver: host seconds by phase " + ", ".join(
+        f"{k} {v:.3f} ({100 * v / sec['train']:.1f}%)" for k, v in sec.items() if k != "train"),
+        flush=True)
+    for e in res.events:
+        if e["kind"] == "surgery":
+            print(f"dataset driver event {e['iter']}: {'+'.join(e['ops'])} -> {e['curves']} "
+                  f"curves (capacity {e['capacity']}), {e['seconds'] * 1e3:.1f} ms host",
+                  flush=True)
+        else:
+            print(f"dataset driver event {e['iter']}: {e['kind']} {e['old']} -> {e['new']} "
+                  f"({e['why']})", flush=True)
+    n_views = len(scene.train_cameras)
+    want = dict(blend_train_fwd=a.iterations, blend_train_bwd=a.iterations,
+                ssim_fwd=a.iterations, ssim_bwd=a.iterations,
+                tile_blend_fwd=n_views * len(a.test_iterations))
+    for n, v in want.items():
+        if c[n] != v:
+            fail(f"the dataset run launched {n} {c[n]} times, not {v}")
+    if iters != a.iterations or res.ts.params["curve_points"].device.type != "cuda":
+        fail(f"the dataset run ended at step {iters} or left the card")
+    with open(os.path.join(run_dir, "metrics.jsonl")) as fh:
+        rows = [json.loads(line) for line in fh]
+    totals = [r["total"] for r in rows if "total" in r]
+    tests = [(r["iter"], r["test_l1"], r["test_psnr"]) for r in rows if "test_l1" in r]
+    with open(os.path.join(run_dir, "eval.json")) as fh:
+        ev = json.load(fh)
+    n_edges = len(res.edge_dict["curves_ctl_pts"]) + len(res.edge_dict["lines_end_pts"])
+    print(f"dataset driver: logged loss first {totals[0]:.5f} last {totals[-1]:.5f}; test "
+          f"(iter, L1, PSNR) {tests}", flush=True)
+    print(f"dataset eval: {n_edges} edges; chamfer {ev['chamfer']:.5f} " + " ".join(
+        f"P/R/F@{t} {ev[f'precision_{t}']:.4f}/{ev[f'recall_{t}']:.4f}/{ev[f'fscore_{t}']:.4f}"
+        for t in (0.005, 0.01, 0.02)), flush=True)
+    if not (totals and np.isfinite(totals).all() and len(tests) == len(a.test_iterations)
+            and np.isfinite(np.array(tests, float)).all()
+            and all(np.isfinite(v) for v in ev.values())):
+        fail("the dataset run logged a non-finite loss, test metric or eval.json value")
+
+
+def write_png_paeth(path: str, img: np.ndarray) -> None:
+    """An 8-bit greyscale [H, W] uint8 image as a PNG with the Paeth filter
+    (4) on every row, the filter libpng's adaptive choice often takes."""
+    x = img.astype(np.int16)
+    a = np.zeros_like(x)
+    a[:, 1:] = x[:, :-1]
+    b = np.zeros_like(x)
+    b[1:] = x[:-1]
+    c = np.zeros_like(x)
+    c[1:, 1:] = x[:-1, :-1]
+    p = a + b - c
+    pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - c)
+    pred = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+    rows = ((x - pred) & 0xFF).astype(np.uint8)
+    h, w = img.shape
+    raw = np.concatenate([np.full((h, 1), 4, np.uint8), rows], axis=1)
+    with open(path, "wb") as f:
+        f.write(PNG.SIGNATURE)
+        f.write(PNG._chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 0, 0, 0, 0)))
+        f.write(PNG._chunk(b"IDAT", zlib.compress(raw.tobytes(), 6)))
+        f.write(PNG._chunk(b"IEND", b""))
 
 
 def small_check():

@@ -1,10 +1,9 @@
-"""PLY writers (numpy only), as ``curve_gaussian_tpu/data/ply.py``: vertex
-clouds with float properties, optional normals and uchar colours, and
-binary triangle meshes with vertex colours.  The reader belongs to the
-dataset loaders, a later slice of the port."""
+"""PLY files (numpy only), as ``curve_gaussian_tpu/data/ply.py``: vertex
+clouds with float properties, optional normals and uchar colours, binary
+triangle meshes with vertex colours, and the vertex reader."""
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional
 
 import numpy as np
 
@@ -57,6 +56,44 @@ def write_ply(
         if cols is not None:
             rec["red"], rec["green"], rec["blue"] = cols[:, 0], cols[:, 1], cols[:, 2]
         f.write(rec.tobytes())
+
+
+def read_ply(path: str) -> Dict[str, np.ndarray]:
+    """The vertices of an ascii or binary PLY: 'points' [N, 3] and, where
+    the file has them, 'colors' (float [0, 1]) and 'normals'."""
+    with open(path, "rb") as f:
+        data = f.read()
+    header_end = data.index(b"end_header\n") + len(b"end_header\n")
+    fmt, n, props, in_vertex = "ascii", 0, [], False
+    for line in data[:header_end].decode("ascii", "replace").splitlines():
+        t = line.strip().split()
+        if not t:
+            continue
+        if t[0] == "format":
+            fmt = t[1]
+        elif t[0] == "element":
+            in_vertex = t[1] == "vertex"
+            if in_vertex:
+                n = int(t[2])
+        elif t[0] == "property" and in_vertex:
+            props.append((t[2], t[1]))
+    typemap = {"float": "<f4", "float32": "<f4", "double": "<f8", "uchar": "u1", "uint8": "u1",
+               "int": "<i4", "int32": "<i4", "ushort": "<u2", "short": "<i2"}
+    if fmt == "ascii":
+        arr = np.array(data[header_end:].decode().split(), float).reshape(n, len(props))
+        cols = {name: arr[:, i] for i, (name, _) in enumerate(props)}
+    else:
+        dt = np.dtype([(name, typemap[t]) for name, t in props])
+        rec = np.frombuffer(data[header_end:header_end + n * dt.itemsize], dt)
+        cols = {name: rec[name].astype(np.float64) for name, _ in props}
+    out = {"points": np.stack([cols["x"], cols["y"], cols["z"]], 1).astype(np.float32)}
+    if "red" in cols:
+        scale = 255.0 if max(cols["red"].max(initial=0), 1) > 1 else 1.0
+        out["colors"] = (np.stack([cols["red"], cols["green"], cols["blue"]], 1)
+                         / scale).astype(np.float32)
+    if "nx" in cols:
+        out["normals"] = np.stack([cols["nx"], cols["ny"], cols["nz"]], 1).astype(np.float32)
+    return out
 
 
 def write_ply_mesh(

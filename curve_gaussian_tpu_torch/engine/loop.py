@@ -35,9 +35,7 @@ import dataclasses
 import json
 import os
 import random
-import struct
 import time
-import zlib
 from typing import Dict, List, NamedTuple, Optional, Sequence, Set, Tuple
 
 import numpy as np
@@ -46,6 +44,7 @@ import torch
 from .. import resolve_device
 from ..config import ModelConfig, OptimizationConfig, PipelineConfig
 from ..data.ply import write_ply
+from ..data.png import write_png
 from ..eval import extract as extract_mod
 from ..models import curve_state as cs
 from ..models import surgery
@@ -470,25 +469,6 @@ def _colormap_turbo(x: np.ndarray) -> np.ndarray:
     g = np.clip(-3.2 * (x - 0.52) ** 2 + 0.92, 0, 1)
     b = np.clip(2.55 * (1 - x) ** 3 - 0.3 * (1 - x) + 0.27, 0, 1)
     return (np.stack([r, g, b], axis=-1) * 255).astype(np.uint8)
-
-
-def write_png(path: str, img: np.ndarray) -> None:
-    """An 8-bit greyscale [H, W] or RGB [H, W, 3] uint8 image as a PNG,
-    with the standard library alone (zlib, struct)."""
-    img = np.ascontiguousarray(img, np.uint8)
-    h, w = img.shape[:2]
-    color = 2 if img.ndim == 3 else 0
-    raw = np.concatenate([np.zeros((h, 1), np.uint8), img.reshape(h, -1)], axis=1)
-
-    def chunk(tag: bytes, data: bytes) -> bytes:
-        return (struct.pack(">I", len(data)) + tag + data
-                + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
-
-    with open(path, "wb") as f:
-        f.write(b"\x89PNG\r\n\x1a\n")
-        f.write(chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, color, 0, 0, 0)))
-        f.write(chunk(b"IDAT", zlib.compress(raw.tobytes(), 6)))
-        f.write(chunk(b"IEND", b""))
 
 
 def save_debug_images(out, gt, model_path: str, iteration: int, view: int):

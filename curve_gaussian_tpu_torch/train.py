@@ -1,16 +1,19 @@
-"""Training CLI of the port: the synthetic path of the repository's
-``train.py``.
+"""Training CLI of the port, as the repository's ``train.py``: a dataset
+scene on disk or a synthetic one.
 
+    python -m curve_gaussian_tpu_torch.train -s output_torch/refscale -r 2
     python -m curve_gaussian_tpu_torch.train --synthetic --iterations 600 --image-size 512
     python -m curve_gaussian_tpu_torch.train --synthetic --device cpu --iterations 30 --image-size 64
 
-It makes a synthetic scene (``make_scene``) and the reference's grid seed
-cloud, compresses the surgery schedule in proportion when ``--iterations``
-shortens the run, trains with ``engine/loop.train_scene`` and evaluates the
-extracted curves against the scene's ground-truth curves into
-``eval.json``.  It runs on ``--device`` (``cuda`` by default).  Dataset
-scenes (``--source-path`` without ``--synthetic``) need the loaders of a
-later slice and raise.
+``--source-path`` loads an EMAP, Blender or COLMAP scene (``data/dataset.py``)
+with its train and test views and seed points; ``--synthetic`` makes a
+synthetic scene (``make_scene``) with the reference's grid seed cloud and
+renders its first two views as test views.  A shortened ``--iterations``
+compresses the surgery schedule in proportion.  Training runs through
+``engine/loop.train_scene`` on ``--device`` (``cuda`` by default), and the
+extracted curves are evaluated into ``eval.json`` against the ground truth:
+the synthetic scene's curves, or a dataset scene's ``gt_edges.json`` when it
+has one (``scripts/make_ref_scale_scene.py`` writes it).
 """
 from __future__ import annotations
 
@@ -106,13 +109,8 @@ def gt_edge_dict(scene):
 
 
 def main(argv=None):
-    """Train (and evaluate) one synthetic scene; returns the TrainResult."""
+    """Train (and evaluate) one scene; returns the TrainResult."""
     args = parse_args(argv)
-    if not args.synthetic:
-        raise NotImplementedError(
-            "dataset scenes (--source-path) need data/dataset.py, which the data slice "
-            "of the port (ROADMAP slice 8) brings; use --synthetic"
-        )
     if args.detect_anomaly:
         torch.autograd.set_detect_anomaly(True)
 
@@ -137,22 +135,39 @@ def main(argv=None):
         invert_edges=args.invert_edges,
     )
 
-    print("generating synthetic scene...", flush=True)
-    scene = synthetic.make_scene(
-        seed=args.synthetic_seed, n_curves=args.synthetic_curves,
-        n_lines=args.synthetic_lines, n_views=args.synthetic_views,
-        height=args.image_size, width=args.image_size, backend=args.backend,
-        noise=args.synthetic_noise, device=args.device,
-    )
-    model_path = args.model_path or f"output_torch/synth/seed{args.synthetic_seed}"
+    if args.synthetic:
+        print("generating synthetic scene...", flush=True)
+        scene = synthetic.make_scene(
+            seed=args.synthetic_seed, n_curves=args.synthetic_curves,
+            n_lines=args.synthetic_lines, n_views=args.synthetic_views,
+            height=args.image_size, width=args.image_size, backend=args.backend,
+            noise=args.synthetic_noise, device=args.device,
+        )
+        cameras, edge_maps = scene.cameras, scene.edge_maps
+        test_cams, test_maps = cameras[:2], edge_maps[:2]
+        seed_points = synthetic.grid_seed_points(args.grid_init)
+        model_path = args.model_path or f"output_torch/synth/seed{args.synthetic_seed}"
+        gt_dict = gt_edge_dict(scene)
+    else:
+        from .data.dataset import load_scene
+
+        scene = load_scene(model_cfg, device=args.device)
+        cameras, edge_maps = scene.train_cameras, scene.train_edge_maps
+        test_cams, test_maps = scene.test_cameras, scene.test_edge_maps
+        seed_points = scene.seed_points
+        model_path = args.model_path or "output_torch/run"
+        gt_dict = None
+        gt_path = os.path.join(args.source_path, "gt_edges.json")
+        if args.source_path and os.path.exists(gt_path):
+            with open(gt_path) as f:
+                gt_dict = json.load(f)
     os.makedirs(model_path, exist_ok=True)
     with open(os.path.join(model_path, "cfg_args"), "w") as f:
         f.write(repr(vars(args)))
 
     result = train_scene(
-        scene.cameras, scene.edge_maps, synthetic.grid_seed_points(args.grid_init),
-        model_cfg, opt_cfg, pipe_cfg, model_path,
-        test_cameras=scene.cameras[:2], test_edge_maps=scene.edge_maps[:2],
+        cameras, edge_maps, seed_points, model_cfg, opt_cfg, pipe_cfg, model_path,
+        test_cameras=test_cams, test_edge_maps=test_maps,
         test_iterations=args.test_iterations,
         save_iterations=sorted(set(args.save_iterations + [opt_cfg.iterations])),
         checkpoint_iterations=args.checkpoint_iterations,
@@ -161,14 +176,15 @@ def main(argv=None):
         scan_chunk=args.scan_chunk, profile_dir=args.profile_dir, device=args.device,
     )
 
-    pred_pts, pred_dirs = sample_edge_dict(result.edge_dict, with_directions=True)
-    gt_pts, gt_dirs = sample_edge_dict(gt_edge_dict(scene), with_directions=True)
-    res = M.evaluate_edges(pred_pts, gt_pts, pred_dirs, gt_dirs)
-    print("eval vs GT curves:")
-    for k, v in res.items():
-        print(f"  {k}: {v:.4f}")
-    with open(os.path.join(model_path, "eval.json"), "w") as f:
-        json.dump(res, f, indent=1)
+    if gt_dict is not None:
+        pred_pts, pred_dirs = sample_edge_dict(result.edge_dict, with_directions=True)
+        gt_pts, gt_dirs = sample_edge_dict(gt_dict, with_directions=True)
+        res = M.evaluate_edges(pred_pts, gt_pts, pred_dirs, gt_dirs)
+        print("eval vs GT curves:")
+        for k, v in res.items():
+            print(f"  {k}: {v:.4f}")
+        with open(os.path.join(model_path, "eval.json"), "w") as f:
+            json.dump(res, f, indent=1)
     print("\nTraining complete.")
     return result
 

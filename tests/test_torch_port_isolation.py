@@ -1,5 +1,5 @@
 """The port stands alone: no module of ``curve_gaussian_tpu_torch`` (nor
-``chip_smoke.py``) imports JAX or the JAX package, entry points run on the
+``chip_smoke.py``) imports JAX, the JAX package or PIL, entry points run on the
 card unless the caller asks for the CPU, and the kernel wrappers launch
 nothing for CPU tensors.  The last three tests need a CUDA card: they hold
 every kernel against its plain version there, K7/K8 at shapes ragged
@@ -20,18 +20,19 @@ import curve_gaussian_tpu_torch
 from curve_gaussian_tpu_torch import _build, convert
 from curve_gaussian_tpu_torch import train as ptrain_cli
 from curve_gaussian_tpu_torch.config import ModelConfig, OptimizationConfig, PipelineConfig
-from curve_gaussian_tpu_torch.data import synthetic
+from curve_gaussian_tpu_torch.data import dataset, synthetic
 from curve_gaussian_tpu_torch.engine import loop as ploop
 from curve_gaussian_tpu_torch.models import curve_state as pcs
 from curve_gaussian_tpu_torch.ops import camera as pcam
 from curve_gaussian_tpu_torch.ops import rasterize_cuda as prc
 from curve_gaussian_tpu_torch.ops import ssim_cuda as psc
 from curve_gaussian_tpu_torch.ops import tile_blend_cuda as ptb
+from curve_gaussian_tpu_torch.scripts.make_ref_scale_scene import make_ref_scale_scene
 from test_torch_port_cull_cases import FAMILIES, packed_family
 
 ROOT = Path(__file__).resolve().parent.parent
 PKG = ROOT / "curve_gaussian_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "curve_gaussian_tpu")
+FORBIDDEN = ("jax", "jaxlib", "curve_gaussian_tpu", "PIL")
 
 
 def _modules():
@@ -45,7 +46,8 @@ def test_importing_every_module_loads_no_jax():
     assert len(mods) >= 35 and "curve_gaussian_tpu_torch.ops.tile_blend_cuda" in mods, mods
     for m in ("engine.loop", "engine.checkpoint", "models.surgery", "models.fitting",
               "eval.extract", "eval.metrics", "data.ply", "models.ellipsoids",
-              "models.gaussian_ply", "train"):
+              "models.gaussian_ply", "train", "data.colmap", "data.png", "data.dataset",
+              "scripts.make_ref_scale_scene"):
         assert f"curve_gaussian_tpu_torch.{m}" in mods, m
     code = (
         "import importlib, sys\n"
@@ -94,6 +96,8 @@ def test_entry_points_default_to_the_card():
         lambda: ploop.train_scene([], [], pts, ModelConfig(), OptimizationConfig(),
                                   PipelineConfig(), "unused"),
         lambda: ptrain_cli.main(["--synthetic", "--iterations", "2", "--image-size", "32"]),
+        lambda: dataset.load_emap(ModelConfig(source_path="unused")),
+        lambda: make_ref_scale_scene(["--out", "unused"]),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA is not available"):

@@ -26,6 +26,7 @@ import os
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from curve_gaussian_tpu.config import ModelConfig as JModel
 from curve_gaussian_tpu.config import OptimizationConfig as JOpt
@@ -322,3 +323,63 @@ def test_multi_device_arguments_raise():
         with pytest.raises(NotImplementedError, match="multi-device slice"):
             ploop.train_scene([], [], np.zeros((4, 3)), ModelConfig(), OptimizationConfig(),
                               PipelineConfig(), "unused", device="cpu", **kw)
+
+
+@pytest.fixture
+def one_torch_thread():
+    """Tiny tensors: one intra-op thread leaves the cores to the suite's
+    other workers."""
+    old = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(old)
+
+
+def test_adaptive_capacity_shrink(tmp_path, monkeypatch, one_torch_thread):
+    """The port's adaptive shrink of K and the big tier, applied at a chunk
+    end (the JAX driver shrinks only on a TPU, once the smaller shapes'
+    compile is warm, so no parity run covers it): forced by starting both
+    far above the observed peaks, both shrinks are logged, the steps after
+    them run at the smaller capacities, and the first of them equals one
+    step of the state saved at the shrink, taken at those capacities,
+    within 1e-6 of each array's max."""
+    caps = []
+
+    def recording_step(ts, cam, gt, bg, opt_cfg, pipe_cfg, **kw):
+        caps.append((int(ts.step), pipe_cfg.tile_capacity, pipe_cfg.big_capacity))
+        return ptrain.train_step(ts, cam, gt, bg, opt_cfg, pipe_cfg, **kw)
+
+    monkeypatch.setattr(ploop, "train_step", recording_step)
+    scene = psyn.make_scene(seed=1, n_curves=3, n_lines=1, n_views=1, height=64, width=64,
+                            capacity=128, device="cpu")
+    seeds = psyn.grid_seed_points(4)
+    opt = OptimizationConfig(iterations=4)
+    res = ploop.train_scene(scene.cameras, scene.edge_maps, seeds, ModelConfig(n_gaussians=6),
+                            opt, PipelineConfig(tile_capacity=1024, big_capacity=1024),
+                            str(tmp_path), test_iterations=(), checkpoint_iterations=(2, 3),
+                            scan_chunk=2, quiet=True, dump_images=False, device="cpu")
+    shrinks = {e["kind"]: (e["iter"], e["old"], e["new"]) for e in res.events
+               if e.get("why") == "shrink"}
+    small = res.pipe_cfg
+    assert shrinks == {"tile_capacity": (2, 1024, small.tile_capacity),
+                       "big_capacity": (2, 1024, small.big_capacity)}
+    assert small.tile_capacity <= 512 and small.big_capacity <= 512
+    assert caps == [(0, 1024, 1024), (1, 1024, 1024)] + [
+        (i, small.tile_capacity, small.big_capacity) for i in (2, 3)]
+
+    def load(it):
+        path = str(tmp_path / f"chkpnt{it}.npz")
+        cap, _ = pck.checkpoint_capacity(path)
+        return pck.load_checkpoint(path, ptrain.init_train_state(pcs.init_state(
+            seeds, n_views=1, n_gaussians=6, capacity=cap, device="cpu")))
+
+    plan = ploop.chunk_plan(0, opt, ploop.build_events(0, opt, (), (), (2, 3)), 2)
+    (chunk,) = [c for c in plan if c.start == 2]
+    ts, _ = ptrain.train_step(load(2), scene.cameras[0], scene.edge_maps[0], 0.0, opt, small,
+                              use_mask=chunk.use_mask, n_gaussians=6, conn_on=chunk.conn_on)
+    want = pck.named_leaves(load(3))
+    got = pck.named_leaves(ts)
+    assert got.keys() == want.keys()
+    for k, w in want.items():
+        a, b = pck.leaf_array(got[k]).astype(np.float64), pck.leaf_array(w).astype(np.float64)
+        assert a.shape == b.shape and np.abs(a - b).max() <= 1e-6 * max(np.abs(b).max(), 1e-30), k
