@@ -15,10 +15,11 @@
    (``bound_ms``; a blend kernel's operations are counted over the
    (instance, pixel) pairs of this run's data that pass the alpha gate and
    those that contribute) and, for SSIM, a cuDNN conv2d SSIM
-   (``library_ms``, never called by the port).  K1 and K2 are also held
-   against the kernels that still run their first design on the same
-   inputs (K3 at (F, F, T), bitwise; K6b) and timed in turns with them;
-   the tile lists and what K1/K2's cull skips are printed.  K1 and K8
+   (``library_ms``, never called by the port).  K1 is also held against
+   K3 at (F, F, T), the same function, cull and code in another kernel
+   (bitwise), and K2 against K6b, which still runs the first design
+   (the same accumulator), each pair timed in turns; the
+   tile lists and what the cull skips are printed.  K1 and K8
    must equal their plain versions; K7 and K8's launch shapes (blocks,
    blocks per SM, waves) are printed, and one K7 call must enqueue one
    device kernel, launched by its wrapper (counted from a CUDA graph
@@ -35,7 +36,9 @@
    a. K3, K4 and K5 against their plain versions at the shapes the paths
       below give them: (geo, invd, ones) = (T, T, T) (the eval render),
       (F, F, T) (the table and indirect flavors, K5 included) and, on a
-      small scene, (T, T, F) (a per-splat colour);
+      small scene, (T, T, F) (a per-splat colour), with what K3/K4's cull
+      skips and K4's largest difference between two runs on the same
+      inputs (its atomics' order);
    b. ``eval_render`` of each of the 4 views (no gradient): finite maps,
       the render in [0, 1];
    c. the gradient of sum(render k1 + invdepth k2 + alpha k3 + dir k4) to
@@ -160,12 +163,13 @@ def pair_counts(fields, gidx, counts, H: int, W: int):
     (instance, pixel) pairs that are live (the pixel is in the image and has
     not stopped, the slot is listed), candidates (live and through the gate
     power <= 0, alpha >= 1/255) and contributing (candidates that pass the T
-    test); the instances with a contributing pair; and, for K1/K2's cull:
+    test); the instances with a contributing pair; and, for K1-K4's cull:
     the live pairs inside the box of a warp that evaluates them (its 8x4
     pixel rectangle meets the instance's ``support_box``), the (warp,
     instance) visits, and the (instance, 16x16 quarter) pairs with a
-    contributing pixel, each of which lands up to six of K2's atomics."""
-    ww, wh = 8, 4  # K1/K2's warp rectangle (csrc/tile_blend.cu: CULL_WW x CULL_WH)
+    contributing pixel, each of which lands up to one atomic per value of
+    K2 (six) or K4 (one per field of the channel set)."""
+    ww, wh = 8, 4  # K1-K4's warp rectangle (csrc/tile_blend.cu: CULL_WW x CULL_WH)
     with torch.no_grad():
         nty, ntx = tile_grid(H, W)
         dev = fields.device
@@ -225,17 +229,22 @@ def pairs_note(pairs) -> str:
             f"({100 * pairs['contrib'] / live:.2f}%), contributing instances {pairs['inst']}")
 
 
-def cull_note(pairs, counts) -> str:
-    """The tile lists and what K1/K2's cull makes of them."""
+def cull_note(pairs, counts, who: str, atomics=None) -> str:
+    """The tile lists and what the cull of `who` (K1-K4 share it) makes of
+    them; atomics = (kernel, values per row) adds that kernel's atomics."""
     c = counts.double()
-    return (f"tile lists mean {float(c.mean()):.1f} p90 {float(torch.quantile(c, 0.9)):.0f} "
-            f"peak {int(c.max())}; cull (8x4 warp rectangles, counted on the float32 "
-            f"mirror of the box, not in the kernels): live pairs "
-            f"inside the boxes of the warps that evaluate them {pairs['evaluated']} "
+    note = (f"{who}: tile lists mean {float(c.mean()):.1f} p90 "
+            f"{float(torch.quantile(c, 0.9)):.0f} peak {int(c.max())}; cull (8x4 warp "
+            f"rectangles, counted on the float32 mirror of the box, not in the kernels): live "
+            f"pairs inside the boxes of the warps that evaluate them {pairs['evaluated']} "
             f"({100 * pairs['evaluated'] / max(pairs['live'], 1):.2f}% of live), (warp, "
-            f"instance) visits {pairs['visits']}; K2 atomics <= 6 x {pairs['quarter_hits']} "
-            f"(instance, quarter) pairs with a contributing pixel (first design: 6 x "
-            f"{pairs['inst']} (instance, tile))")
+            f"instance) visits {pairs['visits']}")
+    if atomics:
+        k, nv = atomics
+        note += (f"; {k} atomics <= {nv} x {pairs['quarter_hits']} (instance, quarter) pairs "
+                 f"with a contributing pixel (one block per tile: {nv} x {pairs['inst']} "
+                 f"(instance, tile))")
+    return note
 
 
 # tolerances of kernel against plain version (max error over max |plain|)
@@ -465,10 +474,11 @@ WRAPPERS = {
 
 
 def yardsticks(inputs, bg):
-    """K1 and K2 against the kernels that still run their first design on
-    the same inputs: K3 at (F, F, T) computes K1's function (bitwise, or
-    fail), K6b K2's accumulator; each pair timed in turns (first design,
-    K1/K2, K1/K2, first design: medians of CUDA-event timings)."""
+    """K1 and K2 against other kernels on the same inputs: K3 at (F, F, T)
+    computes K1's function with the same cull and code in another kernel
+    (bitwise, or fail), K6b, which keeps the first design, K2's
+    accumulator; each pair timed in turns (the other, K1/K2, K1/K2, the
+    other: medians of CUDA-event timings)."""
     fields, gidx, counts, col, finT, gc, gtt = inputs
     H, W = col.shape
     col3, _, fin3, _ = TB.tile_blend_fwd(fields, gidx, counts, bg, H, W, False, False, True)
@@ -485,8 +495,8 @@ def yardsticks(inputs, bg):
             (lambda: RC.blend_train_bwd(*inputs), lambda: RC.blend_train_bwd_basis(*inputs),
              "blend_train_bwd against blend_train_bwd_basis")):
         t = [cuda_ms(f, 20) for f in (old, new, new, old)]
-        print(f"turns {label}: first design {t[0]:.4f} ms, new {t[1]:.4f} ms, new "
-              f"{t[2]:.4f} ms, first design {t[3]:.4f} ms; new / first design "
+        print(f"turns {label}: other {t[0]:.4f} ms, K1/K2 {t[1]:.4f} ms, K1/K2 "
+              f"{t[2]:.4f} ms, other {t[3]:.4f} ms; K1/K2 / other "
               f"{(t[1] + t[2]) / (t[0] + t[3]):.3f}", flush=True)
 
 
@@ -616,6 +626,7 @@ def k3_entry(label, fields, b, H, W, geo, invd, ones, pairs=None):
     report(k, f"{label} (geo, invd, ones)={(geo, invd, ones)} H,W={H},{W} "
               f"T={gidx.shape[0]} K={gidx.shape[1]} P1={P1} instances={n_inst} "
               f"{pairs_note(pairs)}")
+    print(f"kernel tile_blend_fwd {label}: {cull_note(pairs, counts, 'K3')}", flush=True)
     if not all(torch.equal(o, p) for o, p in zip(outs, outs_p)):
         fail(f"K3 is not equal to its plain version on the {label} inputs")
     return k, outs, pairs
@@ -623,10 +634,12 @@ def k3_entry(label, fields, b, H, W, geo, invd, ones, pairs=None):
 
 def tile_kernels(label, fields, b, H, W, geo, invd, ones, cots):
     """K3 (bitwise) and K4 at one channel set against their plain versions,
-    timed; returns their two kernel entries."""
+    timed, with K4's difference between two runs on the same inputs;
+    returns their two kernel entries."""
     gidx, counts = b.gather_idx, b.counts
     fwd, outs, pairs = k3_entry(label, fields, b, H, W, geo, invd, ones)
     dpay = TB.tile_blend_bwd(fields, gidx, counts, outs, cots, geo, invd, ones)
+    dpay_again = TB.tile_blend_bwd(fields, gidx, counts, outs, cots, geo, invd, ones)
     dpay_p = TB.tile_blend_bwd_plain(fields, gidx, counts, outs, cots, geo, invd, ones)
     torch.cuda.synchronize()
     n_inst, P1, nf = int(counts.sum()), fields.shape[0], fields.shape[1]
@@ -650,6 +663,10 @@ def tile_kernels(label, fields, b, H, W, geo, invd, ones, cots):
     report(bwd, f"{label} (geo, invd, ones)={(geo, invd, ones)} H,W={H},{W} "
                 f"T={gidx.shape[0]} K={gidx.shape[1]} P1={P1} instances={n_inst} "
                 f"{pairs_note(pairs)}")
+    rr = (dpay - dpay_again).abs().max().item()
+    print(f"kernel tile_blend_bwd {label}: run to run max |difference| {rr:.3g} "
+          f"({rr / max(dpay.abs().max().item(), 1e-30):.3g} of max); "
+          f"{cull_note(pairs, counts, 'K4', ('K4', 6 + ngch))}", flush=True)
     return fwd, bwd
 
 
@@ -1083,7 +1100,8 @@ def train_kernels(inputs, gt, label, library=False):
     pairs = pair_counts(fields, gidx, counts, H, W)
     print(f"blend inputs{label and ' ' + label}: P1={P1} T={Tn} K={gidx.shape[1]} "
           f"instances={n_inst} peak={int(b.peak)} {pairs_note(pairs)}", flush=True)
-    print(f"blend inputs{label and ' ' + label}: {cull_note(pairs, counts)}", flush=True)
+    print(f"blend inputs{label and ' ' + label}: {cull_note(pairs, counts, 'K1/K2', ('K2', 6))}",
+          flush=True)
     k1, _ = k1_entry(label, fields, b, H, W, pairs)
 
     acc = RC.blend_train_bwd(fields, gidx, counts, col, finT, gc, gtt)

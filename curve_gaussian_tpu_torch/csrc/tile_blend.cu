@@ -30,25 +30,27 @@
 // MXU combiners, no [T, K, NF] payload table (the fields are read through
 // gather_idx).
 //
-// Layout of K3-K6b: one block per 32x32 tile, 256 threads; thread t owns
-// the pixel column t % 32 and the rows t / 32 + 8 k (k = 0..3).  Instances
-// come from gather_idx[tile, :counts[tile]] (depth order).  The kernels are
-// templated on the channel set <GEO, INVD, ONES>, so every loop over
-// channels unrolls at compile time.  Fields are staged in shared memory
-// from fields[P1, NF] through gather_idx, one row per thread, as NF/4
-// float4 loads.  A tile's loop ends at the first chunk boundary where every
-// pixel of it is done (__syncthreads_or).  K1 and K2 stage the same way but
-// split each tile over four blocks and skip the pairs that cannot pass the
-// gate (their section below).
+// Two layouts.  K1-K4 split each 32x32 tile over four 256-thread blocks,
+// one per 16x16 quarter, one pixel per thread, and each warp skips the
+// staged instances whose support box misses its 8x4 pixel rectangle (the
+// K1/K2 section says why; K3/K4 take the same helpers for every channel
+// set <GEO, INVD, ONES>).  K5 and K6b keep the first design: one block per
+// tile, 256 threads; thread t owns the pixel column t % 32 and the rows
+// t / 32 + 8 k (k = 0..3), and every staged instance is evaluated at every
+// live pixel.  In both, instances come from gather_idx[tile, :counts[tile]]
+// (depth order), fields are staged in shared memory from fields[P1, NF]
+// through gather_idx, one row per thread, as float4 loads, and a block's
+// loop ends at the first chunk boundary where all its pixels are done
+// (__syncthreads_or).  The kernels are templated on the channel set, so
+// every loop over channels unrolls at compile time.
 //
-// What bounds them: per-pixel serial chains and one expf per (instance,
-// pixel), so instruction throughput, not bytes (a tile's fields are a few
-// KB).  K4 carries 3 registers per channel and pixel (prefix, cotangent,
-// output) and reduces up to 12 values per instance across the block (warp
-// shuffles, then shared memory).  K4 and K5 write each slot's row once, with
-// no atomics, so their results do not depend on the order in which blocks
-// run; K2 and K6b land one atomicAdd per nonzero moment, so the last bits of
-// their accumulators vary from run to run.
+// What bounds them: one expf per evaluated (instance, pixel) pair and each
+// pixel's serial chain, so instruction latency and throughput, not bytes
+// (a tile's fields are a few KB).  K5 writes each slot's row once, with no
+// atomics, so its results do not depend on the order in which blocks run;
+// K2, K4 and K6b land one atomicAdd per nonzero value (K4: up to four
+// quarter blocks into one slot's row), so the last bits of their sums vary
+// from run to run.
 //
 // Built with -fmad=false so that the arithmetic rounds like the plain
 // PyTorch versions' separate elementwise operations; expf (not __expf).
@@ -62,7 +64,6 @@ namespace {
 constexpr int TILE = 32;
 constexpr int NTHREADS = 256;
 constexpr int PPT = 4;          // pixels per thread
-constexpr int FWD_CHUNK = 256;  // instances staged per forward chunk
 constexpr int BWD_CHUNK = 32;   // instances per backward reduction batch
 constexpr int NWARPS = NTHREADS / 32;
 
@@ -105,270 +106,6 @@ __device__ __forceinline__ void stage_fields(float (*s_f)[CHUNK], const float* _
       if (4 * v + 1 < NFIELD) s_f[4 * v + 1][threadIdx.x] = x.y;
       if (4 * v + 2 < NFIELD) s_f[4 * v + 2][threadIdx.x] = x.z;
       if (4 * v + 3 < NFIELD) s_f[4 * v + 3][threadIdx.x] = x.w;
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
-// K3: forward
-// ---------------------------------------------------------------------------
-//
-// It writes col and finT, invd only when INVD and am only when GEO: the
-// caller supplies zeros for a gated channel.  At <false, false, true> it
-// computes K1's function with K1's first design, bit for bit.  The
-// six geometry fields are staged in arrays of their own: with every field
-// in one [NFIELD][CHUNK] array, <false, false, true> ran measurably
-// slower on an H100.
-
-template <bool GEO, bool INVD, bool ONES>
-__global__ void __launch_bounds__(NTHREADS)
-tile_blend_fwd_kernel(const float* __restrict__ fields, const int* __restrict__ gidx,
-                      const int* __restrict__ counts, const float* __restrict__ bg,
-                      float* __restrict__ col, float* __restrict__ invd,
-                      float* __restrict__ finT, float* __restrict__ am,
-                      int H, int W, int ntx, int K) {
-  using C = Chan<GEO, INVD, ONES>;
-  constexpr int NA = C::NCH - C::C0;  // accumulated channels (ones colour derives from T)
-  __shared__ float s_mx[FWD_CHUNK], s_my[FWD_CHUNK], s_ca[FWD_CHUNK];
-  __shared__ float s_cb[FWD_CHUNK], s_cc[FWD_CHUNK], s_op[FWD_CHUNK];
-  __shared__ float s_ch[C::NACC][FWD_CHUNK];
-
-  const int tile = blockIdx.x;
-  const int tx = tile % ntx;
-  const int ty = tile / ntx;
-  const int lx = threadIdx.x & 31;
-  const int ly0 = threadIdx.x >> 5;
-  const int gx = tx * TILE + lx;
-  const float px = (float)gx;
-  float py[PPT], T[PPT], acc[PPT][C::NACC];
-  bool act[PPT];
-#pragma unroll
-  for (int k = 0; k < PPT; ++k) {
-    const int gy = ty * TILE + ly0 + 8 * k;
-    py[k] = (float)gy;
-    T[k] = 1.0f;
-    act[k] = (gx < W) && (gy < H);
-#pragma unroll
-    for (int a = 0; a < C::NACC; ++a) acc[k][a] = 0.0f;
-  }
-
-  const int n = counts[tile];
-  const int* ids = gidx + (size_t)tile * K;
-  for (int base = 0; base < n; base += FWD_CHUNK) {
-    const bool any = act[0] || act[1] || act[2] || act[3];
-    if (!__syncthreads_or(any)) break;  // also the barrier before restaging
-    const int j = base + threadIdx.x;
-    if (j < n) {
-      const float4* row = reinterpret_cast<const float4*>(fields) + (size_t)ids[j] * (C::NF / 4);
-      float r[C::NF];
-#pragma unroll
-      for (int v = 0; v < C::NF / 4; ++v) {
-        const float4 x = row[v];
-        r[4 * v] = x.x;
-        r[4 * v + 1] = x.y;
-        r[4 * v + 2] = x.z;
-        r[4 * v + 3] = x.w;
-      }
-      s_mx[threadIdx.x] = r[0];
-      s_my[threadIdx.x] = r[1];
-      s_ca[threadIdx.x] = r[2];
-      s_cb[threadIdx.x] = r[3];
-      s_cc[threadIdx.x] = r[4];
-      s_op[threadIdx.x] = r[5];
-#pragma unroll
-      for (int a = 0; a < NA; ++a) s_ch[a][threadIdx.x] = r[6 + a];
-    }
-    __syncthreads();
-    const int cnt = min(FWD_CHUNK, n - base);
-    for (int jj = 0; jj < cnt; ++jj) {
-      const float mx = s_mx[jj], my = s_my[jj], ca = s_ca[jj];
-      const float cb = s_cb[jj], cc = s_cc[jj], op = s_op[jj];
-      float ch[C::NACC];
-#pragma unroll
-      for (int a = 0; a < NA; ++a) ch[a] = s_ch[a][jj];
-      const float dx = mx - px;
-#pragma unroll
-      for (int k = 0; k < PPT; ++k) {
-        if (!act[k]) continue;
-        const float dy = my - py[k];
-        const float power = power_of(ca, cb, cc, dx, dy);
-        const float alpha = fminf(ALPHA_MAX, op * expf(power));
-        if (power <= 0.0f && alpha >= ALPHA_EPS) {
-          const float aT = alpha * T[k];
-          const float rem = T[k] - aT;
-          if (rem >= T_EPS) {
-#pragma unroll
-            for (int a = 0; a < NA; ++a) acc[k][a] = acc[k][a] + ch[a] * aT;
-            T[k] = rem;
-          } else {
-            act[k] = false;  // the instance that fails the T test is excluded
-          }
-        }
-      }
-    }
-  }
-
-  const float bgv = bg[0];
-  const size_t HW = (size_t)H * W;
-#pragma unroll
-  for (int k = 0; k < PPT; ++k) {
-    const int gy = ty * TILE + ly0 + 8 * k;
-    if (gx < W && gy < H) {
-      const size_t o = (size_t)gy * W + gx;
-      if constexpr (ONES) {
-        col[o] = 1.0f - T[k] * (1.0f - bgv);  // the conservation form of ones colour
-      } else {
-        col[o] = acc[k][0] + T[k] * bgv;
-      }
-      if constexpr (INVD) invd[o] = acc[k][C::invd_ch() - C::C0];
-      finT[o] = T[k];
-      if constexpr (GEO) {
-#pragma unroll
-        for (int a = 0; a < 4; ++a) am[a * HW + o] = acc[k][C::am_ch() - C::C0 + a];
-      }
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
-// K4: per-slot gradients of every field
-// ---------------------------------------------------------------------------
-//
-// One front-to-back pass carries T, liveness and the inclusive prefix A_c
-// of every channel c.  For a contributing instance i (Ti its incoming
-// transmittance, w = alpha Ti, O_c the output, g_c its cotangent, gt that
-// of T_final = finT):
-//   g_alpha = gt (-finT / (1 - alpha)) + sum_c g_c (ch_c Ti - (O_c - A_c) / (1 - alpha))
-// (the colour's output includes bg T_final, so its tail term is right as
-// it stands), and d power = g_alpha opa G gives the conic and mean terms.
-// The derivative of alpha ignores the 0.99 clamp (d alpha / d opa = G).
-
-template <bool GEO, bool INVD, bool ONES>
-__global__ void __launch_bounds__(NTHREADS)
-tile_blend_bwd_kernel(const float* __restrict__ fields, const int* __restrict__ gidx,
-                      const int* __restrict__ counts, const float* __restrict__ col,
-                      const float* __restrict__ invd, const float* __restrict__ finT,
-                      const float* __restrict__ am, const float* __restrict__ gcol,
-                      const float* __restrict__ ginvd, const float* __restrict__ gfin,
-                      const float* __restrict__ gam, float* __restrict__ dpay,
-                      int H, int W, int ntx, int K) {
-  using C = Chan<GEO, INVD, ONES>;
-  constexpr int NCH = C::NCH;
-  constexpr int NG = C::NFIELD;  // gradients per slot: the six geometry fields + channel fields
-  __shared__ float s_f[NG][BWD_CHUNK];
-  __shared__ float s_red[NWARPS][BWD_CHUNK][NG];
-
-  const int tile = blockIdx.x;
-  const int tx = tile % ntx;
-  const int ty = tile / ntx;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int gx = tx * TILE + lane;
-  const float px = (float)gx;
-  const size_t HW = (size_t)H * W;
-  float py[PPT], T[PPT], gt[PPT], ot[PPT];
-  float A[PPT][NCH], gch[PPT][NCH], och[PPT][NCH];
-  bool act[PPT];
-#pragma unroll
-  for (int k = 0; k < PPT; ++k) {
-    const int gy = ty * TILE + warp + 8 * k;
-    py[k] = (float)gy;
-    T[k] = 1.0f;
-    act[k] = (gx < W) && (gy < H);
-    const size_t o = act[k] ? (size_t)gy * W + gx : 0;
-    gt[k] = act[k] ? gfin[o] : 0.0f;
-    ot[k] = act[k] ? finT[o] : 0.0f;
-    gch[k][0] = act[k] ? gcol[o] : 0.0f;
-    och[k][0] = act[k] ? col[o] : 0.0f;
-    if constexpr (INVD) {
-      gch[k][C::invd_ch()] = act[k] ? ginvd[o] : 0.0f;
-      och[k][C::invd_ch()] = act[k] ? invd[o] : 0.0f;
-    }
-    if constexpr (GEO) {
-#pragma unroll
-      for (int a = 0; a < 4; ++a) {
-        gch[k][C::am_ch() + a] = act[k] ? gam[a * HW + o] : 0.0f;
-        och[k][C::am_ch() + a] = act[k] ? am[a * HW + o] : 0.0f;
-      }
-    }
-#pragma unroll
-    for (int c = 0; c < NCH; ++c) A[k][c] = 0.0f;
-  }
-
-  const int n = counts[tile];
-  const int* ids = gidx + (size_t)tile * K;
-  for (int base = 0; base < n; base += BWD_CHUNK) {
-    const bool any = act[0] || act[1] || act[2] || act[3];
-    if (!__syncthreads_or(any)) break;
-    const int cnt = min(BWD_CHUNK, n - base);
-    stage_fields<NG, C::NF, BWD_CHUNK>(s_f, fields, ids, base, n);
-    __syncthreads();
-    for (int jj = 0; jj < cnt; ++jj) {
-      const float mx = s_f[0][jj], my = s_f[1][jj], ca = s_f[2][jj];
-      const float cb = s_f[3][jj], cc = s_f[4][jj], op = s_f[5][jj];
-      float chv[NCH];
-#pragma unroll
-      for (int c = 0; c < NCH; ++c) chv[c] = c < C::C0 ? 1.0f : s_f[6 + c - C::C0][jj];
-      const float dx = mx - px;
-      float v[NG];
-#pragma unroll
-      for (int q = 0; q < NG; ++q) v[q] = 0.0f;
-      bool hit = false;
-#pragma unroll
-      for (int k = 0; k < PPT; ++k) {
-        if (!act[k]) continue;
-        const float dy = my - py[k];
-        const float power = power_of(ca, cb, cc, dx, dy);
-        const float G = expf(power);
-        const float alpha = fminf(ALPHA_MAX, op * G);
-        if (power <= 0.0f && alpha >= ALPHA_EPS) {
-          const float Ti = T[k];
-          const float w = alpha * Ti;
-          const float rem = Ti - w;
-          if (rem >= T_EPS) {
-            T[k] = rem;
-            const float inv1a = 1.0f / (1.0f - alpha);
-            float ga = gt[k] * (-ot[k] * inv1a);
-#pragma unroll
-            for (int c = 0; c < NCH; ++c) {
-              A[k][c] = A[k][c] + chv[c] * w;
-              ga = ga + gch[k][c] * (chv[c] * Ti - (och[k][c] - A[k][c]) * inv1a);
-            }
-            const float dpow = ga * (op * G);
-            v[0] += dpow * (-ca * dx - cb * dy);
-            v[1] += dpow * (-cc * dy - cb * dx);
-            v[2] += dpow * (-0.5f * dx * dx);
-            v[3] += dpow * (-dx * dy);
-            v[4] += dpow * (-0.5f * dy * dy);
-            v[5] += ga * G;
-#pragma unroll
-            for (int c = C::C0; c < NCH; ++c) v[6 + c - C::C0] += gch[k][c] * w;
-            hit = true;
-          } else {
-            act[k] = false;
-          }
-        }
-      }
-      if (__any_sync(0xffffffffu, hit)) {
-#pragma unroll
-        for (int q = 0; q < NG; ++q) {
-#pragma unroll
-          for (int off = 16; off > 0; off >>= 1) v[q] += __shfl_xor_sync(0xffffffffu, v[q], off);
-        }
-      }
-      if (lane == 0) {
-#pragma unroll
-        for (int q = 0; q < NG; ++q) s_red[warp][jj][q] = v[q];
-      }
-    }
-    __syncthreads();
-    for (int i = threadIdx.x; i < cnt * NG; i += NTHREADS) {
-      const int jj = i / NG;
-      const int q = i % NG;
-      float s = 0.0f;
-#pragma unroll
-      for (int w = 0; w < NWARPS; ++w) s += s_red[w][jj][q];
-      dpay[((size_t)tile * K + base + jj) * C::NF + q] = s;
     }
   }
 }
@@ -538,7 +275,7 @@ blend_moment_bwd_kernel(const float* __restrict__ fields, const int* __restrict_
 // K1 and K2: the training blend, culled per warp
 // ---------------------------------------------------------------------------
 //
-// What bounded the first design (K3's and K6b's layout above) on an H100:
+// What bounded the first design (K5's and K6b's layout above) on an H100:
 // one 256-thread block per 32x32 tile put the longest lists (up to ~760
 // instances at the bench shape, three times the mean) on single SMs with
 // too few warps to hide the latency of expf and of each pixel's serial
@@ -633,15 +370,16 @@ struct Staged {
   float x0[CULL_CHUNK], x1[CULL_CHUNK], y0[CULL_CHUNK], y1[CULL_CHUNK];
 };
 
-// Stages list entry base + threadIdx.x when it is below n; returns its
-// Gaussian.
+// Stages list entry base + threadIdx.x when it is below n, from field rows
+// of NF floats; returns its Gaussian.
+template <int NF = 8>
 __device__ __forceinline__ int stage(Staged& s, const float* __restrict__ fields,
                                      const int* __restrict__ ids, int base, int n) {
   const int i = threadIdx.x;
   const int j = base + i;
   if (j >= n) return -1;
   const int id = ids[j];
-  const float4* row = reinterpret_cast<const float4*>(fields) + (size_t)id * 2;
+  const float4* row = reinterpret_cast<const float4*>(fields) + (size_t)id * (NF / 4);
   const float4 a = row[0];
   const float4 b = row[1];
   s.mx[i] = a.x;
@@ -710,6 +448,36 @@ __device__ __forceinline__ float warp_sum6(const float (&m)[6]) {
   }
   v[0] += __shfl_xor_sync(0xffffffffu, v[0], 2);
   v[0] += __shfl_xor_sync(0xffffffffu, v[0], 1);
+  return v[0];
+}
+
+// warp_sum<N> pads its N values to sum_pad(N) of them; lane l returns the
+// sum of value l / (32 / sum_pad(N)), zero past N.
+__host__ __device__ constexpr int sum_pad(int n) { return n <= 8 ? 8 : 16; }
+
+// warp_sum6 for up to 16 values (K4: 6 to 12 gradients), 16 shuffles for
+// twelve, not 60.  K2 keeps warp_sum6: through this template its compiled
+// kernel is scheduled differently.
+template <int N>
+__device__ __forceinline__ float warp_sum(const float (&m)[N]) {
+  static_assert(N <= 16, "at most 16 values");
+  constexpr int NP = sum_pad(N);
+  const int lane = threadIdx.x & 31;
+  float v[NP];
+#pragma unroll
+  for (int i = 0; i < NP; ++i) v[i] = i < N ? m[i] : 0.0f;
+#pragma unroll
+  for (int half = NP / 2, off = 16; half >= 1; half >>= 1, off >>= 1) {
+    const bool up = lane & off;
+#pragma unroll
+    for (int i = 0; i < half; ++i) {
+      const float send = up ? v[i] : v[i + half];
+      const float keep = up ? v[i + half] : v[i];
+      v[i] = keep + __shfl_xor_sync(0xffffffffu, send, off);
+    }
+  }
+#pragma unroll
+  for (int off = 16 / NP; off >= 1; off >>= 1) v[0] += __shfl_xor_sync(0xffffffffu, v[0], off);
   return v[0];
 }
 
@@ -839,13 +607,246 @@ blend_train_bwd_kernel(const float* __restrict__ fields, const int* __restrict__
   }
 }
 
+// ---------------------------------------------------------------------------
+// K3 and K4: every channel set, culled per warp
+// ---------------------------------------------------------------------------
+//
+// K1's and K2's layout and helpers for every channel set <GEO, INVD, ONES>:
+// four blocks per tile, one pixel per thread, each warp walking the staged
+// instances whose support box meets its 8 x 4 rectangle.  The box depends
+// only on the six geometry fields, so it is the same for every set; the
+// channel fields (columns 6 .. NFIELD - 1 of the NF-float row) are staged
+// beside it by stage_channels.  A pair outside the box fails the gate and
+// changes nothing, so the cull is exact for every channel as for K1's T.
+//
+// K3 keeps the first design's operations and their order per pair, so it
+// stays bitwise equal to its plain version, and at <F, F, T> to K1 (whose
+// code it repeats there, so that pair checks no second implementation).
+// It writes the zeros of a channel its set lacks, so its wrapper allocates
+// no zeroed image.
+//
+// K4 carries, per pixel, T, liveness and the inclusive prefix A_c with the
+// output O_c and cotangent g_c of each channel.  For a contributing
+// instance i (Ti its incoming transmittance, w = alpha Ti, gt the
+// cotangent of T_final = finT):
+//   g_alpha = gt (-finT / (1 - alpha)) + sum_c g_c (ch_c Ti - (O_c - A_c) / (1 - alpha))
+// (the colour's output includes bg T_final, so its tail term is right as
+// it stands), and d power = g_alpha opa G gives the conic and mean terms.
+// The derivative of alpha ignores the 0.99 clamp (d alpha / d opa = G).
+// A visited instance's NFIELD gradients are summed over the warp only when
+// some lane contributed (warp_sum), added into the block's shared row of
+// the instance, and one thread per instance that some warp hit adds each
+// nonzero value into its slot's row of dpay: up to four blocks (a tile's
+// quarters) add into one slot, so its float32 sum is taken in an order
+// that varies from run to run.
+
+// Stages the channel fields of Gaussian id (none when id < 0) into
+// s_ch[a][threadIdx.x].
+template <class C>
+__device__ __forceinline__ void stage_channels(float (*s_ch)[CULL_CHUNK],
+                                               const float* __restrict__ fields, int id) {
+  if (id < 0) return;
+  const float* row = fields + (size_t)id * C::NF + 6;
+#pragma unroll
+  for (int a = 0; a < C::NFIELD - 6; ++a) s_ch[a][threadIdx.x] = row[a];
+}
+
+template <bool GEO, bool INVD, bool ONES>
+__global__ void __launch_bounds__(CULL_NT)
+tile_blend_fwd_kernel(const float* __restrict__ fields, const int* __restrict__ gidx,
+                      const int* __restrict__ counts, const float* __restrict__ bg,
+                      float* __restrict__ col, float* __restrict__ invd,
+                      float* __restrict__ finT, float* __restrict__ am,
+                      int H, int W, int ntx, int K) {
+  using C = Chan<GEO, INVD, ONES>;
+  constexpr int NA = C::NFIELD - 6;  // accumulated channels (ones colour derives from T)
+  __shared__ Staged s;
+  __shared__ float s_ch[C::NACC][CULL_CHUNK];
+  const Pixels p = pixels_of(ntx);
+  const float px = (float)p.gx, py = (float)p.gy;
+  float T = 1.0f, acc[C::NACC];
+#pragma unroll
+  for (int a = 0; a < C::NACC; ++a) acc[a] = 0.0f;
+  bool act = (p.gx < W) && (p.gy < H);
+
+  const int n = counts[p.tile];
+  const int* ids = gidx + (size_t)p.tile * K;
+  for (int base = 0; base < n; base += CULL_CHUNK) {
+    if (!__syncthreads_or(act)) break;  // also the barrier before restaging
+    stage_channels<C>(s_ch, fields, stage<C::NF>(s, fields, ids, base, n));
+    __syncthreads();
+    walk(s, min(CULL_CHUNK, n - base), p, act, [&](int i) {
+      if (!act) return;
+      const float dx = s.mx[i] - px;
+      const float dy = s.my[i] - py;
+      const float power = power_of(s.ca[i], s.cb[i], s.cc[i], dx, dy);
+      const float alpha = fminf(ALPHA_MAX, s.op[i] * expf(power));
+      if (power <= 0.0f && alpha >= ALPHA_EPS) {
+        const float aT = alpha * T;
+        const float rem = T - aT;
+        if (rem >= T_EPS) {
+#pragma unroll
+          for (int a = 0; a < NA; ++a) acc[a] = acc[a] + s_ch[a][i] * aT;
+          T = rem;
+        } else {
+          act = false;  // the instance that fails the T test is excluded
+        }
+      }
+    });
+  }
+
+  if (p.gx < W && p.gy < H) {
+    const size_t o = (size_t)p.gy * W + p.gx;
+    const size_t HW = (size_t)H * W;
+    if constexpr (ONES) {
+      col[o] = 1.0f - T * (1.0f - bg[0]);  // the conservation form of ones colour
+    } else {
+      col[o] = acc[0] + T * bg[0];
+    }
+    if constexpr (INVD) {
+      invd[o] = acc[C::invd_ch() - C::C0];
+    } else {
+      invd[o] = 0.0f;
+    }
+    finT[o] = T;
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+      if constexpr (GEO) {
+        am[a * HW + o] = acc[C::am_ch() - C::C0 + a];
+      } else {
+        am[a * HW + o] = 0.0f;
+      }
+    }
+  }
+}
+
+// At least four blocks per SM (at most 64 registers): at <F, F, T> the
+// compiler then schedules with 46 registers instead of 39, and the kernel
+// ran ~10% faster on an NVIDIA H100 80GB HBM3 (PERF.md); at <T, T, T> it
+// takes 62 either way.
+template <bool GEO, bool INVD, bool ONES>
+__global__ void __launch_bounds__(CULL_NT, 4)
+tile_blend_bwd_kernel(const float* __restrict__ fields, const int* __restrict__ gidx,
+                      const int* __restrict__ counts, const float* __restrict__ col,
+                      const float* __restrict__ invd, const float* __restrict__ finT,
+                      const float* __restrict__ am, const float* __restrict__ gcol,
+                      const float* __restrict__ ginvd, const float* __restrict__ gfin,
+                      const float* __restrict__ gam, float* __restrict__ dpay,
+                      int H, int W, int ntx, int K) {
+  using C = Chan<GEO, INVD, ONES>;
+  constexpr int NCH = C::NCH;
+  constexpr int NG = C::NFIELD;  // gradients per slot: the six geometry fields + channel fields
+  constexpr int SPREAD = 32 / sum_pad(NG);  // lanes per value of warp_sum<NG>
+  __shared__ Staged s;
+  __shared__ float s_ch[C::NACC][CULL_CHUNK];
+  __shared__ bool s_hit[CULL_CHUNK];
+  __shared__ float s_g[CULL_CHUNK][NG];
+  const Pixels p = pixels_of(ntx);
+  const int lane = threadIdx.x & 31;
+  const float px = (float)p.gx, py = (float)p.gy;
+  float T = 1.0f, gt = 0.0f, ot = 0.0f, A[NCH], gch[NCH], och[NCH];
+#pragma unroll
+  for (int c = 0; c < NCH; ++c) A[c] = gch[c] = och[c] = 0.0f;
+  bool act = (p.gx < W) && (p.gy < H);
+  if (act) {
+    const size_t o = (size_t)p.gy * W + p.gx;
+    const size_t HW = (size_t)H * W;
+    gt = gfin[o];
+    ot = finT[o];
+    gch[0] = gcol[o];
+    och[0] = col[o];
+    if constexpr (INVD) {
+      gch[C::invd_ch()] = ginvd[o];
+      och[C::invd_ch()] = invd[o];
+    }
+    if constexpr (GEO) {
+#pragma unroll
+      for (int a = 0; a < 4; ++a) {
+        gch[C::am_ch() + a] = gam[a * HW + o];
+        och[C::am_ch() + a] = am[a * HW + o];
+      }
+    }
+  }
+
+  const int n = counts[p.tile];
+  const int* ids = gidx + (size_t)p.tile * K;
+  float* rows = dpay + (size_t)p.tile * K * C::NF;
+  for (int base = 0; base < n; base += CULL_CHUNK) {
+    if (!__syncthreads_or(act)) break;  // also the barrier before restaging
+    const int cnt = min(CULL_CHUNK, n - base);
+    stage_channels<C>(s_ch, fields, stage<C::NF>(s, fields, ids, base, n));
+    if (threadIdx.x < cnt) {
+      s_hit[threadIdx.x] = false;
+#pragma unroll
+      for (int q = 0; q < NG; ++q) s_g[threadIdx.x][q] = 0.0f;
+    }
+    __syncthreads();
+    walk(s, cnt, p, act, [&](int i) {
+      float v[NG];
+#pragma unroll
+      for (int q = 0; q < NG; ++q) v[q] = 0.0f;
+      bool hit = false;
+      if (act) {
+        const float ca = s.ca[i], cb = s.cb[i], cc = s.cc[i], op = s.op[i];
+        const float dx = s.mx[i] - px;
+        const float dy = s.my[i] - py;
+        const float power = power_of(ca, cb, cc, dx, dy);
+        const float G = expf(power);
+        const float alpha = fminf(ALPHA_MAX, op * G);
+        if (power <= 0.0f && alpha >= ALPHA_EPS) {
+          const float Ti = T;
+          const float w = alpha * Ti;
+          const float rem = Ti - w;
+          if (rem >= T_EPS) {
+            T = rem;
+            const float inv1a = 1.0f / (1.0f - alpha);
+            float ga = gt * (-ot * inv1a);
+#pragma unroll
+            for (int c = 0; c < NCH; ++c) {
+              const float ch = c < C::C0 ? 1.0f : s_ch[c < C::C0 ? 0 : c - C::C0][i];
+              A[c] = A[c] + ch * w;
+              ga = ga + gch[c] * (ch * Ti - (och[c] - A[c]) * inv1a);
+            }
+            const float dpow = ga * (op * G);
+            v[0] = dpow * (-ca * dx - cb * dy);
+            v[1] = dpow * (-cc * dy - cb * dx);
+            v[2] = dpow * (-0.5f * dx * dx);
+            v[3] = dpow * (-dx * dy);
+            v[4] = dpow * (-0.5f * dy * dy);
+            v[5] = ga * G;
+#pragma unroll
+            for (int c = C::C0; c < NCH; ++c) v[6 + c - C::C0] = gch[c] * w;
+            hit = true;
+          } else {
+            act = false;
+          }
+        }
+      }
+      if (__any_sync(0xffffffffu, hit)) {
+        const float r = warp_sum(v);
+        if (lane % SPREAD == 0 && lane / SPREAD < NG) atomicAdd(&s_g[i][lane / SPREAD], r);
+        if (lane == 0) s_hit[i] = true;
+      }
+    });
+    __syncthreads();
+    if (threadIdx.x < cnt && s_hit[threadIdx.x]) {
+      float* row = rows + (size_t)(base + threadIdx.x) * C::NF;
+#pragma unroll
+      for (int q = 0; q < NG; ++q) {
+        const float g = s_g[threadIdx.x][q];
+        if (g != 0.0f) atomicAdd(row + q, g);
+      }
+    }
+  }
+}
+
 // Launchers of the eight channel sets, indexed by geo * 4 + invd * 2 + ones.
 
 template <bool GEO, bool INVD, bool ONES>
 void launch_fwd(const float* fields, const int* gidx, const int* counts, const float* bg,
                 float* col, float* invd, float* finT, float* am, int H, int W, int nty, int ntx,
                 int K, cudaStream_t stream) {
-  tile_blend_fwd_kernel<GEO, INVD, ONES><<<nty * ntx, NTHREADS, 0, stream>>>(
+  tile_blend_fwd_kernel<GEO, INVD, ONES><<<4 * nty * ntx, CULL_NT, 0, stream>>>(
       fields, gidx, counts, bg, col, invd, finT, am, H, W, ntx, K);
 }
 
@@ -854,7 +855,7 @@ void launch_bwd(const float* fields, const int* gidx, const int* counts, const f
                 const float* invd, const float* finT, const float* am, const float* gcol,
                 const float* ginvd, const float* gfin, const float* gam, float* dpay, int H,
                 int W, int nty, int ntx, int K, cudaStream_t stream) {
-  tile_blend_bwd_kernel<GEO, INVD, ONES><<<nty * ntx, NTHREADS, 0, stream>>>(
+  tile_blend_bwd_kernel<GEO, INVD, ONES><<<4 * nty * ntx, CULL_NT, 0, stream>>>(
       fields, gidx, counts, col, invd, finT, am, gcol, ginvd, gfin, gam, dpay, H, W, ntx, K);
 }
 
@@ -924,7 +925,7 @@ int blend_train_bwd_basis(const void* fields, const void* gidx, const void* coun
                              stream);
 }
 
-// K3: invd and am are written only for a channel set that has them
+// K3: a channel the set lacks reads zero
 int tile_blend_fwd(const void* fields, const void* gidx, const void* counts, const void* bg,
                    void* col, void* invd, void* finT, void* am, int H, int W, int nty, int ntx,
                    int K, int geo, int invd_on, int ones, void* stream) {

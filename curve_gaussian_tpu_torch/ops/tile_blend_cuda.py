@@ -11,7 +11,7 @@ K3 ``tile_blend_fwd`` replaces ``_make_fwd_kernel(geo, invd, ones,
 indirect)``: the compositing of ``rasterize_cuda`` (K1 is its training
 instantiation), accumulating C_c += ch_c alpha T for each channel; with
 ones colour the colour is 1 - T (1 - bg), else C_col + T bg.  Gated
-channels read zero.
+channels read zero (the kernel writes them).
 
 K4 ``tile_blend_bwd`` replaces ``_make_bwd_kernel(geo, invd, ones,
 indirect)``: one front-to-back pass with an inclusive prefix A_c per
@@ -26,9 +26,10 @@ K2's pass (the same kernel template), its moments written per slot,
 gradients after the slot -> Gaussian reduction.
 
 The reduction of K4's and K5's tables to Gaussians is ``index_add_``
-outside the kernels, as the JAX package does it in XLA.  Because the
-kernels write per-slot rows with no atomics, the gradients do not depend on
-the order in which blocks run.  The derivative of alpha ignores the 0.99
+outside the kernels, as the JAX package does it in XLA.  K5 writes each
+per-slot row once, with no atomics; K4 splits a tile over four blocks that
+add into its slots' rows with ``atomicAdd``, so the last float32 bits of
+its rows vary from run to run.  The derivative of alpha ignores the 0.99
 clamp (d alpha / d opa = G), so every backward here is the hand-derived
 formula, never autograd through the clamp.
 
@@ -166,12 +167,11 @@ def tile_blend_fwd(fields, gidx, counts, bg, H: int, W: int, geo: bool, invd: bo
     _, nf = field_layout(geo, invd, ones)
     nty, ntx = _check_fields(fields, gidx, counts, H, W, nf)
     bg = _check_bg(bg, fields.device)
+    # the kernel writes every output, the zeros of a channel the set lacks too
     col = torch.empty((H, W), dtype=torch.float32, device=fields.device)
     finT = torch.empty_like(col)
-    # the kernel writes invd and am only for a set that has them
-    inv = torch.empty_like(col) if invd else torch.zeros_like(col)
-    am = (torch.empty if geo else torch.zeros)((4, H, W), dtype=torch.float32,
-                                                device=fields.device)
+    inv = torch.empty_like(col)
+    am = torch.empty((4, H, W), dtype=torch.float32, device=fields.device)
     lib = _lib()
     code = lib.tile_blend_fwd(
         fields.data_ptr(), gidx.data_ptr(), counts.data_ptr(), bg.data_ptr(), col.data_ptr(),

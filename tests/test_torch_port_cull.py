@@ -18,7 +18,13 @@ no pixel outside an instance's box can pass the gate.
   around its longest list; and it matches the JAX package's oracle
   (``rasterize_ref.rasterize_reference`` and its VJP) in float64 within
   the blend tests' 1e-9.
+- The full-channel kernels K3 and K4 take the same cull for every channel
+  set (the box reads only the six geometry fields): the culled plain
+  forward and per-slot rows of each of the eight sets equal the unculled
+  ones bitwise on the small scene.
 """
+import functools
+
 import numpy as np
 import pytest
 
@@ -33,6 +39,7 @@ from curve_gaussian_tpu_torch.config import PipelineConfig
 from curve_gaussian_tpu_torch.data import synthetic
 from curve_gaussian_tpu_torch.models import curve_state as pcs
 from curve_gaussian_tpu_torch.ops import rasterize_cuda as prc
+from curve_gaussian_tpu_torch.ops import tile_blend_cuda as ptb
 from curve_gaussian_tpu_torch.ops.binning import bin_gaussians, tile_grid
 from curve_gaussian_tpu_torch.ops.projection import preprocess
 from curve_gaussian_tpu_torch.ops.rasterize_ref import ALPHA_EPS
@@ -112,11 +119,16 @@ def _culled_step(step):
     return culled
 
 
-def _small():
+@functools.lru_cache(maxsize=None)
+def _small_case():
     H = W = 64
-    jpre, ppre, jb, _, gc, gtt = _case(H, W, np.float64)
-    return (prc.stack_fields(ppre), ppre.depth, tt(jb.gather_idx, torch.int32),
-            tt(jb.counts, torch.int32), H, W, tt(gc), tt(gtt))
+    _, ppre, jb, _, gc, gtt = _case(H, W, np.float64)
+    return ppre, tt(jb.gather_idx, torch.int32), tt(jb.counts, torch.int32), H, W, tt(gc), tt(gtt)
+
+
+def _small():
+    ppre, gidx, counts, H, W, gc, gtt = _small_case()
+    return prc.stack_fields(ppre), ppre.depth, gidx, counts, H, W, gc, gtt
 
 
 _BENCH = {}
@@ -223,3 +235,37 @@ def test_culled_pass_matches_jax_oracle(monkeypatch, scene):
     assert_close(col, jcol, F64_TOL, "col")
     assert_close(finT, jfin, F64_TOL, "finT")
     assert_close(dfields, jd, F64_TOL, "d fields")
+
+
+CHANNEL_SETS = [(g, i, o) for g in (False, True) for i in (False, True) for o in (False, True)]
+
+
+@pytest.mark.parametrize("geo,invd,ones", CHANNEL_SETS)
+def test_culled_full_channel_pass_equals_plain_bitwise(monkeypatch, geo, invd, ones):
+    """K3/K4's cull on the small scene, float32 as the kernels: the plain
+    forward (col, invd, finT, am) and per-slot rows of the channel set with
+    the pairs outside the training box skipped equal the unculled ones."""
+    ppre, gidx, counts, H, W, gc, gtt = _small_case()
+    rng = np.random.default_rng(11)
+    P = ppre.opacity.shape[0]
+    color, allmap = tt(rng.uniform(0.2, 1.0, P)), tt(rng.normal(size=(P, 4)))
+    fields = prc.stack_fields(ppre, color, allmap, geo=geo, invd=invd, ones=ones).float()
+    cots = (gc.float(), tt(rng.normal(size=(H, W))).float(), gtt.float(),
+            tt(rng.normal(size=(4, H, W))).float())
+    bg = torch.full((1,), 0.25)
+
+    def blend():
+        outs = ptb.tile_blend_fwd_plain(fields, gidx, counts, bg, H, W, geo, invd, ones)
+        return outs + (ptb.tile_blend_bwd_plain(fields, gidx, counts, outs, cots, geo, invd,
+                                                ones),)
+
+    want = blend()
+    culled = _culled_step(ptb._composite_step)
+    monkeypatch.setattr(ptb, "_composite_step", culled)
+    got = blend()
+    for name, a, b in zip(("col", "invd", "finT", "am", "per-slot rows"), got, want):
+        assert torch.equal(a, b), name
+    # the cull skips most live pairs, and every output of the set is live
+    assert culled.outside > 0.5 * culled.live, (culled.outside, culled.live)
+    assert float(want[2].min()) < 0.5 and float(want[4].abs().max()) > 0
+    assert (float(want[1].abs().max()) > 0) == invd and (float(want[3].abs().max()) > 0) == geo

@@ -3,8 +3,8 @@
 card unless the caller asks for the CPU, and the kernel wrappers launch
 nothing for CPU tensors.  The last three tests need a CUDA card: they hold
 every kernel against its plain version there, K7/K8 at shapes ragged
-against their tiles, and K1/K2's cull over the conics that stress its box
-(``pytest --noconftest -m cuda tests/test_torch_port_isolation.py``)."""
+against their tiles, and the cull of K1-K4 over the conics that stress its
+box (``pytest --noconftest -m cuda tests/test_torch_port_isolation.py``)."""
 import ast
 import os
 import pkgutil
@@ -221,14 +221,14 @@ def test_kernels_match_plain_on_card():
     with pytest.raises(ValueError):
         prc.blend_train_fwd(fields.double(), gidx, counts, bg, H, W)  # kernels take float32
     # K3, K4 and K5: the same operations in the same order as the plain
-    # versions, sums over a tile's pixels in another order
+    # versions (K3 bitwise), sums over a tile's pixels in another order
     for geo, invd, ones in CHANNEL_SETS:
         f = _channel_fields(fields, geo, invd, ones)
         n3, n4 = ptb.tile_blend_fwd.launches, ptb.tile_blend_bwd.launches
         outs = ptb.tile_blend_fwd(f, gidx, counts, bg, H, W, geo, invd, ones)
         outs_p = ptb.tile_blend_fwd_plain(f, gidx, counts, bg, H, W, geo, invd, ones)
         for o, o_p in zip(outs, outs_p):
-            torch.testing.assert_close(o, o_p, atol=1e-6, rtol=0)
+            assert torch.equal(o, o_p), (geo, invd, ones, float((o - o_p).abs().max()))
         cots = _cotangents(H, W, "cuda")
         dpay = ptb.tile_blend_bwd(f, gidx, counts, outs, cots, geo, invd, ones)
         dpay_p = ptb.tile_blend_bwd_plain(f, gidx, counts, outs, cots, geo, invd, ones)
@@ -248,10 +248,12 @@ def test_kernels_match_plain_on_card():
 
 
 def _cull_family_exact(family, device):
-    """K1 and K2 over one family of ``test_torch_port_cull_cases``, one
+    """K1-K4 over one family of ``test_torch_port_cull_cases``, one
     instance per 2x2-tile block: K1 equal to its plain version and to K3 at
-    (F, F, T) bitwise; K2's moments within 1e-5 of each term mass from its
-    plain version.  With bg 0, gtt 0 and one instance per tile, D' = gc G
+    (F, F, T) bitwise; K3 at (T, T, T) and (T, T, F) equal to its plain
+    version and K4 there within 1e-4 of max of its plain version (the
+    family's rows widened by ``_channel_fields``); K2's moments within 1e-5
+    of each term mass from its plain version.  With bg 0, gtt 0 and one instance per tile, D' = gc G
     with gc in [1, 2) at every contributing pixel, so M0, M3 and M5 sum
     positive terms and the terms of M1, M2 and M4 have at most the masses
     sqrt(M0 M3), sqrt(M0 M5) and sqrt(M3 M5) (Cauchy-Schwarz)."""
@@ -262,6 +264,16 @@ def _cull_family_exact(family, device):
     col3, _, fin3, _ = ptb.tile_blend_fwd(fields, gidx, counts, bg, H, W, False, False, True)
     assert torch.equal(col, col_p) and torch.equal(finT, finT_p), family
     assert torch.equal(col, col3) and torch.equal(finT, fin3), family
+    cots = _cotangents(H, W, device)
+    for geo, invd, ones in ((True, True, True), (True, True, False)):
+        f = _channel_fields(fields, geo, invd, ones)
+        outs = ptb.tile_blend_fwd(f, gidx, counts, bg, H, W, geo, invd, ones)
+        outs_p = ptb.tile_blend_fwd_plain(f, gidx, counts, bg, H, W, geo, invd, ones)
+        assert all(torch.equal(o, o_p) for o, o_p in zip(outs, outs_p)), (family, geo, invd, ones)
+        dpay = ptb.tile_blend_bwd(f, gidx, counts, outs, cots, geo, invd, ones)
+        dpay_p = ptb.tile_blend_bwd_plain(f, gidx, counts, outs, cots, geo, invd, ones)
+        torch.testing.assert_close(dpay, dpay_p, atol=1e-4 * float(dpay_p.abs().max()), rtol=0,
+                                   msg=f"{family} {(geo, invd, ones)}")
     g = torch.Generator().manual_seed(3)
     gc = (1.0 + torch.rand((H, W), generator=g)).to(device)
     gtt = torch.zeros_like(gc)
@@ -276,15 +288,16 @@ def _cull_family_exact(family, device):
 
 @pytest.mark.cuda
 def test_cull_exact_on_adversarial_conics():
-    """K1/K2's own box (device ``logf``/``sqrtf``) never skips a pair that
-    passes the gate, over the families whose float32 mirror
+    """The kernels' own box (device ``logf``/``sqrtf``) never skips a pair
+    that passes the gate, in K1-K4, over the families whose float32 mirror
     ``test_torch_port_cull.py`` checks on the CPU."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU form")
-    n1 = prc.blend_train_fwd.launches
+    n1, n4 = prc.blend_train_fwd.launches, ptb.tile_blend_bwd.launches
     for family in FAMILIES:
         assert _cull_family_exact(family, "cuda") > 0, family  # some instance contributes
     assert prc.blend_train_fwd.launches == n1 + len(FAMILIES)
+    assert ptb.tile_blend_bwd.launches == n4 + 2 * len(FAMILIES)
 
 
 # ragged against K7/K8's 32x32 tiles, and some below the 11-tap window
