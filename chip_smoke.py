@@ -17,8 +17,8 @@
    those that contribute) and, for SSIM, a cuDNN conv2d SSIM
    (``library_ms``, never called by the port).  K1 is also held against
    K3 at (F, F, T), the same function, cull and code in another kernel
-   (bitwise), and K2 against K6b, which still runs the first design
-   (the same accumulator), each pair timed in turns; the
+   (bitwise), and K2 against K6b, the same accumulator through raw
+   tile-local sums and their recombination, each pair timed in turns; the
    tile lists and what the cull skips are printed.  K1 and K8
    must equal their plain versions; K7 and K8's launch shapes (blocks,
    blocks per SM, waves) are printed, and one K7 call must enqueue one
@@ -36,9 +36,11 @@
    a. K3, K4 and K5 against their plain versions at the shapes the paths
       below give them: (geo, invd, ones) = (T, T, T) (the eval render),
       (F, F, T) (the table and indirect flavors, K5 included) and, on a
-      small scene, (T, T, F) (a per-splat colour), with what K3/K4's cull
-      skips and K4's largest difference between two runs on the same
-      inputs (its atomics' order);
+      small scene, (T, T, F) (a per-splat colour), with what their cull
+      skips and K4's and K5's largest difference between two runs on the
+      same inputs (their atomics' order); K5 also against K2 on the
+      indirect flavor's inputs (its rows index-added are K2's
+      accumulator), timed in turns;
    b. ``eval_render`` of each of the 4 views (no gradient): finite maps,
       the render in [0, 1];
    c. the gradient of sum(render k1 + invdepth k2 + alpha k3 + dir k4) to
@@ -51,10 +53,13 @@
       few timed ``train_step``s of each flavor.
    Each path's launch counters are set to 0 just before it and read just
    after; each kernel of the path must have launched.
-7. The basis flavor of the training backward (K6b), on the main path's K2
-   inputs: against its plain version and against K2 (the same function
-   through another formulation), timed beside its bound; ``step_grads``
-   under ``CGT_BLEND_FLAVOR=basis`` against the default flavor; then 5
+7. The basis flavor of the training backward (K6b: K2's culled pass into
+   raw tile-local sums per slot, then one recombination per (instance,
+   tile)), on the main path's K2 inputs: against its plain version and
+   against K2 (the same function through another formulation), timed
+   beside its bound, with what its cull skips, its atomics and its largest
+   difference between two runs; ``step_grads`` under
+   ``CGT_BLEND_FLAVOR=basis`` against the default flavor; then 5
    ``train_step``s that must launch K6b 5 times and K2 never.
 8. The training driver at full width: ``curve_gaussian_tpu_torch.train``'s
    ``main`` on the synthetic scene (24 views of 512x512, the 15^3 seed
@@ -230,8 +235,9 @@ def pairs_note(pairs) -> str:
 
 
 def cull_note(pairs, counts, who: str, atomics=None) -> str:
-    """The tile lists and what the cull of `who` (K1-K4 share it) makes of
-    them; atomics = (kernel, values per row) adds that kernel's atomics."""
+    """The tile lists and what the cull of `who` (every blend kernel shares
+    it) makes of them; atomics = (kernel, values per row) adds that
+    kernel's atomics."""
     c = counts.double()
     note = (f"{who}: tile lists mean {float(c.mean()):.1f} p90 "
             f"{float(torch.quantile(c, 0.9)):.0f} peak {int(c.max())}; cull (8x4 warp "
@@ -242,8 +248,8 @@ def cull_note(pairs, counts, who: str, atomics=None) -> str:
     if atomics:
         k, nv = atomics
         note += (f"; {k} atomics <= {nv} x {pairs['quarter_hits']} (instance, quarter) pairs "
-                 f"with a contributing pixel (one block per tile: {nv} x {pairs['inst']} "
-                 f"(instance, tile))")
+                 f"with a contributing pixel (one block per tile would land {nv} x "
+                 f"{pairs['inst']}, one per (instance, tile))")
     return note
 
 
@@ -260,7 +266,7 @@ TOL = {
     # as K1: the same operations in the same order
     "tile_blend_fwd": 1e-5,
     # per-slot rows: each a float32 sum over a tile's 1,024 pixels, in warp
-    # tree order against torch.sum's
+    # tree and atomicAdd order against torch.sum's
     "tile_blend_bwd": 1e-4,
     "blend_moment_bwd": 1e-4,
     # the same D' as K2, its six sums over a tile's pixels in warp tree and
@@ -473,12 +479,20 @@ WRAPPERS = {
 }
 
 
+def in_turns(label, kernel, other):
+    """Times two kernels on the same inputs in turns (other, kernel,
+    kernel, other: medians of CUDA-event timings) and prints the times."""
+    t = [cuda_ms(f, 20) for f in (other, kernel, kernel, other)]
+    print(f"turns {label}: other {t[0]:.4f} ms, kernel {t[1]:.4f} ms, kernel {t[2]:.4f} ms, "
+          f"other {t[3]:.4f} ms; kernel / other {(t[1] + t[2]) / (t[0] + t[3]):.3f}", flush=True)
+
+
 def yardsticks(inputs, bg):
     """K1 and K2 against other kernels on the same inputs: K3 at (F, F, T)
     computes K1's function with the same cull and code in another kernel
-    (bitwise, or fail), K6b, which keeps the first design, K2's
-    accumulator; each pair timed in turns (the other, K1/K2, K1/K2, the
-    other: medians of CUDA-event timings)."""
+    (bitwise, or fail), and K6b computes K2's accumulator through raw
+    tile-local sums (held against K2 in ``basis_flavor``); each pair timed
+    in turns."""
     fields, gidx, counts, col, finT, gc, gtt = inputs
     H, W = col.shape
     col3, _, fin3, _ = TB.tile_blend_fwd(fields, gidx, counts, bg, H, W, False, False, True)
@@ -488,16 +502,11 @@ def yardsticks(inputs, bg):
           flush=True)
     if not same:
         fail("K1 and K3 at (F, F, T) disagree on the same inputs")
-    for new, old, label in (
-            (lambda: RC.blend_train_fwd(fields, gidx, counts, bg, H, W),
-             lambda: TB.tile_blend_fwd(fields, gidx, counts, bg, H, W, False, False, True),
-             "blend_train_fwd against tile_blend_fwd (F, F, T)"),
-            (lambda: RC.blend_train_bwd(*inputs), lambda: RC.blend_train_bwd_basis(*inputs),
-             "blend_train_bwd against blend_train_bwd_basis")):
-        t = [cuda_ms(f, 20) for f in (old, new, new, old)]
-        print(f"turns {label}: other {t[0]:.4f} ms, K1/K2 {t[1]:.4f} ms, K1/K2 "
-              f"{t[2]:.4f} ms, other {t[3]:.4f} ms; K1/K2 / other "
-              f"{(t[1] + t[2]) / (t[0] + t[3]):.3f}", flush=True)
+    in_turns("blend_train_fwd against tile_blend_fwd (F, F, T)",
+             lambda: RC.blend_train_fwd(fields, gidx, counts, bg, H, W),
+             lambda: TB.tile_blend_fwd(fields, gidx, counts, bg, H, W, False, False, True))
+    in_turns("blend_train_bwd against blend_train_bwd_basis",
+             lambda: RC.blend_train_bwd(*inputs), lambda: RC.blend_train_bwd_basis(*inputs))
 
 
 # CUgraphNodeType (cuda.h)
@@ -706,8 +715,11 @@ def full_channel(ts, cams, gts, opt_cfg, pipe_cfg, M, dev):
     tile_kernels("table flavor", fields8, b8, H, W, False, False, True,
                  (gc, zeros, gtt, torch.zeros((4, H, W), device=dev)))
     gidx, counts = b8.gather_idx, b8.counts
-    mom = TB.blend_moment_bwd(fields8, gidx, counts, col, finT, gc, gtt)
-    mom_p = TB.blend_moment_bwd_plain(fields8, gidx, counts, col, finT, gc, gtt)
+    ins8 = (fields8, gidx, counts, col, finT, gc, gtt)
+    mom = TB.blend_moment_bwd(*ins8)
+    mom_again = TB.blend_moment_bwd(*ins8)
+    mom_p = TB.blend_moment_bwd_plain(*ins8)
+    acc2 = RC.blend_train_bwd(*ins8)
     torch.cuda.synchronize()
     n_inst = int(counts.sum())
     pairs8 = pair_counts(fields8, gidx, counts, H, W)
@@ -717,12 +729,22 @@ def full_channel(ts, cams, gts, opt_cfg, pipe_cfg, M, dev):
         name="blend_moment_bwd", route="cuda", source=BLEND_SRC,
         replaces="curve_gaussian_tpu/ops/rasterize_pallas.py:656", launches=0,
         max_abs_err=(mom - mom_p).abs().max().item(), rel_err=rel_err(mom, mom_p),
-        ms=cuda_ms(lambda: TB.blend_moment_bwd(fields8, gidx, counts, col, finT, gc, gtt), 20),
-        plain_ms=cuda_ms(
-            lambda: TB.blend_moment_bwd_plain(fields8, gidx, counts, col, finT, gc, gtt), 3),
+        ms=cuda_ms(lambda: TB.blend_moment_bwd(*ins8), 20),
+        plain_ms=cuda_ms(lambda: TB.blend_moment_bwd_plain(*ins8), 3),
         bound_ms=b5, bound_by=by5, library_ms=None,
     )
     report(k5, f"indirect flavor (F, F, T) {pairs_note(pairs8)}")
+    rr = (mom - mom_again).abs().max().item()
+    print(f"kernel blend_moment_bwd indirect flavor: run to run max |difference| {rr:.3g} "
+          f"({rr / max(mom.abs().max().item(), 1e-30):.3g} of max); "
+          f"{cull_note(pairs8, counts, 'K5', ('K5', 6))}", flush=True)
+    e52 = rel_err(RC._reduce_rows(fields8, gidx, mom), acc2)
+    print(f"kernel blend_moment_bwd against K2 (its rows index-added): error over max {e52:.3g} "
+          f"(tol {TOL['blend_moment_bwd']:g})", flush=True)
+    if not e52 <= TOL["blend_moment_bwd"]:
+        fail(f"K5's rows index-added disagree with K2 on the same inputs: {e52}")
+    in_turns("blend_moment_bwd against blend_train_bwd (indirect flavor's inputs)",
+             lambda: TB.blend_moment_bwd(*ins8), lambda: RC.blend_train_bwd(*ins8))
 
     # a per-splat colour, small scene (as small_check's)
     Hs = Ws = 96
@@ -858,6 +880,7 @@ def basis_flavor(inputs, acc_k2, pairs, ts, cams, gts, opt_cfg, pipe_cfg, M):
     fields, gidx, counts, col, finT, gc, gtt = inputs
     H, W = col.shape
     acc = RC.blend_train_bwd_basis(*inputs)
+    acc_again = RC.blend_train_bwd_basis(*inputs)
     acc_p = RC.blend_train_bwd_basis_plain(*inputs)
     torch.cuda.synchronize()
     d6 = RC.moments_to_dfields(acc, fields)
@@ -875,6 +898,11 @@ def basis_flavor(inputs, acc_k2, pairs, ts, cams, gts, opt_cfg, pipe_cfg, M):
         bound_ms=b6, bound_by=by6, library_ms=None,
     )
     report(k6, f"main path's K2 inputs {pairs_note(pairs)}")
+    rr = (acc - acc_again).abs().max().item()
+    print(f"kernel blend_train_bwd_basis: run to run max |difference| {rr:.3g} "
+          f"({rr / max(acc.abs().max().item(), 1e-30):.3g} of max); "
+          f"{cull_note(pairs, counts, 'K6b', ('K6b', 6))}; its recombination <= 6 x "
+          f"{pairs['inst']} (instance, tile) atomics", flush=True)
     k2_ms = cuda_ms(lambda: RC.blend_train_bwd(*inputs), 20)
     print(f"kernel blend_train_bwd_basis against K2: d fields error over max {e_k2:.3g} "
           f"(tol {BASIS_TOL:g}); K2 {k2_ms:.4f} ms in this phase", flush=True)

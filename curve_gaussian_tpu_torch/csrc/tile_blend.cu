@@ -1,10 +1,9 @@
 // Tile blend for Hopper (sm_90a): the training forward and moment backward
-// (K1, K2: culled per warp, see their section below), the forward of every
-// channel set (K3), the per-slot backward of every field (K4), and the
-// moment backward of the training channel set through a tile-local basis
-// (K6b) or written per slot (K5).  Plain C interface, loaded with ctypes by
-// curve_gaussian_tpu_torch/ops/rasterize_cuda.py (K1, K2, K6b) and
-// tile_blend_cuda.py (K3, K4, K5).
+// (K1, K2), the forward of every channel set (K3), the per-slot backward of
+// every field (K4), and the moment backward of the training channel set
+// written per slot (K5) or through a tile-local basis (K6b).  Plain C
+// interface, loaded with ctypes by curve_gaussian_tpu_torch/ops/
+// rasterize_cuda.py (K1, K2, K6b) and tile_blend_cuda.py (K3, K4, K5).
 //
 // Replaces the Pallas kernels of curve_gaussian_tpu/ops/rasterize_pallas.py:
 //   K1  _make_fwd_train_paired (and its unpaired odd-width form
@@ -12,17 +11,18 @@
 //       the training channel set, here blend_train_fwd_kernel
 //   K2  _make_bwd_moment_rmw_paired (and the unpaired
 //       _make_bwd_moment_rmw_kernel): six moments per (Gaussian, tile)
-//       reduced into a [P1, 8] accumulator, here blend_train_bwd_kernel
+//       reduced into a [P1, 8] accumulator, here blend_train_bwd_kernel<F, F>
 //   K3  _make_fwd_kernel(geo, invd, ones, indirect): compositing of the
 //       colour channel (ones or a per-splat colour), the inverse depth and
 //       the four allmap channels
 //   K4  _make_bwd_kernel(geo, invd, ones, indirect): the gradient of every
-//       field of every instance slot, written to a [T, K, NF] table
-//   K5  _make_bwd_moment_kernel(indirect=True): K2's six moments written per
-//       slot to a [T, K, 8] table, here moment<BASIS=0>
+//       field of every instance slot, added into a [T, K, NF] table
+//   K5  _make_bwd_moment_kernel(indirect=True): K2's six moments added per
+//       slot into a [T, K, 8] table, here blend_train_bwd_kernel<T, F>
 //   K6b _make_bwd_moment_rmw_basis_kernel (USE_BASIS_BWD): K2's six moments
-//       through six raw tile-local sums of D' and a binomial recombination
-//       per instance, here moment<BASIS=1>
+//       through six raw tile-local sums of D' per slot
+//       (blend_train_bwd_kernel<T, T>) and a binomial recombination per
+//       (instance, tile) (basis_recombine_kernel)
 // The slot -> Gaussian reduction of K4's and K5's tables is an index_add_
 // outside the kernels, as the JAX package leaves it to an XLA scatter-add.
 // The TPU layout is not copied: no tile pairing, no (8,128) register tiles,
@@ -30,27 +30,26 @@
 // MXU combiners, no [T, K, NF] payload table (the fields are read through
 // gather_idx).
 //
-// Two layouts.  K1-K4 split each 32x32 tile over four 256-thread blocks,
-// one per 16x16 quarter, one pixel per thread, and each warp skips the
-// staged instances whose support box misses its 8x4 pixel rectangle (the
-// K1/K2 section says why; K3/K4 take the same helpers for every channel
-// set <GEO, INVD, ONES>).  K5 and K6b keep the first design: one block per
-// tile, 256 threads; thread t owns the pixel column t % 32 and the rows
-// t / 32 + 8 k (k = 0..3), and every staged instance is evaluated at every
-// live pixel.  In both, instances come from gather_idx[tile, :counts[tile]]
-// (depth order), fields are staged in shared memory from fields[P1, NF]
-// through gather_idx, one row per thread, as float4 loads, and a block's
-// loop ends at the first chunk boundary where all its pixels are done
-// (__syncthreads_or).  The kernels are templated on the channel set, so
-// every loop over channels unrolls at compile time.
+// One layout.  Every blend kernel splits each 32x32 tile over four
+// 256-thread blocks, one per 16x16 quarter, one pixel per thread, and each
+// warp skips the staged instances whose support box misses its 8x4 pixel
+// rectangle (the K1/K2 section says why; K3/K4 take the same helpers for
+// every channel set <GEO, INVD, ONES>).  Instances come from
+// gather_idx[tile, :counts[tile]] (depth order), fields are staged in
+// shared memory from fields[P1, NF] through gather_idx, one row per
+// thread, as float4 loads, and a block's loop ends at the first chunk
+// boundary where all its pixels are done (__syncthreads_or).  The kernels
+// are templated on the channel set or the moments' destination, so every
+// loop over channels unrolls and every choice folds at compile time.
 //
 // What bounds them: one expf per evaluated (instance, pixel) pair and each
 // pixel's serial chain, so instruction latency and throughput, not bytes
-// (a tile's fields are a few KB).  K5 writes each slot's row once, with no
-// atomics, so its results do not depend on the order in which blocks run;
-// K2, K4 and K6b land one atomicAdd per nonzero value (K4: up to four
-// quarter blocks into one slot's row), so the last bits of their sums vary
-// from run to run.
+// (a tile's fields are a few KB).  The backward kernels land one atomicAdd
+// per nonzero value of each (instance, quarter) that some pixel reached:
+// K2 into the Gaussian's row, K4 and K5 into the slot's row, K6b into the
+// slot's row of its raw sums and then once per (instance, tile) into the
+// Gaussian's row.  Up to four quarter blocks add into one row, so the last
+// bits of every backward's sums vary from run to run.
 //
 // Built with -fmad=false so that the arithmetic rounds like the plain
 // PyTorch versions' separate elementwise operations; expf (not __expf).
@@ -62,10 +61,6 @@
 namespace {
 
 constexpr int TILE = 32;
-constexpr int NTHREADS = 256;
-constexpr int PPT = 4;          // pixels per thread
-constexpr int BWD_CHUNK = 32;   // instances per backward reduction batch
-constexpr int NWARPS = NTHREADS / 32;
 
 constexpr float ALPHA_EPS = 1.0f / 255.0f;
 constexpr float T_EPS = 1e-4f;
@@ -91,196 +86,17 @@ __device__ __forceinline__ float power_of(float ca, float cb, float cc, float dx
   return -0.5f * (ca * dx * dx + cc * dy * dy) - cb * dx * dy;
 }
 
-// Stage the first NFIELD fields of gather_idx[base + threadIdx.x] into
-// s_f[q][threadIdx.x] (q < NFIELD) when that slot is below n.
-template <int NFIELD, int NF, int CHUNK>
-__device__ __forceinline__ void stage_fields(float (*s_f)[CHUNK], const float* __restrict__ fields,
-                                             const int* __restrict__ ids, int base, int n) {
-  const int j = base + threadIdx.x;
-  if (threadIdx.x < CHUNK && j < n) {
-    const float4* row = reinterpret_cast<const float4*>(fields) + (size_t)ids[j] * (NF / 4);
-#pragma unroll
-    for (int v = 0; v < NF / 4; ++v) {
-      const float4 x = row[v];
-      if (4 * v + 0 < NFIELD) s_f[4 * v + 0][threadIdx.x] = x.x;
-      if (4 * v + 1 < NFIELD) s_f[4 * v + 1][threadIdx.x] = x.y;
-      if (4 * v + 2 < NFIELD) s_f[4 * v + 2][threadIdx.x] = x.z;
-      if (4 * v + 3 < NFIELD) s_f[4 * v + 3][threadIdx.x] = x.w;
-    }
-  }
-}
-
 // ---------------------------------------------------------------------------
-// K5 and K6b: moments of the training channel set
+// K1, K2, K5 and K6b: the training channel set, culled per warp
 // ---------------------------------------------------------------------------
 //
-// One front-to-back pass carries T and the prefix pr += gc w, which gives
-// g_alpha = gc Ti + (base_inv + pr) / (1 - alpha), base_inv = -gtt finT - gc col,
-// and D' = g_alpha G.  The six moments (D', D'dx, D'dy, D'dx^2, D'dx dy,
-// D'dy^2) of each instance are reduced over the tile's pixels and written
-// to the slot's row of out[T, K, 8] (K5).  K2 computes them with
-// the culled design below; this pass is K2's first design.
-//
-// BASIS (K6b) reduces instead the raw sums of D' against the pixel's
-// tile-local coordinates x' = x - 32 tx, y' = y - 32 ty (S0, Sx, Sy, Sxx,
-// Sxy, Syy; the weights stay below 31^2 = 961), and recombines them per
-// instance around its local centre (cx, cy) = mean - tile origin, since
-// dx = cx - x' and dy = cy - y':
-//   M0 = S0, M1 = cx S0 - Sx, M2 = cy S0 - Sy,
-//   M3 = cx (cx S0 - 2 Sx) + Sxx, M4 = cx cy S0 - cx Sy - cy Sx + Sxy,
-//   M5 = cy (cy S0 - 2 Sy) + Syy,
-// one thread per instance, before the atomicAdd.  The TPU kernel's lane
-// basis and sublane combiner matrices (two MXU dots) are layout: a thread
-// here knows its pixel's (x', y').  All sums stay in float32; in global
-// coordinates the weights would reach 511^2 and the recombination would
-// cancel the gradient away.
-
-template <bool BASIS>
-__global__ void __launch_bounds__(NTHREADS)
-blend_moment_bwd_kernel(const float* __restrict__ fields, const int* __restrict__ gidx,
-                        const int* __restrict__ counts, const float* __restrict__ col,
-                        const float* __restrict__ finT, const float* __restrict__ gc,
-                        const float* __restrict__ gtt, float* __restrict__ out,
-                        int H, int W, int ntx, int K) {
-  static_assert(BWD_CHUNK * 6 <= NTHREADS, "one pass of the block writes a chunk's moments");
-  __shared__ float s_f[6][BWD_CHUNK];
-  __shared__ int s_id[BWD_CHUNK];
-  __shared__ float s_red[NWARPS][BWD_CHUNK][6];
-
-  const int tile = blockIdx.x;
-  const int tx = tile % ntx;
-  const int ty = tile / ntx;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int gx = tx * TILE + lane;
-  const float px = (float)gx;
-  const float lx = (float)lane;  // tile-local x' (BASIS)
-  float py[PPT], ly[PPT], T[PPT], pr[PPT], gcv[PPT], binv[PPT];
-  bool act[PPT];
-#pragma unroll
-  for (int k = 0; k < PPT; ++k) {
-    const int gy = ty * TILE + warp + 8 * k;
-    py[k] = (float)gy;
-    ly[k] = (float)(warp + 8 * k);  // tile-local y' (BASIS)
-    T[k] = 1.0f;
-    pr[k] = 0.0f;
-    act[k] = (gx < W) && (gy < H);
-    gcv[k] = 0.0f;
-    binv[k] = 0.0f;
-    if (act[k]) {
-      const size_t o = (size_t)gy * W + gx;
-      gcv[k] = gc[o];
-      binv[k] = -gtt[o] * finT[o] - gc[o] * col[o];
-    }
-  }
-
-  const int n = counts[tile];
-  const int* ids = gidx + (size_t)tile * K;
-  for (int base = 0; base < n; base += BWD_CHUNK) {
-    const bool any = act[0] || act[1] || act[2] || act[3];
-    if (!__syncthreads_or(any)) break;
-    const int cnt = min(BWD_CHUNK, n - base);
-    stage_fields<6, 8, BWD_CHUNK>(s_f, fields, ids, base, n);
-    if (BASIS && threadIdx.x < cnt) s_id[threadIdx.x] = ids[base + threadIdx.x];
-    __syncthreads();
-    for (int jj = 0; jj < cnt; ++jj) {
-      const float mx = s_f[0][jj], my = s_f[1][jj], ca = s_f[2][jj];
-      const float cb = s_f[3][jj], cc = s_f[4][jj], op = s_f[5][jj];
-      const float dx = mx - px;
-      float m[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-      bool hit = false;
-#pragma unroll
-      for (int k = 0; k < PPT; ++k) {
-        if (!act[k]) continue;
-        const float dy = my - py[k];
-        const float power = power_of(ca, cb, cc, dx, dy);
-        const float G = expf(power);
-        const float alpha = fminf(ALPHA_MAX, op * G);
-        if (power <= 0.0f && alpha >= ALPHA_EPS) {
-          const float aT = alpha * T[k];
-          const float rem = T[k] - aT;
-          if (rem >= T_EPS) {
-            const float Ti = T[k];
-            T[k] = rem;
-            pr[k] = pr[k] + gcv[k] * aT;  // gc times the inclusive prefix
-            const float inv1a = 1.0f / (1.0f - alpha);
-            const float gal = gcv[k] * Ti + inv1a * (binv[k] + pr[k]);
-            const float Dp = gal * G;
-            const float wx = BASIS ? lx : dx;
-            const float wy = BASIS ? ly[k] : dy;
-            const float e1 = Dp * wx;
-            const float e2 = Dp * wy;
-            m[0] += Dp;
-            m[1] += e1;
-            m[2] += e2;
-            m[3] += e1 * wx;
-            m[4] += e1 * wy;
-            m[5] += e2 * wy;
-            hit = true;
-          } else {
-            act[k] = false;
-          }
-        }
-      }
-      if (__any_sync(0xffffffffu, hit)) {
-#pragma unroll
-        for (int q = 0; q < 6; ++q) {
-#pragma unroll
-          for (int off = 16; off > 0; off >>= 1) m[q] += __shfl_xor_sync(0xffffffffu, m[q], off);
-        }
-      }
-      if (lane == 0) {
-#pragma unroll
-        for (int q = 0; q < 6; ++q) s_red[warp][jj][q] = m[q];
-      }
-    }
-    __syncthreads();
-    if constexpr (BASIS) {
-      if (threadIdx.x < cnt) {
-        const int jj = threadIdx.x;
-        float S[6];
-#pragma unroll
-        for (int q = 0; q < 6; ++q) {
-          S[q] = 0.0f;
-#pragma unroll
-          for (int w = 0; w < NWARPS; ++w) S[q] += s_red[w][jj][q];
-        }
-        const float cx = s_f[0][jj] - (float)(tx * TILE);
-        const float cy = s_f[1][jj] - (float)(ty * TILE);
-        const float M[6] = {
-            S[0],
-            cx * S[0] - S[1],
-            cy * S[0] - S[2],
-            cx * (cx * S[0] - 2.0f * S[1]) + S[3],
-            cx * cy * S[0] - cx * S[2] - cy * S[1] + S[4],
-            cy * (cy * S[0] - 2.0f * S[2]) + S[5],
-        };
-#pragma unroll
-        for (int q = 0; q < 6; ++q) {
-          if (M[q] != 0.0f) atomicAdd(out + 8 * (size_t)s_id[jj] + q, M[q]);
-        }
-      }
-    } else if (threadIdx.x < cnt * 6) {
-      const int jj = threadIdx.x / 6;
-      const int q = threadIdx.x % 6;
-      float s = 0.0f;
-#pragma unroll
-      for (int w = 0; w < NWARPS; ++w) s += s_red[w][jj][q];
-      out[((size_t)tile * K + base + jj) * 8 + q] = s;
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
-// K1 and K2: the training blend, culled per warp
-// ---------------------------------------------------------------------------
-//
-// What bounded the first design (K5's and K6b's layout above) on an H100:
-// one 256-thread block per 32x32 tile put the longest lists (up to ~760
-// instances at the bench shape, three times the mean) on single SMs with
-// too few warps to hide the latency of expf and of each pixel's serial
-// chain, while 96% of the (instance, pixel) pairs it visited failed the
-// alpha gate yet paid the power and expf.  The pairs' arithmetic stays as
+// What bounded the first design on an H100 (one 256-thread block per 32x32
+// tile, every staged instance evaluated at every live pixel; PERF.md): one
+// block per tile put the longest lists (up to ~760 instances at the bench
+// shape, three times the mean) on single SMs with too few warps to hide
+// the latency of expf and of each pixel's serial chain, while 96% of the
+// (instance, pixel) pairs it visited failed the alpha gate yet paid the
+// power and expf.  The pairs' arithmetic stays as
 // it was (power_of, expf, fminf(ALPHA_MAX, .), the two gates, the T test,
 // K2's prefix identity and moments, -fmad=false); the design removes work
 // that cannot contribute and spreads the rest:
@@ -310,12 +126,12 @@ blend_moment_bwd_kernel(const float* __restrict__ fields, const int* __restrict_
 // - Four blocks share a tile's list, one per 16x16 quarter, each culling
 //   against its own warps' rectangles: 1,024 blocks at 512^2, so a heavy
 //   list is walked by four SMs with more warps each.  K1 needs no step
-//   across blocks.  K2 reduces a visited instance's six moments across the
-//   warp only when some lane contributed (9 shuffles: the sums transpose
-//   across the lanes), adds them into the block's shared row of the
-//   instance, and one thread per instance that some warp hit lands one
-//   atomicAdd per nonzero moment: atomics grow with the quarters an
-//   instance reaches, not four times.
+//   across blocks.  The moment backward reduces a visited instance's six
+//   moments across the warp only when some lane contributed (9 shuffles:
+//   the sums transpose across the lanes), adds them into the block's
+//   shared row of the instance, and one thread per instance that some warp
+//   hit lands one atomicAdd per nonzero moment: atomics grow with the
+//   quarters an instance reaches, not four times.
 //
 // What bounds them now: they evaluate 14% of the live pairs and run 4-6
 // times faster than the first design, yet stay ~40 times above the bytes
@@ -522,12 +338,30 @@ blend_train_fwd_kernel(const float* __restrict__ fields, const int* __restrict__
   }
 }
 
+// The moment backward of the training channel set: K2, K5 and K6b.  One
+// front-to-back pass carries T and the prefix pr += gc w, which gives
+// g_alpha = gc Ti + (base_inv + pr) / (1 - alpha), base_inv = -gtt finT - gc col,
+// and D' = g_alpha G.  Each instance's six moments (D', D'wx, D'wy, D'wx^2,
+// D'wx wy, D'wy^2) are summed over the pixels a quarter block covers and
+// added into a row of out:
+// - K2 (<SLOT = false>): wx, wy = dx, dy; the Gaussian's row of
+//   out = acc[P1, 8];
+// - K5 (<SLOT = true>): the same moments into the slot's row
+//   tile * K + base + i of out = mom[T, K, 8];
+// - K6b (<SLOT, BASIS = true>): wx, wy = the pixel's tile-local
+//   coordinates x' = x - 32 tx, y' = y - 32 ty (small integers, exact in
+//   float32, weights below 31^2 = 961), so the slot's row of out =
+//   sums[T, K, 8] gets the raw sums S0, Sx, Sy, Sxx, Sxy, Syy, which
+//   basis_recombine_kernel turns into K2's moments.
+// The caller zeroes out.
+template <bool SLOT, bool BASIS>
 __global__ void __launch_bounds__(CULL_NT)
 blend_train_bwd_kernel(const float* __restrict__ fields, const int* __restrict__ gidx,
                        const int* __restrict__ counts, const float* __restrict__ col,
                        const float* __restrict__ finT, const float* __restrict__ gc,
-                       const float* __restrict__ gtt, float* __restrict__ acc, int H, int W,
+                       const float* __restrict__ gtt, float* __restrict__ out, int H, int W,
                        int ntx, int K) {
+  static_assert(SLOT || !BASIS, "K6b's raw sums go per slot");
   __shared__ Staged s;
   __shared__ int s_id[CULL_CHUNK];
   __shared__ bool s_hit[CULL_CHUNK];
@@ -535,6 +369,7 @@ blend_train_bwd_kernel(const float* __restrict__ fields, const int* __restrict__
   const Pixels p = pixels_of(ntx);
   const int lane = threadIdx.x & 31;
   const float px = (float)p.gx, py = (float)p.gy;
+  const float lx = (float)(p.gx % TILE), ly = (float)(p.gy % TILE);  // BASIS: x', y'
   float T = 1.0f, pr = 0.0f, gcv = 0.0f, binv = 0.0f;
   bool act = (p.gx < W) && (p.gy < H);
   if (act) {
@@ -550,7 +385,7 @@ blend_train_bwd_kernel(const float* __restrict__ fields, const int* __restrict__
     const int cnt = min(CULL_CHUNK, n - base);
     const int id = stage(s, fields, ids, base, n);
     if (threadIdx.x < cnt) {
-      s_id[threadIdx.x] = id;
+      if (!SLOT) s_id[threadIdx.x] = id;
       s_hit[threadIdx.x] = false;
 #pragma unroll
       for (int q = 0; q < 6; ++q) s_mom[threadIdx.x][q] = 0.0f;
@@ -559,6 +394,8 @@ blend_train_bwd_kernel(const float* __restrict__ fields, const int* __restrict__
     walk(s, cnt, p, act, [&](int i) {
       const float dx = s.mx[i] - px;
       const float dy = s.my[i] - py;
+      const float wx = BASIS ? lx : dx;
+      const float wy = BASIS ? ly : dy;
       float m[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
       bool hit = false;
       if (act) {
@@ -575,14 +412,14 @@ blend_train_bwd_kernel(const float* __restrict__ fields, const int* __restrict__
             const float inv1a = 1.0f / (1.0f - alpha);
             const float gal = gcv * Ti + inv1a * (binv + pr);
             const float Dp = gal * G;
-            const float e1 = Dp * dx;
-            const float e2 = Dp * dy;
+            const float e1 = Dp * wx;
+            const float e2 = Dp * wy;
             m[0] = Dp;
             m[1] = e1;
             m[2] = e2;
-            m[3] = e1 * dx;
-            m[4] = e1 * dy;
-            m[5] = e2 * dy;
+            m[3] = e1 * wx;
+            m[4] = e1 * wy;
+            m[5] = e2 * wy;
             hit = true;
           } else {
             act = false;
@@ -597,13 +434,58 @@ blend_train_bwd_kernel(const float* __restrict__ fields, const int* __restrict__
     });
     __syncthreads();
     if (threadIdx.x < cnt && s_hit[threadIdx.x]) {
-      float* row = acc + 8 * (size_t)s_id[threadIdx.x];
+      float* row = SLOT ? out + 8 * ((size_t)p.tile * K + base + threadIdx.x)
+                        : out + 8 * (size_t)s_id[threadIdx.x];
 #pragma unroll
       for (int q = 0; q < 6; ++q) {
         const float v = s_mom[threadIdx.x][q];
         if (v != 0.0f) atomicAdd(row + q, v);
       }
     }
+  }
+}
+
+// K6b's second pass, one thread per listed slot (tile, j < counts[tile]):
+// the slot's raw sums recombined around the instance's local centre
+// (cx, cy) = mean - tile origin, since dx = cx - x' and dy = cy - y':
+//   M0 = S0, M1 = cx S0 - Sx, M2 = cy S0 - Sy,
+//   M3 = cx (cx S0 - 2 Sx) + Sxx, M4 = cx cy S0 - cx Sy - cy Sx + Sxy,
+//   M5 = cy (cy S0 - 2 Sy) + Syy,
+// each nonzero M added into the Gaussian's row of acc[P1, 8].  The
+// recombination cancels terms up to ~31^2 times its result in float32, so
+// it runs once per (instance, tile) on the whole tile's sums, as the plain
+// version does, and not per quarter block; in global coordinates the
+// weights would reach 511^2 and it would cancel the gradient away.  The
+// TPU kernel's lane basis and sublane combiner matrices (two MXU dots) are
+// layout: a thread here knows its pixel's (x', y').
+constexpr int RECOMB_NT = 256;
+
+__global__ void __launch_bounds__(RECOMB_NT)
+basis_recombine_kernel(const float* __restrict__ fields, const int* __restrict__ gidx,
+                       const int* __restrict__ counts, const float* __restrict__ sums,
+                       float* __restrict__ acc, int ntx, int K, int nslot) {
+  const int r = blockIdx.x * RECOMB_NT + threadIdx.x;  // the slot's row, tile * K + j
+  if (r >= nslot) return;
+  const int tile = r / K;
+  if (r - tile * K >= counts[tile]) return;
+  const float4* row = reinterpret_cast<const float4*>(sums) + 2 * (size_t)r;
+  const float4 a = row[0];
+  const float4 b = row[1];
+  const float S[6] = {a.x, a.y, a.z, a.w, b.x, b.y};
+  const int id = gidx[r];
+  const float cx = fields[8 * (size_t)id] - (float)((tile % ntx) * TILE);
+  const float cy = fields[8 * (size_t)id + 1] - (float)((tile / ntx) * TILE);
+  const float M[6] = {
+      S[0],
+      cx * S[0] - S[1],
+      cy * S[0] - S[2],
+      cx * (cx * S[0] - 2.0f * S[1]) + S[3],
+      cx * cy * S[0] - cx * S[2] - cy * S[1] + S[4],
+      cy * (cy * S[0] - 2.0f * S[2]) + S[5],
+  };
+#pragma unroll
+  for (int q = 0; q < 6; ++q) {
+    if (M[q] != 0.0f) atomicAdd(acc + 8 * (size_t)id + q, M[q]);
   }
 }
 
@@ -879,12 +761,13 @@ inline int channel_set(int geo, int invd, int ones) {
   return (geo ? 4 : 0) + (invd ? 2 : 0) + (ones ? 1 : 0);
 }
 
-// BASIS: K6b, into the accumulator; else K5, per slot
-template <bool BASIS>
+// K2 (into acc per Gaussian), K5 (per slot) or K6b's first pass (raw sums
+// per slot)
+template <bool SLOT, bool BASIS>
 int launch_moment(const void* fields, const void* gidx, const void* counts, const void* col,
                   const void* finT, const void* gc, const void* gtt, void* out, int H, int W,
                   int nty, int ntx, int K, void* stream) {
-  blend_moment_bwd_kernel<BASIS><<<nty * ntx, NTHREADS, 0, (cudaStream_t)stream>>>(
+  blend_train_bwd_kernel<SLOT, BASIS><<<4 * nty * ntx, CULL_NT, 0, (cudaStream_t)stream>>>(
       (const float*)fields, (const int*)gidx, (const int*)counts, (const float*)col,
       (const float*)finT, (const float*)gc, (const float*)gtt, (float*)out, H, W, ntx, K);
   return (int)cudaGetLastError();
@@ -910,19 +793,25 @@ int blend_train_fwd(const void* fields, const void* gidx, const void* counts, co
 int blend_train_bwd(const void* fields, const void* gidx, const void* counts, const void* col,
                     const void* finT, const void* gc, const void* gtt, void* acc, int H, int W,
                     int nty, int ntx, int K, void* stream) {
-  blend_train_bwd_kernel<<<4 * nty * ntx, CULL_NT, 0, (cudaStream_t)stream>>>(
-      (const float*)fields, (const int*)gidx, (const int*)counts, (const float*)col,
-      (const float*)finT, (const float*)gc, (const float*)gtt, (float*)acc, H, W, ntx, K);
-  return (int)cudaGetLastError();
+  return launch_moment<false, false>(fields, gidx, counts, col, finT, gc, gtt, acc, H, W, nty,
+                                     ntx, K, stream);
 }
 
-// K6b: K2's moments through the tile-local basis, added into acc[P1, 8],
-// which the caller zeroes
+// K6b: K2's moments through the tile-local basis, added into acc[P1, 8];
+// the caller zeroes acc and sums[T, K, 8], the raw sums per slot
 int blend_train_bwd_basis(const void* fields, const void* gidx, const void* counts,
                           const void* col, const void* finT, const void* gc, const void* gtt,
-                          void* acc, int H, int W, int nty, int ntx, int K, void* stream) {
-  return launch_moment<true>(fields, gidx, counts, col, finT, gc, gtt, acc, H, W, nty, ntx, K,
-                             stream);
+                          void* sums, void* acc, int H, int W, int nty, int ntx, int K,
+                          void* stream) {
+  const int code = launch_moment<true, true>(fields, gidx, counts, col, finT, gc, gtt, sums, H,
+                                             W, nty, ntx, K, stream);
+  const int nslot = nty * ntx * K;
+  if (code != 0 || nslot == 0) return code;
+  basis_recombine_kernel<<<(nslot + RECOMB_NT - 1) / RECOMB_NT, RECOMB_NT, 0,
+                           (cudaStream_t)stream>>>((const float*)fields, (const int*)gidx,
+                                                   (const int*)counts, (const float*)sums,
+                                                   (float*)acc, ntx, K, nslot);
+  return (int)cudaGetLastError();
 }
 
 // K3: a channel the set lacks reads zero
@@ -952,8 +841,8 @@ int tile_blend_bwd(const void* fields, const void* gidx, const void* counts, con
 int blend_moment_bwd(const void* fields, const void* gidx, const void* counts, const void* col,
                      const void* finT, const void* gc, const void* gtt, void* mom, int H, int W,
                      int nty, int ntx, int K, void* stream) {
-  return launch_moment<false>(fields, gidx, counts, col, finT, gc, gtt, mom, H, W, nty, ntx, K,
-                              stream);
+  return launch_moment<true, false>(fields, gidx, counts, col, finT, gc, gtt, mom, H, W, nty,
+                                    ntx, K, stream);
 }
 
 }  // extern "C"

@@ -21,8 +21,10 @@ and reduces the six moments of D' = g_alpha G (D', D'dx, D'dy, D'dx^2,
 D'dx dy, D'dy^2) over each tile's pixels into a [P1, 8] accumulator;
 ``moments_to_dfields`` maps them linearly to d(mx, my, ca, cb, cc, opa).
 K6b reaches the same six moments from six raw sums of D' in tile-local
-pixel coordinates (weights at most 31^2) and a binomial recombination per
-instance; it exists as the JAX package's A/B formulation of the backward.
+pixel coordinates (weights at most 31^2), added per slot into a zeroed
+[T, K, 8] scratch, and a second kernel's binomial recombination per
+(instance, tile); it exists as the JAX package's A/B formulation of the
+backward.
 The derivative of alpha ignores the 0.99 clamp (d alpha / d opa = G), as
 the JAX kernels and the original CUDA rasterizer do, so the backward is the
 hand-derived moment formula and never autograd through the clamp.
@@ -30,11 +32,12 @@ hand-derived moment formula and never autograd through the clamp.
 What bounds the kernels on an H100: per-pixel serial chains of about twenty
 float operations and one ``expf`` per (instance, pixel), so instruction
 throughput, not memory (a tile's fields are a few KB), and the longest tile
-lists.  See ``csrc/tile_blend.cu`` for what the design does about it: K1 and
-K2 split each tile over four blocks, and each warp skips the instances whose
-``support_box`` misses its pixel rectangle, which keeps every result exact.
-K2 and K6b reduce with ``atomicAdd``, so the order of the float32 sums, and
-the last bits of the gradients, vary from run to run.
+lists.  See ``csrc/tile_blend.cu`` for what the design does about it: K1,
+K2 and K6b split each tile over four blocks, and each warp skips the
+instances whose ``support_box`` misses its pixel rectangle, which keeps
+every result exact.  K2 and K6b (both of its passes) reduce with
+``atomicAdd``, so the order of the float32 sums, and the last bits of the
+gradients, vary from run to run.
 
 Every wrapper takes the plain PyTorch version for CPU tensors only; for a
 CUDA tensor it launches the kernel or raises.  The TPU layout of the JAX
@@ -302,7 +305,7 @@ def _lib():
     lib = _build.load("tile_blend")
     if not getattr(lib, "_typed", False):
         for name, nptr, nint in (("blend_train_fwd", 6, 5), ("blend_train_bwd", 8, 5),
-                                 ("blend_train_bwd_basis", 8, 5),
+                                 ("blend_train_bwd_basis", 9, 5),
                                  ("tile_blend_fwd", 8, 8), ("tile_blend_bwd", 12, 8),
                                  ("blend_moment_bwd", 8, 5)):
             fn = getattr(lib, name)
@@ -358,19 +361,22 @@ def blend_train_fwd(fields, gidx, counts, bg, H: int, W: int):
     return col, finT
 
 
-def _moment_launch(name, fields, gidx, counts, col, finT, gc, gtt):
-    """Launch the accumulating moment kernel `name` (K2 or K6b): [P1, 8]."""
+def _moment_launch(name, fields, gidx, counts, col, finT, gc, gtt, sums: bool = False):
+    """Launch the accumulating moment kernel `name` (K2, or K6b with
+    ``sums``, its zeroed [T, K, 8] scratch of raw sums per slot): [P1, 8]."""
     H, W = col.shape
     _check_tables(fields, gidx, counts, H, W)
     for arg, t in (("col", col), ("finT", finT), ("gc", gc), ("gtt", gtt)):
         _check_image(arg, t, H, W, fields.device)
-    acc = torch.zeros_like(fields)  # the kernel adds into it
+    args = [fields, gidx, counts, col, finT, gc, gtt]
+    if sums:
+        args.append(torch.zeros(gidx.shape + (NF,), dtype=torch.float32, device=fields.device))
+    acc = torch.zeros_like(fields)  # the kernels add into it
+    args.append(acc)
     lib = _lib()
     nty, ntx = tile_grid(H, W)
     code = getattr(lib, name)(
-        fields.data_ptr(), gidx.data_ptr(), counts.data_ptr(), col.data_ptr(),
-        finT.data_ptr(), gc.data_ptr(), gtt.data_ptr(), acc.data_ptr(),
-        H, W, nty, ntx, gidx.shape[1],
+        *(t.data_ptr() for t in args), H, W, nty, ntx, gidx.shape[1],
         torch.cuda.current_stream(fields.device).cuda_stream,
     )
     _build.check(lib, code, name)
@@ -393,7 +399,8 @@ def blend_train_bwd_basis(fields, gidx, counts, col, finT, gc, gtt):
     training backward); same arguments as ``blend_train_bwd``."""
     if not fields.is_cuda:
         return blend_train_bwd_basis_plain(fields, gidx, counts, col, finT, gc, gtt)
-    acc = _moment_launch("blend_train_bwd_basis", fields, gidx, counts, col, finT, gc, gtt)
+    acc = _moment_launch("blend_train_bwd_basis", fields, gidx, counts, col, finT, gc, gtt,
+                         sums=True)
     blend_train_bwd_basis.launches += 1
     return acc
 

@@ -21,17 +21,16 @@ and the gradients of all fields of each instance slot, reduced over the
 tile's pixels, land in a [T, K, NF] table.
 
 K5 ``blend_moment_bwd`` replaces ``_make_bwd_moment_kernel(indirect=True)``:
-K2's pass (the same kernel template), its moments written per slot,
-[T, K, 8], which ``moments_to_dfields`` maps to field
-gradients after the slot -> Gaussian reduction.
+K2's pass (the same kernel template), its moments added per slot into
+[T, K, 8], which ``moments_to_dfields`` maps to field gradients after the
+slot -> Gaussian reduction.
 
 The reduction of K4's and K5's tables to Gaussians is ``index_add_``
-outside the kernels, as the JAX package does it in XLA.  K5 writes each
-per-slot row once, with no atomics; K4 splits a tile over four blocks that
-add into its slots' rows with ``atomicAdd``, so the last float32 bits of
-its rows vary from run to run.  The derivative of alpha ignores the 0.99
-clamp (d alpha / d opa = G), so every backward here is the hand-derived
-formula, never autograd through the clamp.
+outside the kernels, as the JAX package does it in XLA.  K4 and K5 split a
+tile over four blocks that add into its slots' rows with ``atomicAdd``, so
+the last float32 bits of their rows vary from run to run.  The derivative
+of alpha ignores the 0.99 clamp (d alpha / d opa = G), so every backward
+here is the hand-derived formula, never autograd through the clamp.
 
 Every wrapper takes the plain PyTorch version for CPU tensors only; for a
 CUDA tensor it launches the kernel or raises.  See ``csrc/tile_blend.cu`` for

@@ -21,7 +21,9 @@ no pixel outside an instance's box can pass the gate.
 - The full-channel kernels K3 and K4 take the same cull for every channel
   set (the box reads only the six geometry fields): the culled plain
   forward and per-slot rows of each of the eight sets equal the unculled
-  ones bitwise on the small scene.
+  ones bitwise on the small scene.  K5 and K6b take it too: K5's rows are
+  the moment rows above, and K6b's rows (raw tile-local sums, then their
+  recombination per slot) equal the unculled ones bitwise on both scenes.
 """
 import functools
 
@@ -191,6 +193,23 @@ def test_culled_pass_equals_plain_bitwise(monkeypatch, scene):
     # the cull skips most live pairs, so the equality says something
     assert culled.outside > 0.5 * culled.live, (culled.outside, culled.live)
     assert float(want[1].min()) < 0.5 and float(want[2].abs().max()) > 0
+
+
+@pytest.mark.parametrize("scene", list(SCENES))
+def test_culled_basis_rows_equal_plain_bitwise(monkeypatch, scene):
+    """K6b's cull: ``moment_rows_basis_plain`` with the pairs outside the
+    box skipped equals the unculled rows, which are not all zero."""
+    fields, _, gidx, counts, H, W, gc, gtt = SCENES[scene]()
+    gc, gtt = gc.to(fields.dtype), gtt.to(fields.dtype)
+    bg = torch.zeros(1, dtype=fields.dtype)
+    col, finT = prc.blend_train_fwd_plain(fields, gidx, counts, bg, H, W)
+    want = prc.moment_rows_basis_plain(fields, gidx, counts, col, finT, gc, gtt)
+    culled = _culled_step(prc._composite_step)
+    monkeypatch.setattr(prc, "_composite_step", culled)
+    got = prc.moment_rows_basis_plain(fields, gidx, counts, col, finT, gc, gtt)
+    assert torch.equal(got, want)
+    assert culled.outside > 0.5 * culled.live, (culled.outside, culled.live)
+    assert float(want.abs().max()) > 0
 
 
 def _jax_reference(fields, depth, gidx, counts, H, W, gc, gtt):

@@ -3,7 +3,7 @@
 card unless the caller asks for the CPU, and the kernel wrappers launch
 nothing for CPU tensors.  The last three tests need a CUDA card: they hold
 every kernel against its plain version there, K7/K8 at shapes ragged
-against their tiles, and the cull of K1-K4 over the conics that stress its
+against their tiles, and the cull of K1-K6b over the conics that stress its
 box (``pytest --noconftest -m cuda tests/test_torch_port_isolation.py``)."""
 import ast
 import os
@@ -234,9 +234,15 @@ def test_kernels_match_plain_on_card():
         dpay_p = ptb.tile_blend_bwd_plain(f, gidx, counts, outs, cots, geo, invd, ones)
         torch.testing.assert_close(dpay, dpay_p, atol=1e-4 * float(dpay_p.abs().max()), rtol=0)
         assert (ptb.tile_blend_fwd.launches, ptb.tile_blend_bwd.launches) == (n3 + 1, n4 + 1)
+    # K5: up to four quarter blocks add into a slot's row, so two runs
+    # differ only in the order of the float32 sums
+    n5 = ptb.blend_moment_bwd.launches
     mom = ptb.blend_moment_bwd(fields, gidx, counts, col, finT, gc, gtt)
+    mom_again = ptb.blend_moment_bwd(fields, gidx, counts, col, finT, gc, gtt)
+    assert ptb.blend_moment_bwd.launches == n5 + 2
     mom_p = ptb.blend_moment_bwd_plain(fields, gidx, counts, col, finT, gc, gtt)
     torch.testing.assert_close(mom, mom_p, atol=1e-4 * float(mom_p.abs().max()), rtol=0)
+    torch.testing.assert_close(mom_again, mom, atol=1e-6 * float(mom.abs().max()), rtol=0)
     # K6b: against its plain version, and (the same function) against K2
     n6 = prc.blend_train_bwd_basis.launches
     acc6 = prc.blend_train_bwd_basis(fields, gidx, counts, col, finT, gc, gtt)
@@ -247,16 +253,27 @@ def test_kernels_match_plain_on_card():
     torch.testing.assert_close(d6, d2, atol=1e-3 * float(d2.abs().max()), rtol=0)
 
 
+def _moments_within_mass(got, plain):
+    """Each of the six moments of got [..., 8] within 1e-5 of its term mass
+    in plain: M0, M3 and M5 sum positive terms here, and the terms of M1,
+    M2 and M4 have at most the masses sqrt(M0 M3), sqrt(M0 M5) and
+    sqrt(M3 M5) (Cauchy-Schwarz).  Returns the rows that are not."""
+    m0, m3, m5 = plain[..., 0], plain[..., 3], plain[..., 5]
+    mass = torch.stack([m0, (m0 * m3).sqrt(), (m0 * m5).sqrt(), m3, (m3 * m5).sqrt(), m5], -1)
+    return int(((got - plain)[..., :6].abs() > 1e-5 * mass).any(dim=-1).sum())
+
+
 def _cull_family_exact(family, device):
-    """K1-K4 over one family of ``test_torch_port_cull_cases``, one
+    """K1-K6b over one family of ``test_torch_port_cull_cases``, one
     instance per 2x2-tile block: K1 equal to its plain version and to K3 at
     (F, F, T) bitwise; K3 at (T, T, T) and (T, T, F) equal to its plain
     version and K4 there within 1e-4 of max of its plain version (the
-    family's rows widened by ``_channel_fields``); K2's moments within 1e-5
-    of each term mass from its plain version.  With bg 0, gtt 0 and one instance per tile, D' = gc G
-    with gc in [1, 2) at every contributing pixel, so M0, M3 and M5 sum
-    positive terms and the terms of M1, M2 and M4 have at most the masses
-    sqrt(M0 M3), sqrt(M0 M5) and sqrt(M3 M5) (Cauchy-Schwarz)."""
+    family's rows widened by ``_channel_fields``); K2's moments and K5's
+    per-slot rows within 1e-5 of each term mass from their plain versions
+    (``_moments_within_mass``: with bg 0, gtt 0 and one instance per tile,
+    D' = gc G with gc in [1, 2) at every contributing pixel); K6b's field
+    gradients within 1e-4 of max of its plain version's and 1e-3 of K2's
+    (its recombination cancels terms up to ~31^2 times its result)."""
     H, W, fields, gidx, counts = packed_family(family, device)
     bg = torch.zeros(1, device=device)
     col, finT = prc.blend_train_fwd(fields, gidx, counts, bg, H, W)
@@ -279,25 +296,34 @@ def _cull_family_exact(family, device):
     gtt = torch.zeros_like(gc)
     acc = prc.blend_train_bwd(fields, gidx, counts, col, finT, gc, gtt)
     acc_p = prc.blend_train_bwd_plain(fields, gidx, counts, col, finT, gc, gtt)
-    m0, m3, m5 = acc_p[:, 0], acc_p[:, 3], acc_p[:, 5]
-    mass = torch.stack([m0, (m0 * m3).sqrt(), (m0 * m5).sqrt(), m3, (m3 * m5).sqrt(), m5], 1)
-    bad = ((acc - acc_p)[:, :6].abs() > 1e-5 * mass).any(dim=1)
-    assert not bool(bad.any()), (family, int(bad.sum()))
-    return int((m0 > 0).sum())  # the instances that contribute
+    assert _moments_within_mass(acc, acc_p) == 0, family
+    mom = ptb.blend_moment_bwd(fields, gidx, counts, col, finT, gc, gtt)
+    mom_p = ptb.blend_moment_bwd_plain(fields, gidx, counts, col, finT, gc, gtt)
+    assert _moments_within_mass(mom, mom_p) == 0, family
+    acc6 = prc.blend_train_bwd_basis(fields, gidx, counts, col, finT, gc, gtt)
+    acc6_p = prc.blend_train_bwd_basis_plain(fields, gidx, counts, col, finT, gc, gtt)
+    d6, d6_p, d2 = (prc.moments_to_dfields(a, fields) for a in (acc6, acc6_p, acc))
+    torch.testing.assert_close(d6, d6_p, atol=1e-4 * float(d6_p.abs().max()), rtol=0,
+                               msg=f"{family} K6b")
+    torch.testing.assert_close(d6, d2, atol=1e-3 * float(d2.abs().max()), rtol=0,
+                               msg=f"{family} K6b against K2")
+    return int((acc_p[:, 0] > 0).sum())  # the instances that contribute
 
 
 @pytest.mark.cuda
 def test_cull_exact_on_adversarial_conics():
     """The kernels' own box (device ``logf``/``sqrtf``) never skips a pair
-    that passes the gate, in K1-K4, over the families whose float32 mirror
+    that passes the gate, in K1-K6b, over the families whose float32 mirror
     ``test_torch_port_cull.py`` checks on the CPU."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU form")
-    n1, n4 = prc.blend_train_fwd.launches, ptb.tile_blend_bwd.launches
+    wrappers = (prc.blend_train_fwd, ptb.tile_blend_bwd, ptb.blend_moment_bwd,
+                prc.blend_train_bwd_basis)
+    before = [w.launches for w in wrappers]
     for family in FAMILIES:
         assert _cull_family_exact(family, "cuda") > 0, family  # some instance contributes
-    assert prc.blend_train_fwd.launches == n1 + len(FAMILIES)
-    assert ptb.tile_blend_bwd.launches == n4 + 2 * len(FAMILIES)
+    n = len(FAMILIES)
+    assert [w.launches for w in wrappers] == [b + k * n for b, k in zip(before, (1, 2, 1, 1))]
 
 
 # ragged against K7/K8's 32x32 tiles, and some below the 11-tap window
