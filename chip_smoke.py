@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py            # build, check, train; needs one GPU
     python3 chip_smoke.py --profile  # also print torch.profiler tables of the bench step
-                                     # and of a step of the dataset scene
+                                     # (eager and graphed) and of a step of the dataset scene
 
 1. Prints the card (``nvidia-smi`` name and power limit) and the torch,
    CUDA and nvcc versions.
@@ -29,10 +29,28 @@
 5. Runs the main path at the bench configuration of the JAX package:
    3,375 grid seed curves in a capacity of 4,096 x 12 Gaussians, 4 ring
    views at 512x512, default configs: 5 warm-up steps, 20 timed steps, then
-   2 steps with the mask and connectivity terms on.  Every kernel's launch
-   counter must rise during that run, and the loss and gradients must stay
-   finite.
-6. The full-channel render, from the state after those 27 steps:
+   2 steps with the mask and connectivity terms on, all eager
+   (``train_step``).  Every kernel's launch counter must rise during that
+   run, and the loss and gradients must stay finite.  Then, from the state
+   after those steps, the step as the driver runs it, captured as a CUDA
+   graph and replayed (``train_steps_scan``):
+   a. one graphed step and two eager steps from the same state: the loss
+      and each group's gradient (from Adam's first moment) within 1e-5 of
+      each array's max; the post-Adam parameters, moments and statistics no
+      further from the first eager step than the second eager step is, with
+      a slack of 2x plus 1e-6 of max (not bitwise: K2's atomics move the
+      last float32 bits from run to run);
+   b. 25 graphed steps against 25 eager ones: every loss within 1e-4
+      relative;
+   c. 20 eager and 20 graphed steps in turns (eager, graphed, graphed,
+      eager) on the host clock: ms/step, steps/s, Mpix/s (steps/s x 512^2),
+      the capture's seconds and each turn's peak memory;
+   d. with ``--profile``, the graphed step's device busy share.
+6. The captured step's device work: its graph's nodes by type (read with
+   the driver's ``cuGraphGetNodes``), beside one eager step captured the
+   same way; no host node and no copy from host memory, and the wrappers
+   must have launched K1, K2, K7 and K8 once each during the capture.
+7. The full-channel render, from the state after the eager steps:
    a. K3, K4 and K5 against their plain versions at the shapes the paths
       below give them: (geo, invd, ones) = (T, T, T) (the eval render),
       (F, F, T) (the table and indirect flavors, K5 included) and, on a
@@ -53,7 +71,7 @@
       few timed ``train_step``s of each flavor.
    Each path's launch counters are set to 0 just before it and read just
    after; each kernel of the path must have launched.
-7. The basis flavor of the training backward (K6b: K2's culled pass into
+8. The basis flavor of the training backward (K6b: K2's culled pass into
    raw tile-local sums per slot, then one recombination per (instance,
    tile)), on the main path's K2 inputs: against its plain version and
    against K2 (the same function through another formulation), timed
@@ -61,19 +79,26 @@
    difference between two runs; ``step_grads`` under
    ``CGT_BLEND_FLAVOR=basis`` against the default flavor; then 5
    ``train_step``s that must launch K6b 5 times and K2 never.
-8. The training driver at full width: ``curve_gaussian_tpu_torch.train``'s
+9. The training driver at full width: ``curve_gaussian_tpu_torch.train``'s
    ``main`` on the synthetic scene (24 views of 512x512, the 15^3 seed
    grid in capacity 4,096, 12 Gaussians per curve, 600 iterations with the
    schedule compressed to fit: densify, the densify_until prune, prune and
    trim, split, merge), test renders at 300 and 600, a checkpoint at 550.
-   It prints iterations per second, every surgery event with its curve
-   count, capacity and host time, the tile and big capacity changes, peak
-   memory, the launches of every kernel (K1, K2, K7 and K8 once per step,
-   K3 once per rendered view) and eval.json's Chamfer, precision, recall
-   and F-score; checks that the artifacts exist, that the checkpoint loads
-   into a template leaf by leaf bitwise, and that a second run resumes
-   from it to 600 and writes its own ``parametric_edges.json``.
-9. A dataset scene at the reference's operating point:
+   Its chunks replay captured step graphs.  It prints iterations per
+   second, host seconds by phase (the captures' among them), every
+   surgery event with its curve count, capacity and host time, the tile
+   and big capacity changes, peak memory, each capture, and the launches
+   of every kernel counted through the replays (``check_step_launches``:
+   the wrappers count a captured launch once, so the device's launches
+   are their counts less the captures' plus each capture's times its
+   replays; each capture must hold K1, K2, K7 and K8 once, the replays
+   must be the iterations, so K1, K2, K7 and K8 run once per step and per
+   eager warm-up step; K3 once per rendered view), and eval.json's
+   Chamfer, precision, recall and F-score; checks that the artifacts
+   exist, that the checkpoint loads into a template leaf by leaf bitwise,
+   and that a second run resumes from it to 600 (the same launch checks
+   over its 50 steps) and writes its own ``parametric_edges.json``.
+10. A dataset scene at the reference's operating point:
    a. the port's scene maker at its defaults (50 views of 1600x1600, 24
       Beziers and 8 lines, tile capacity 1024): K1 once per view, no view
       overflowing;
@@ -87,14 +112,16 @@
       all at 800x800, and K1 (bitwise) on view 0 of the scene maker at
       1600x1600;
    d. ``train.main -s <scene> -r 2 --eval`` for 600 iterations with test
-      renders at 300 and 600: K1, K2, K7 and K8 once per step, K3 once per
-      test view, finite losses and ``eval.json``.
+      renders at 300 and 600, through the step graphs: K1, K2, K7 and K8
+      once per step and warm-up step (counted as in 9), K3 once per test
+      view, finite losses and ``eval.json``.
 
 Any failed check exits non-zero.  The last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 from __future__ import annotations
 
+import ctypes
 import json
 import os
 import re
@@ -112,6 +139,7 @@ from curve_gaussian_tpu_torch import _build
 from curve_gaussian_tpu_torch.config import OptimizationConfig, PipelineConfig
 from curve_gaussian_tpu_torch.data import png as PNG
 from curve_gaussian_tpu_torch.data import synthetic
+from curve_gaussian_tpu_torch.engine import optim
 from curve_gaussian_tpu_torch.engine import train as T
 from curve_gaussian_tpu_torch.models import curve_state as cs
 from curve_gaussian_tpu_torch.models import losses as L
@@ -444,6 +472,9 @@ def main() -> None:
     for k in kernels:
         k["launches"] = launches[k["name"]]
 
+    # -- the main path through the step graph ----------------------------------
+    graphed_step(ts, cams, gts, opt_cfg, pipe_cfg, M, profile)
+
     # -- the full-channel render ---------------------------------------------
     kernels += full_channel(ts, cams, gts, opt_cfg, pipe_cfg, M, dev)
 
@@ -452,7 +483,7 @@ def main() -> None:
                                 acc, pairs, ts, cams, gts, opt_cfg, pipe_cfg, M))
 
     if profile:
-        profile_step(step)
+        profile_step(lambda: [step(i) for i in range(2)], 2, "eager bench step")
 
     # -- the training driver at full width ---------------------------------------
     driver(dev)
@@ -470,13 +501,7 @@ def main() -> None:
 
 BLEND_SRC = "curve_gaussian_tpu_torch/csrc/tile_blend.cu"
 TRAIN_KERNELS = ("blend_train_fwd", "blend_train_bwd", "ssim_fwd", "ssim_bwd")
-WRAPPERS = {
-    "blend_train_fwd": RC.blend_train_fwd, "blend_train_bwd": RC.blend_train_bwd,
-    "ssim_fwd": SC.ssim_fwd, "ssim_bwd": SC.ssim_bwd,
-    "tile_blend_fwd": TB.tile_blend_fwd, "tile_blend_bwd": TB.tile_blend_bwd,
-    "blend_moment_bwd": TB.blend_moment_bwd,
-    "blend_train_bwd_basis": RC.blend_train_bwd_basis,
-}
+WRAPPERS = {f.__name__: f for f in T.KERNEL_WRAPPERS}
 
 
 def in_turns(label, kernel, other):
@@ -516,29 +541,37 @@ GRAPH_NODE_TYPES = {0: "kernel", 1: "memcpy", 2: "memset", 3: "host", 4: "graph"
                     13: "conditional"}
 
 
-def device_work(fn):
-    """({node type: count} of the device work one call of fn enqueues, the
-    launches the wrappers counted in that call).  The call is captured into
-    a CUDA graph, never replayed, whose nodes are read through the driver
-    API (``cuGraphGetNodes``): a count that does not depend on a profiler's
-    tracing."""
-    import ctypes
+class _Memcpy3D(ctypes.Structure):
+    """CUDA_MEMCPY3D (cuda.h): the parameters of a memcpy node."""
+    _fields_ = [(f"{side}{f}", t) for side in ("src", "dst") for f, t in (
+        ("XInBytes", ctypes.c_size_t), ("Y", ctypes.c_size_t), ("Z", ctypes.c_size_t),
+        ("LOD", ctypes.c_size_t), ("MemoryType", ctypes.c_int), ("Host", ctypes.c_void_p),
+        ("Device", ctypes.c_uint64), ("Array", ctypes.c_void_p), ("Reserved", ctypes.c_void_p),
+        ("Pitch", ctypes.c_size_t), ("Height", ctypes.c_size_t))] + [
+        ("WidthInBytes", ctypes.c_size_t), ("Height", ctypes.c_size_t),
+        ("Depth", ctypes.c_size_t)]
 
+
+CU_MEMORYTYPE_DEVICE, CU_MEMORYTYPE_UNIFIED = 2, 4
+CU_POINTER_ATTRIBUTE_MEMORY_TYPE = 2
+
+
+def graph_nodes(graph) -> dict:
+    """{node type: count} of a captured ``torch.cuda.CUDAGraph`` (made with
+    ``keep_graph=True``), read through the driver API (``cuGraphGetNodes``):
+    a count that does not depend on a profiler's tracing.  A memcpy node
+    counts as ``memcpy`` when it copies from device memory and as
+    ``memcpy_from_host`` otherwise (a graph would read that host memory
+    again at every replay)."""
     cu = ctypes.CDLL("libcuda.so.1")
-    for f in (cu.cuGraphGetNodes, cu.cuGraphNodeGetType):
+    for f in (cu.cuGraphGetNodes, cu.cuGraphNodeGetType, cu.cuGraphMemcpyNodeGetParams,
+              cu.cuPointerGetAttribute):
         f.restype = ctypes.c_int
-    fn()  # warm-up: every cached set-up of the wrapper happens outside the capture
-    torch.cuda.synchronize()
-    before = {n: w.launches for n, w in WRAPPERS.items()}
-    g = torch.cuda.CUDAGraph(keep_graph=True)
-    with torch.cuda.graph(g):
-        fn()
-    launches = {n: w.launches - before[n] for n, w in WRAPPERS.items() if w.launches != before[n]}
-    graph, n = ctypes.c_void_p(g.raw_cuda_graph()), ctypes.c_size_t(0)
-    if cu.cuGraphGetNodes(graph, None, ctypes.byref(n)) != 0:
+    raw, n = ctypes.c_void_p(graph.raw_cuda_graph()), ctypes.c_size_t(0)
+    if cu.cuGraphGetNodes(raw, None, ctypes.byref(n)) != 0:
         fail("cuGraphGetNodes failed on the captured graph")
     nodes = (ctypes.c_void_p * n.value)()
-    if n.value and cu.cuGraphGetNodes(graph, nodes, ctypes.byref(n)) != 0:
+    if n.value and cu.cuGraphGetNodes(raw, nodes, ctypes.byref(n)) != 0:
         fail("cuGraphGetNodes failed on the captured graph")
     out = {}
     for node in nodes:
@@ -546,7 +579,35 @@ def device_work(fn):
         if cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(t)) != 0:
             fail("cuGraphNodeGetType failed on the captured graph")
         name = GRAPH_NODE_TYPES.get(t.value, str(t.value))
+        if name == "memcpy":
+            p = _Memcpy3D()
+            if cu.cuGraphMemcpyNodeGetParams(ctypes.c_void_p(node), ctypes.byref(p)) != 0:
+                fail("cuGraphMemcpyNodeGetParams failed on the captured graph")
+            kind = p.srcMemoryType
+            if kind == CU_MEMORYTYPE_UNIFIED:  # the pointer says where it lies
+                v = ctypes.c_uint(0)
+                if cu.cuPointerGetAttribute(ctypes.byref(v), CU_POINTER_ATTRIBUTE_MEMORY_TYPE,
+                                            ctypes.c_uint64(p.srcDevice)) != 0:
+                    fail("cuPointerGetAttribute failed on a memcpy node's source")
+                kind = v.value
+            if kind != CU_MEMORYTYPE_DEVICE:
+                name = "memcpy_from_host"
         out[name] = out.get(name, 0) + 1
+    return out
+
+
+def device_work(fn):
+    """({node type: count} of the device work one call of fn enqueues, the
+    launches the wrappers counted in that call).  The call is captured into
+    a CUDA graph, never replayed, whose nodes ``graph_nodes`` reads."""
+    fn()  # warm-up: every cached set-up of the wrapper happens outside the capture
+    torch.cuda.synchronize()
+    before = {n: w.launches for n, w in WRAPPERS.items()}
+    g = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(g):
+        fn()
+    launches = {n: w.launches - before[n] for n, w in WRAPPERS.items() if w.launches != before[n]}
+    out = graph_nodes(g)
     g.reset()
     return out, launches
 
@@ -571,6 +632,164 @@ def ssim_checks(a, b) -> None:
     if nodes != {"kernel": 1} or launches != {"ssim_fwd": 1}:
         fail(f"one ssim_fwd call at {H}x{W} enqueued {nodes} with wrapper launches {launches}, "
              f"not one kernel launched by ssim_fwd")
+
+
+# graphed against eager steps: the loss and each group's gradient (from
+# Adam's first moment) within 1e-5 of each array's max over one step; the
+# post-Adam arrays no further from the eager step than a second eager step
+# is (K2's atomics move the last float32 bits from run to run), with a
+# slack of 2x plus 1e-6 of max; the losses of 25 steps within 1e-4 relative
+GRAPH_GRAD_TOL = 1e-5
+GRAPH_STATE_SLACK, GRAPH_STATE_TOL = 2.0, 1e-6
+GRAPH_CHUNK_TOL = 1e-4
+
+
+def graphed_step(ts, cams, gts, opt_cfg, pipe_cfg, M, profile=False):
+    """Phases 5 (the graphed step) and 6 of the module docstring, from the
+    state after the main path's eager steps."""
+    H, W = cams[0].height, cams[0].width
+    dev = gts[0].device
+    stacks = T.camera_stacks(cams, torch.float32, dev)
+    gt_stack = torch.stack(gts)
+    geom = (H, W, cams[0].tanfovx, cams[0].tanfovy)
+    kw = dict(use_mask=False, n_gaussians=M)
+    graphs = T.StepGraphs()
+
+    def graphed(rows):
+        return T.train_steps_scan(ts, stacks, gt_stack, 0.0, opt_cfg, pipe_cfg, cam_geom=geom,
+                                  rows=rows, graphs=graphs, **kw)
+
+    def eager(rows):
+        return T.train_steps(ts, [cams[r] for r in rows], [gts[r] for r in rows], 0.0,
+                             opt_cfg, pipe_cfg, **kw)
+
+    # -- the capture, one step ------------------------------------------------------
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    g1, mg = graphed([0])
+    torch.cuda.synchronize()
+    peak_capture = torch.cuda.max_memory_allocated()
+    (cap,) = graphs.captures
+    nodes = graph_nodes(graphs.latest_graph())
+    eager_nodes, _ = device_work(lambda: T.train_step(ts, cams[0], gts[0], 0.0, opt_cfg,
+                                                      pipe_cfg, **kw))
+    print(f"graphed step: capture {cap['seconds']:.3f} s (host clock: {T.WARMUP_STEPS} eager "
+          f"warm-up step {cap['warmup_seconds']:.3f}, the capture {cap['capture_seconds']:.3f}, "
+          f"instantiation {cap['instantiate_seconds']:.3f}), wrapper launches in the capture "
+          f"{cap['launches']}; the captured step's nodes {nodes}; one eager step captured the "
+          f"same way {eager_nodes}; peak memory over the capture {peak_capture / 2**30:.3f} "
+          f"GiB", flush=True)
+    if cap["launches"] != {n: 1 for n in TRAIN_KERNELS}:
+        fail(f"the captured step launched {cap['launches']}, not K1, K2, K7 and K8 once each")
+    if nodes.get("host", 0) or nodes.get("memcpy_from_host", 0) or not nodes.get("kernel"):
+        fail(f"the captured step holds host work or copies from host memory: {nodes}")
+
+    # -- one step from the same state (neither function modifies its input) -----------
+    e1, m1 = eager([0])
+    e2, _ = eager([0])
+    torch.cuda.synchronize()
+    loss_g, loss_e = float(mg["total"][0]), float(m1[0]["total"])
+    loss_err = abs(loss_g - loss_e) / abs(loss_e)
+    grad_err = {}
+    for k in ts.params:
+        if k in T.dead_groups(False):
+            continue
+
+        def grad(t):
+            return (t.opt.mu[k].double() - optim.B1 * ts.opt.mu[k].double()) / (1 - optim.B1)
+
+        grad_err[k] = rel_err(grad(g1), grad(e1))
+    print(f"graphed step against eager, one step: loss {loss_g:.8f} vs {loss_e:.8f} (error "
+          f"over value {loss_err:.3g}); gradient error over max per group "
+          f"{ {k: f'{v:.3g}' for k, v in grad_err.items()} } (tol {GRAPH_GRAD_TOL:g})",
+          flush=True)
+    if not (loss_err <= GRAPH_GRAD_TOL and max(grad_err.values()) <= GRAPH_GRAD_TOL):
+        fail("the graphed step's loss or gradients disagree with the eager step's")
+    worst = []
+    for k, e in T._state_leaves(e1).items():
+        g, o = T._state_leaves(g1)[k].double(), T._state_leaves(e2)[k].double()
+        e = e.double()
+        d_ge, d_ee = (g - e).abs().max().item(), (o - e).abs().max().item()
+        bound = GRAPH_STATE_SLACK * d_ee + GRAPH_STATE_TOL * e.abs().max().item()
+        worst.append((d_ge / bound if bound > 0 else (0.0 if d_ge == 0 else np.inf), k, d_ge,
+                      d_ee))
+    worst.sort(reverse=True)
+    print("graphed step against eager, post-Adam state (max |graphed - eager|, max |eager 2 - "
+          "eager|): " + ", ".join(f"{k} {a:.3g} {b:.3g}" for _, k, a, b in worst), flush=True)
+    if worst[0][0] > 1.0:
+        fail(f"the graphed step's {worst[0][1]} is further from the eager step than "
+             f"{GRAPH_STATE_SLACK:g} x a second eager step plus {GRAPH_STATE_TOL:g} of max")
+
+    # -- 25 steps ---------------------------------------------------------------------
+    rows = [i % len(cams) for i in range(25)]
+    _, mg25 = graphed(rows)
+    _, me25 = eager(rows)
+    lg = mg25["total"].cpu().numpy()
+    le = np.array([float(m["total"]) for m in me25])
+    chunk_err = float(np.max(np.abs(lg - le) / np.abs(le)))
+    print(f"graphed chunk against eager, 25 steps: losses first {lg[0]:.6f} vs {le[0]:.6f}, "
+          f"last {lg[-1]:.6f} vs {le[-1]:.6f}; largest error over value {chunk_err:.3g} "
+          f"(tol {GRAPH_CHUNK_TOL:g})", flush=True)
+    if not chunk_err <= GRAPH_CHUNK_TOL:
+        fail("the graphed chunk's losses disagree with the eager steps'")
+
+    # -- timing in turns -----------------------------------------------------------------
+    rows = [i % len(cams) for i in range(20)]
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        fn(rows)
+        torch.cuda.synchronize()
+        return (time.time() - t0) / len(rows), torch.cuda.max_memory_allocated()
+
+    turns = [("eager", timed(eager)), ("graphed", timed(graphed)), ("graphed", timed(graphed)),
+             ("eager", timed(eager))]
+    for name, (dt, peak) in turns:
+        print(f"turn {name}: {dt * 1e3:.3f} ms/step, {1 / dt:.3f} steps/s, "
+              f"{H * W / dt / 1e6:.3f} Mpix/s fwd+bwd (20 steps, host clock), peak memory "
+              f"{peak / 2**30:.3f} GiB", flush=True)
+    mean = {n: np.mean([dt for m, (dt, _) in turns if m == n]) for n in ("eager", "graphed")}
+    print(f"graphed step: {mean['graphed'] * 1e3:.3f} ms/step against eager "
+          f"{mean['eager'] * 1e3:.3f} ({mean['eager'] / mean['graphed']:.2f}x), captures "
+          f"{len(graphs.captures)} in {graphs.capture_seconds:.3f} s, memory reserved "
+          f"{torch.cuda.memory_reserved() / 2**30:.3f} GiB (the graph pool included)",
+          flush=True)
+    if profile:
+        profile_step(lambda: graphed([i % len(cams) for i in range(10)]), 10,
+                     "graphed bench step")
+    graphs.release()
+
+
+def check_step_launches(label: str, counts: dict, graphs, steps: int, eager: dict) -> None:
+    """The launch checks of a run through ``train_scene``'s step graphs: the
+    wrappers' counts are host counts (a captured launch counts once), so
+    the device's launches are the counts less those of the captures plus
+    each capture's times its replays.  Every capture must hold K1, K2, K7
+    and K8 once each and nothing else, the replays must be the run's steps,
+    and K1, K2, K7 and K8 must have run once per step and per warm-up step
+    on the device; `eager` gives the other kernels' launches."""
+    captured, replayed = graphs.captured_launches(), graphs.replayed_launches()
+    device = {n: v - captured.get(n, 0) + replayed.get(n, 0) for n, v in counts.items()}
+    replays = sum(c["replays"] for c in graphs.captures)
+    print(f"{label}: {len(graphs.captures)} step captures in {graphs.capture_seconds:.3f} s "
+          f"(host clock, {graphs.warmup_steps} warm-up steps), {replays} replays; launches "
+          f"on the device {device}", flush=True)
+    for c in graphs.captures:
+        print(f"{label} capture: capacity {c['capacity']} K {c['tile_capacity']} big "
+              f"{c['big_capacity']} mask {c['use_mask']} connectivity {c['conn_on']}: "
+              f"{c['seconds']:.3f} s (warm-up {c['warmup_seconds']:.3f}, capture "
+              f"{c['capture_seconds']:.3f}, instantiation {c['instantiate_seconds']:.3f}), "
+              f"{c['replays']} replays, launches {c['launches']}", flush=True)
+        if c["launches"] != {n: 1 for n in TRAIN_KERNELS}:
+            fail(f"a {label} capture launched {c['launches']}, not K1, K2, K7 and K8 once each")
+    if replays != steps:
+        fail(f"the {label} replayed its step graphs {replays} times, not {steps}")
+    want = {**{n: steps + graphs.warmup_steps for n in TRAIN_KERNELS}, **eager}
+    for n, v in want.items():
+        if device[n] != v:
+            fail(f"the {label} launched {n} {device[n]} times on the device, not {v}")
 
 
 def run_path(name: str, fn, must: tuple, must_not: tuple = ()):
@@ -690,7 +909,7 @@ def report(k, label=""):
 
 
 def full_channel(ts, cams, gts, opt_cfg, pipe_cfg, M, dev):
-    """Phase 6 of the module docstring; returns the K3, K4 and K5 entries
+    """Phase 7 of the module docstring; returns the K3, K4 and K5 entries
     (K3 and K4 at the eval render's channel set)."""
     H, W = cams[0].height, cams[0].width
     state = cs.curve_state_of(ts)
@@ -876,7 +1095,7 @@ def full_channel(ts, cams, gts, opt_cfg, pipe_cfg, M, dev):
 
 
 def basis_flavor(inputs, acc_k2, pairs, ts, cams, gts, opt_cfg, pipe_cfg, M):
-    """Phase 7 of the module docstring; returns K6b's kernel entry."""
+    """Phase 8 of the module docstring; returns K6b's kernel entry."""
     fields, gidx, counts, col, finT, gc, gtt = inputs
     H, W = col.shape
     acc = RC.blend_train_bwd_basis(*inputs)
@@ -959,7 +1178,7 @@ DRIVER_DIR = "output_torch/chip_smoke"
 
 
 def driver(dev):
-    """Phase 8 of the module docstring."""
+    """Phase 9 of the module docstring."""
     import shutil
 
     from curve_gaussian_tpu_torch import train as TR
@@ -998,12 +1217,10 @@ def driver(dev):
     missing = {"densify", "densify_until", "prune_trim", "split", "merge"} - fired
     if missing:
         fail(f"the driver run fired no {sorted(missing)} event")
-    # K1, K2, K7, K8 once per step; K3 once per view of make_scene and of each test render
-    want = dict(blend_train_fwd=n_it, blend_train_bwd=n_it, ssim_fwd=n_it, ssim_bwd=n_it,
-                tile_blend_fwd=a.synthetic_views + 2 * len(a.test_iterations))
-    for n, v in want.items():
-        if c[n] != v:
-            fail(f"the driver run launched {n} {c[n]} times, not {v}")
+    # K1, K2, K7, K8 once per step (replayed) and warm-up step; K3 once per view of
+    # make_scene and of each test render
+    check_step_launches("driver run", c, res.graphs, n_it,
+                        dict(tile_blend_fwd=a.synthetic_views + 2 * len(a.test_iterations)))
     if iters != n_it:
         fail(f"the driver run ended at step {iters}, not {n_it}")
 
@@ -1052,9 +1269,10 @@ def driver(dev):
         DRIVER_ARGS + ["--model-path", resume_dir, "--start-checkpoint", ckpt]),
         ("blend_train_fwd", "blend_train_bwd"))
     print(f"driver resume: {ck_it} -> {int(res2.ts.step)} in {time.time() - t0:.2f} s, "
-          f"{c2['blend_train_fwd']} steps, {len(res2.edge_dict['curves_ctl_pts'])} curves "
-          f"and {len(res2.edge_dict['lines_end_pts'])} lines extracted", flush=True)
-    if (int(res2.ts.step), c2["blend_train_fwd"]) != (n_it, n_it - ck_it) or not os.path.exists(
+          f"{len(res2.edge_dict['curves_ctl_pts'])} curves and "
+          f"{len(res2.edge_dict['lines_end_pts'])} lines extracted", flush=True)
+    check_step_launches("driver resume", c2, res2.graphs, n_it - ck_it, {})
+    if int(res2.ts.step) != n_it or not os.path.exists(
             os.path.join(resume_dir, "parametric_edges.json")):
         fail(f"the resumed run did not train {ck_it} -> {n_it} and write its "
              "parametric_edges.json")
@@ -1200,7 +1418,7 @@ def train_kernels(inputs, gt, label, library=False):
 
 
 def dataset_scene(dev, profile=False):
-    """Phase 9 of the module docstring; with `profile`, a torch.profiler
+    """Phase 10 of the module docstring; with `profile`, a torch.profiler
     table of two steps of the loaded scene."""
     import shutil
 
@@ -1288,7 +1506,7 @@ def dataset_scene(dev, profile=False):
 
         for i in range(3):
             step(i)
-        profile_step(step)
+        profile_step(lambda: [step(i) for i in range(2)], 2, "eager dataset step")
         del ts, gts
 
     # -- d. train it through the CLI ----------------------------------------------------
@@ -1321,12 +1539,8 @@ def dataset_scene(dev, profile=False):
             print(f"dataset driver event {e['iter']}: {e['kind']} {e['old']} -> {e['new']} "
                   f"({e['why']})", flush=True)
     n_views = len(scene.train_cameras)
-    want = dict(blend_train_fwd=a.iterations, blend_train_bwd=a.iterations,
-                ssim_fwd=a.iterations, ssim_bwd=a.iterations,
-                tile_blend_fwd=n_views * len(a.test_iterations))
-    for n, v in want.items():
-        if c[n] != v:
-            fail(f"the dataset run launched {n} {c[n]} times, not {v}")
+    check_step_launches("dataset run", c, res.graphs, a.iterations,
+                        dict(tile_blend_fwd=n_views * len(a.test_iterations)))
     if iters != a.iterations or res.ts.params["curve_points"].device.type != "cuda":
         fail(f"the dataset run ended at step {iters} or left the card")
     with open(os.path.join(run_dir, "metrics.jsonl")) as fh:
@@ -1395,24 +1609,29 @@ def small_check():
         fail("the training step on the card disagrees with the CPU step")
 
 
-def profile_step(step):
-    """Time by CUDA kernel over two steps (torch.profiler)."""
+def profile_step(run, steps: int, label: str):
+    """Time by CUDA kernel over the `steps` training steps run() makes
+    (torch.profiler), and the device's busy share of the host clock over
+    them (the profiler's own host cost included)."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for i in range(2):
-            step(i)
         torch.cuda.synchronize()
+        t0 = time.time()
+        run()
+        torch.cuda.synchronize()
+        wall_ms = (time.time() - t0) * 1e3 / steps
     avg = prof.key_averages()
     print(avg.table(sort_by="cuda_time_total", row_limit=25), flush=True)
     # kernel rows only: an operator's row repeats the time of the kernels it launched
     kern = [e for e in avg if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_us = sum(e.self_device_time_total for e in kern)
-    print(f"profile: device busy {busy_us / 2e3:.3f} ms per step over {len(kern)} kernel "
-          f"names, {sum(e.count for e in kern) / 2:.0f} launches per step", flush=True)
+    busy_ms = sum(e.self_device_time_total for e in kern) / 1e3 / steps
+    print(f"profile {label}: device busy {busy_ms:.3f} ms per step of {wall_ms:.3f} ms on the "
+          f"host clock ({100 * (1 - busy_ms / wall_ms):.1f}% idle) over {len(kern)} kernel "
+          f"names, {sum(e.count for e in kern) / steps:.0f} launches per step", flush=True)
     for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:12]:
-        print(f"  {e.self_device_time_total / 2e3:8.4f} ms/step {e.count / 2:6.0f}x  "
-              f"{e.key[:90]}", flush=True)
+        print(f"  {e.self_device_time_total / 1e3 / steps:8.4f} ms/step "
+              f"{e.count / steps:6.0f}x  {e.key[:90]}", flush=True)
 
 
 if __name__ == "__main__":

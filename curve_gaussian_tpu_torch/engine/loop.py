@@ -10,11 +10,15 @@ What ``train_scene`` does, and how the port does it:
 
 - **Chunks** are the host-sync cadence.  ``chunk_plan`` cuts the run at
   every event (surgery, test, save, checkpoint, the mask and connectivity
-  flips) and at most every ``scan_chunk`` steps.  Steps inside a chunk run
-  back to back with their metrics left on the device; the host reads them
-  once per chunk (one transfer), then applies the overflow and big-tier
-  grow policy, logs, and runs the surgery the schedule prescribes.  The
-  step never waits on the host in between.
+  flips) and at most every ``scan_chunk`` steps.  Each chunk runs through
+  ``train_steps_scan``, which takes its views from device stacks of all
+  views (cameras, intrinsics and edge maps, built once per scene): on the
+  card it replays one captured CUDA graph of the step per shape key, with
+  no host work between the steps, and on the CPU it runs the same step
+  body eagerly.  The host reads the chunk's metrics once (one transfer),
+  then applies the overflow and big-tier grow policy, logs, and runs the
+  surgery the schedule prescribes.  ``TrainResult.graphs`` records the
+  captures (their seconds are the ``capture`` phase) and replays.
 - **Capacity.** Surgery repacks the state at the power-of-two bucket of its
   curve count, growing or shrinking at once.  The adaptive tile capacity K
   and the big tier shrink toward their observed peaks at the chunk end too:
@@ -24,9 +28,10 @@ What ``train_scene`` does, and how the port does it:
   package's order, so both packages visit the same views.
 - **Left out as TPU/XLA machinery:** the ``Prewarmer`` and ``engine/warm.py``
   (ahead-of-time compiles), the persistent compile cache, the
-  ``device_put`` commits of the state, and the deferral of a capacity
-  shrink until its compile is warm; PyTorch runs eagerly and compiles
-  nothing.  ``views_per_step > 1`` and ``n_devices`` belong to the
+  ``device_put`` commits of the state, the padding of every chunk to one
+  compiled length (a graph replays any number of steps), and the deferral
+  of a capacity shrink until its compile is warm (a capture takes about a
+  step's time).  ``views_per_step > 1`` and ``n_devices`` belong to the
   multi-device slice and raise.
 """
 from __future__ import annotations
@@ -52,7 +57,8 @@ from ..models.ellipsoids import save_ellipsoid_mesh
 from ..models.gaussian_ply import save_gaussian_ply
 from ..ops.camera import Camera
 from . import checkpoint as ckpt_mod
-from .train import TrainState, eval_render, init_train_state, train_step
+from .train import (StepGraphs, TrainState, camera_stacks, eval_render, init_train_state,
+                    train_step, train_steps_scan)
 
 
 class JsonlLogger:
@@ -179,18 +185,18 @@ class TrainResult:
     # capacity, host seconds) and tile/big capacity changes
     events: List[dict] = dataclasses.field(default_factory=list)
     # host seconds by phase: steps (with their per-chunk metric reads),
+    # capture (the step graphs' warm-up, capture and instantiation),
     # surgery, test renders, saves (artifacts and checkpoints), extraction
     seconds: Dict[str, float] = dataclasses.field(default_factory=dict)
+    # the step graphs' captures and replays (released; no graph is held)
+    graphs: Optional[StepGraphs] = None
 
 
-def _chunk_metrics(ms: List[dict]) -> Dict[str, np.ndarray]:
-    """The per-step metric scalars of a chunk as {name: [k] float64}, read
-    from the device in one transfer."""
-    keys = list(ms[0])
-    rows = torch.stack([torch.stack([m[key].detach().to(torch.float64) for key in keys])
-                        for m in ms])
-    host = rows.cpu().numpy()
-    return {key: host[:, i] for i, key in enumerate(keys)}
+def _chunk_metrics(ms: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+    """A chunk's per-step metrics ({name: [k]}) as {name: [k] float64},
+    read from the device in one transfer."""
+    host = torch.stack(list(ms.values()), dim=1).cpu().numpy()
+    return {key: host[:, i] for i, key in enumerate(ms)}
 
 
 def train_scene(
@@ -258,11 +264,16 @@ def train_scene(
     logger = JsonlLogger(model_path, quiet=quiet)
     save_scene_artifacts(cameras, seed_points, model_path)
     dt = ts.params["curve_points"].dtype
+    # device stacks of every view; each step selects its row on the device
     gt_all = torch.stack([torch.as_tensor(e) for e in edge_maps]).to(device=dev, dtype=dt)
+    cam_stacks = camera_stacks(cameras, dt, dev)
+    cam_geom = (cameras[0].height, cameras[0].width, cameras[0].tanfovx, cameras[0].tanfovy)
+    graphs = StepGraphs(train_step)
     test_gts = [extract_mod.host_array(e) for e in test_edge_maps]
     view_stack: List[int] = []
     t_start = time.time()
-    seconds = dict(steps=0.0, surgery=0.0, test_renders=0.0, saves=0.0, extraction=0.0)
+    seconds = dict(steps=0.0, capture=0.0, surgery=0.0, test_renders=0.0, saves=0.0,
+                   extraction=0.0)
     events_log: List[dict] = []
     scan_chunk = max(1, min(scan_chunk, opt_cfg.iterations - first_iter))
     plan = chunk_plan(
@@ -302,22 +313,22 @@ def train_scene(
             prof = profile(activities=acts)
             prof.__enter__()
             profiled = True
-        ms = []
-        for vi in idxs:
-            ts, mt = train_step(
-                ts, cameras[vi], gt_all[vi], bg, opt_cfg, pipe_cfg, use_mask=use_mask,
-                n_gaussians=m, conn_on=conn_on, view_idx=vi if use_exp else None,
-                use_exposure=use_exp,
-            )
-            ms.append(mt)
-        metrics = _chunk_metrics(ms)  # the chunk's one host sync
+        capture_s = graphs.capture_seconds
+        ts, mt = train_steps_scan(
+            ts, cam_stacks, gt_all, bg, opt_cfg, pipe_cfg, use_mask=use_mask, n_gaussians=m,
+            cam_geom=cam_geom, conn_on=conn_on, view_indices=idxs if use_exp else None,
+            use_exposure=use_exp, rows=idxs, graphs=graphs,
+        )
+        metrics = _chunk_metrics(mt)  # the chunk's one host sync
         if prof is not None:
             prof.__exit__(None, None, None)
             os.makedirs(profile_dir, exist_ok=True)
             prof.export_chrome_trace(os.path.join(profile_dir, "trace.json"))
             if not quiet:
                 print(f"profiler trace -> {profile_dir}", flush=True)
-        seconds["steps"] += time.time() - t_chunk
+        capture_s = graphs.capture_seconds - capture_s
+        seconds["capture"] += capture_s
+        seconds["steps"] += time.time() - t_chunk - capture_s
 
         ov = int(metrics["overflow"].sum())
         tol = pipe_cfg.overflow_tolerance * float(metrics["n_visible"].sum())
@@ -437,6 +448,7 @@ def train_scene(
             ckpt_mod.save_checkpoint(os.path.join(model_path, f"chkpnt{iteration}.npz"), ts)
         seconds["saves"] += time.time() - t0
 
+    graphs.release()
     wall = time.time() - t_start
     done = int(ts.step) - first_iter
     if not quiet and done:
@@ -458,7 +470,7 @@ def train_scene(
     seconds["train"] = wall
     return TrainResult(ts=ts, edge_dict=edge_dict, metrics_path=logger.path,
                        model_path=model_path, pipe_cfg=pipe_cfg, events=events_log,
-                       seconds=seconds)
+                       seconds=seconds, graphs=graphs)
 
 
 def _colormap_turbo(x: np.ndarray) -> np.ndarray:

@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict
+from typing import Dict, List
 
 import numpy as np
 import torch
@@ -21,6 +21,8 @@ import torch
 from ..config import OptimizationConfig
 
 B1, B2, EPS = 0.9, 0.999, 1e-15
+# the parameter groups, in the column order of a chunk's learning-rate table
+GROUPS = ("curve_points", "features_dc", "opacity_raw", "width_raw", "mask_raw", "exposure")
 
 
 @dataclasses.dataclass
@@ -67,19 +69,35 @@ def group_lrs(opt: OptimizationConfig, step: int) -> Dict[str, float]:
     }
 
 
+def bias_corrections(count: int):
+    """Adam's bias corrections (1 - B1^count, 1 - B2^count) of update
+    `count`, rounded to float32 as the JAX package computes them."""
+    c1 = float(np.float32(1.0) - np.float32(B1) ** np.float32(count))
+    c2 = float(np.float32(1.0) - np.float32(B2) ** np.float32(count))
+    return c1, c2
+
+
+def lr_row(opt: OptimizationConfig, step: int, count: int) -> List[float]:
+    """One row of a chunk's learning-rate table: the group rates at `step`
+    in ``GROUPS`` order, then the bias corrections of update `count`."""
+    lrs = group_lrs(opt, step)
+    return [lrs[g] for g in GROUPS] + list(bias_corrections(count))
+
+
 @torch.no_grad()
 def adam_update(
     params: Dict[str, torch.Tensor],
     grads: Dict[str, torch.Tensor],
     state: AdamState,
     lrs: Dict[str, float],
+    bias=None,
 ):
     """One Adam step; returns (new params, new AdamState).  Groups absent
-    from ``grads`` pass through.  The inputs are not modified."""
+    from ``grads`` pass through.  The inputs are not modified.  ``lrs`` and
+    ``bias`` (the bias corrections, from the count when None) may be 0-dim
+    tensors on the parameters' device."""
     count = state.count + 1
-    # bias corrections rounded to float32, as the JAX package computes them
-    c1 = float(np.float32(1.0) - np.float32(B1) ** np.float32(count))
-    c2 = float(np.float32(1.0) - np.float32(B2) ** np.float32(count))
+    c1, c2 = bias_corrections(count) if bias is None else bias
     new_p, new_mu, new_nu = {}, {}, {}
     for k in params:
         if k not in grads:

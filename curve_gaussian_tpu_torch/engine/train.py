@@ -2,26 +2,37 @@
 ``curve_gaussian_tpu/engine/train.py``.
 
 One step = gaussians -> render (training configuration) -> total_loss ->
-backward -> per-group Adam -> densification statistics.  PyTorch runs
-eagerly, so there is no compiled step; ``train_steps`` is a plain loop in
-place of the JAX package's ``lax.scan`` chunk.  With ``use_exposure`` the
-view's learned exposure (scale, offset) applies to the render and its group
-is trained.  ``eval_render`` renders every channel of the current state.
-The training loop, with topology surgery and the capacity policy, is
-``engine/loop.py``.
+backward -> per-group Adam -> densification statistics.  With
+``use_exposure`` the view's learned exposure (scale, offset) applies to the
+render and its group is trained.  ``eval_render`` renders every channel of
+the current state.  The training loop, with topology surgery and the
+capacity policy, is ``engine/loop.py``.
+
+A chunk of steps: ``train_steps_scan``, the counterpart of the JAX
+package's ``lax.scan`` chunk, runs one step body that reads the state, the
+view and the step's learning rates from tensors at fixed addresses and
+writes the new state and the step's metrics back into them.  On CUDA
+tensors it captures the body once per shape key as a CUDA graph
+(``StepGraphs``) and replays it through the chunk, with no host work
+between the replays; on CPU tensors it runs the same body eagerly.
+``train_steps``, the eager loop of ``train_step`` calls, is the reference
+it is held against.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Sequence
+import time
+from typing import Dict, List, Optional, Sequence
 
 import torch
 
 from ..config import OptimizationConfig, PipelineConfig
 from ..models import curve_state as cs
 from ..models import losses as L
+from ..ops import rasterize_cuda, ssim_cuda, tile_blend_cuda
 from ..ops.camera import Camera
-from ..ops.render import render
+from ..ops.projection import intrinsics
+from ..ops.render import _flavor, render
 from . import optim
 
 
@@ -62,6 +73,14 @@ def dead_groups(use_exposure: bool = False):
     return ("features_dc",) + (() if use_exposure else ("exposure",))
 
 
+def _exposure_row(exposure: torch.Tensor, view_idx) -> torch.Tensor:
+    """Row `view_idx` of the exposure table; a tensor index selects it on
+    the device (indexing with a 0-dim tensor reads it on the host)."""
+    if torch.is_tensor(view_idx):
+        return exposure.index_select(0, view_idx.reshape(1))[0]
+    return exposure[view_idx]
+
+
 def step_grads(
     ts: TrainState,
     cam: Camera,
@@ -80,8 +99,9 @@ def step_grads(
     Returns (loss, aux, grads, offset_grad, visible, radii, telemetry):
     grads holds the live groups only, offset_grad is d loss / d mean2d
     [C*M, 2] (pixel units), telemetry the binning counters.  With
-    ``use_exposure`` the row ``view_idx`` of the exposure applies to the
-    render, and the exposure group is live."""
+    ``use_exposure`` the row ``view_idx`` (an int or a one-element tensor)
+    of the exposure applies to the render, and the exposure group is
+    live."""
     if use_exposure and view_idx is None:
         raise ValueError("use_exposure requires the step's view_idx")
     dead = dead_groups(use_exposure)
@@ -102,7 +122,7 @@ def step_grads(
             render_geo=False, compute_invdepth=False,
             capacity=pipe_cfg.tile_capacity, big_capacity=pipe_cfg.big_capacity,
             backend=pipe_cfg.backend,
-            exposure=params["exposure"][view_idx] if use_exposure else None,
+            exposure=_exposure_row(params["exposure"], view_idx) if use_exposure else None,
         )
         loss, aux = L.total_loss(state, out, gauss, gt_image, opt_cfg, use_mask, conn_on=conn_on)
         names = list(live)
@@ -127,17 +147,25 @@ def train_step(
     conn_on: bool | None = None,
     view_idx: int | None = None,
     use_exposure: bool = False,
+    lr_row: Optional[torch.Tensor] = None,
 ):
     """One training step; returns (new TrainState, metrics).  The input
-    state is not modified."""
+    state is not modified.  ``lr_row``, a row of ``optim.lr_row`` on the
+    device, gives the group rates and Adam's bias corrections in place of
+    those of ``ts.step`` and ``ts.opt.count`` (a captured step must not bake
+    host numbers in)."""
     _, aux, grads, goffset, visible, radii, telemetry = step_grads(
         ts, cam, gt_image, bg, opt_cfg, pipe_cfg, use_mask, n_gaussians, conn_on=conn_on,
         view_idx=view_idx, use_exposure=use_exposure,
     )
-    lrs = optim.group_lrs(opt_cfg, ts.step)
+    if lr_row is None:
+        lrs, bias = optim.group_lrs(opt_cfg, ts.step), None
+    else:
+        *rates, c1, c2 = lr_row.unbind()
+        lrs, bias = dict(zip(optim.GROUPS, rates)), (c1, c2)
     if ts.opacity_frozen:
         lrs["opacity_raw"] = 0.0
-    new_params, new_opt = optim.adam_update(ts.params, grads, ts.opt, lrs)
+    new_params, new_opt = optim.adam_update(ts.params, grads, ts.opt, lrs, bias)
 
     with torch.no_grad():
         # accumulated norm of the screen-space gradient of visible Gaussians,
@@ -188,6 +216,357 @@ def train_steps(
                            view_idx=view_indices[i] if use_exposure else None)
         metrics.append(m)
     return ts, metrics
+
+
+# the kernel wrappers, whose host counters count their launches
+KERNEL_WRAPPERS = (
+    rasterize_cuda.blend_train_fwd, rasterize_cuda.blend_train_bwd,
+    rasterize_cuda.blend_train_bwd_basis, tile_blend_cuda.tile_blend_fwd,
+    tile_blend_cuda.tile_blend_bwd, tile_blend_cuda.blend_moment_bwd,
+    ssim_cuda.ssim_fwd, ssim_cuda.ssim_bwd,
+)
+# eager steps before a capture: each library's and wrapper's first-use
+# set-up (kernel builds, the SSIM shared-memory limit and ticket, the
+# Bezier bases on the device, the autograd and cuBLAS state of the stream)
+# must happen outside the graph
+WARMUP_STEPS = 1
+MIN_CHUNK = 128  # rows of a graph's chunk tables: a longer chunk captures anew
+_MAX_METRICS = 16  # columns of the metric rows (train_step returns up to 13)
+
+
+def _launch_counts() -> Dict[str, int]:
+    return {f.__name__: f.launches for f in KERNEL_WRAPPERS}
+
+
+def camera_stacks(cameras: Sequence[Camera], dtype, device) -> tuple:
+    """``train_steps_scan``'s camera stacks of `cameras` on `device`: w2c
+    [V,4,4], proj [V,4,4], centres [V,3] and each view's intrinsics [V,4]
+    in `dtype`, the state's."""
+    stacks = tuple(torch.stack([getattr(c, f) for c in cameras]).to(device)
+                   for f in ("world_to_cam", "full_proj", "cam_center"))
+    rows = [intrinsics(c.height, c.width, c.tanfovx, c.tanfovy) for c in cameras]
+    return stacks + (torch.tensor(rows, dtype=dtype, device=device),)
+
+
+def _state_leaves(ts: TrainState) -> Dict[str, torch.Tensor]:
+    """The tensors of a TrainState by name."""
+    out = {}
+    for prefix, d in (("params", ts.params), ("mu", ts.opt.mu), ("nu", ts.opt.nu)):
+        out.update({f"{prefix}/{k}": v for k, v in d.items()})
+    for k in ("is_bezier", "alive", "xyz_grad_accum", "denom", "max_radii"):
+        out[k] = getattr(ts, k)
+    return out
+
+
+def _state_of(leaves: Dict[str, torch.Tensor], step: int, count: int,
+              opacity_frozen: bool) -> TrainState:
+    def group(prefix):
+        n = len(prefix) + 1
+        return {k[n:]: v for k, v in leaves.items() if k.startswith(prefix + "/")}
+
+    return TrainState(
+        params=group("params"),
+        opt=optim.AdamState(mu=group("mu"), nu=group("nu"), count=count),
+        is_bezier=leaves["is_bezier"], alive=leaves["alive"],
+        xyz_grad_accum=leaves["xyz_grad_accum"], denom=leaves["denom"],
+        max_radii=leaves["max_radii"], step=step, opacity_frozen=opacity_frozen,
+    )
+
+
+class _Buffers:
+    """The tensors the step body reads and writes, at fixed addresses: the
+    state, the view stacks (w2c, proj, centre, intrinsics, ground truth),
+    the chunk's tables (stack row, exposure row and learning-rate row of
+    each step), the number of active steps, the step counter and the
+    metric rows."""
+
+    def __init__(self, ts: TrainState, stacks, rows: int):
+        dev = ts.alive.device
+        self.state = {k: torch.empty_like(v) for k, v in _state_leaves(ts).items()}
+        self.stacks = tuple(torch.empty_like(s) for s in stacks)
+        i64 = dict(dtype=torch.int64, device=dev)
+        self.rows = torch.zeros(rows, **i64)
+        self.vix = torch.zeros(rows, **i64)
+        self.lrs = torch.zeros((rows, len(optim.GROUPS) + 2),
+                               dtype=ts.params["curve_points"].dtype, device=dev)
+        self.n_active = torch.zeros(1, **i64)
+        self.counter = torch.zeros(1, **i64)
+        self.metrics = torch.zeros((rows, _MAX_METRICS), dtype=torch.float64, device=dev)
+
+    def load(self, ts: TrainState, stacks, tables, n_active: int) -> None:
+        """A chunk's inputs: the state and stacks by device copies, the
+        tables (host tensors: rows, exposure rows, rates) in one copy each,
+        and the counter at 0."""
+        for k, v in _state_leaves(ts).items():
+            self.state[k].copy_(v)
+        for dst, src in zip(self.stacks, stacks):
+            dst.copy_(src)
+        for dst, src in zip((self.rows, self.vix, self.lrs), tables):
+            if dst.is_cuda:  # pinned, so the copy neither waits nor blocks the host
+                src = src.pin_memory()
+            dst[: src.shape[0]].copy_(src, non_blocking=True)
+        self.n_active.fill_(n_active)
+        self.counter.zero_()
+
+
+def _step_body(b: _Buffers, step_fn, args: dict, step: int, count: int,
+               opacity_frozen: bool) -> List[str]:
+    """One step from the buffers into the buffers; returns the metric names
+    of its row.  Step ``counter`` of the chunk takes its view's row of the
+    stacks and its rows of the tables, writes the new state (unless the
+    step is at or past ``n_active``) and its metric row, and advances the
+    counter.  ``step`` and ``count`` are the host numbers of the state the
+    step function sees: exact when the body runs eagerly, the capture's own
+    in a graph, where nothing in the step reads them (the learning-rate row
+    decides what they would)."""
+    h, w, tfx, tfy = args["cam_geom"]
+    i = b.counter
+    row = b.rows.index_select(0, i)
+    w2c, proj, ctr, intr, gt = (s.index_select(0, row)[0] for s in b.stacks)
+    cam = Camera(world_to_cam=w2c, full_proj=proj, cam_center=ctr, height=h, width=w,
+                 tanfovx=tfx, tanfovy=tfy, intrinsics=intr)
+    new, m = step_fn(
+        _state_of(b.state, step, count, opacity_frozen), cam, gt, args["bg"], args["opt_cfg"],
+        args["pipe_cfg"], use_mask=args["use_mask"], n_gaussians=args["n_gaussians"],
+        conn_on=args["conn_on"],
+        view_idx=b.vix.index_select(0, i) if args["use_exposure"] else None,
+        use_exposure=args["use_exposure"], lr_row=b.lrs.index_select(0, i)[0],
+    )
+    with torch.no_grad():
+        act = i < b.n_active
+        for k, v in _state_leaves(new).items():
+            dst = b.state[k]
+            if v is not dst:
+                torch.where(act, v, dst, out=dst)
+        names = list(m)
+        if len(names) > _MAX_METRICS:
+            raise ValueError(f"{len(names)} step metrics, more than {_MAX_METRICS}")
+        vals = torch.stack([m[k].to(torch.float64) for k in names])
+        b.metrics[:, : len(names)].index_copy_(0, i, vals[None])
+        i.add_(1)
+    return names
+
+
+@dataclasses.dataclass
+class _Graph:
+    graph: "torch.cuda.CUDAGraph"
+    names: List[str]  # the metric row's
+    record: dict
+
+
+class StepGraphs:
+    """The CUDA graphs of ``train_steps_scan``: one captured step per shape
+    key, all in one memory pool and over one set of buffers, and what
+    capturing and replaying them cost.
+
+    A caller keeps one for a run and passes it to every chunk, so that a
+    shape key captures once.  The key is the sizes (state, stacks, configs,
+    background, camera geometry, blend flavor) and the flags (mask,
+    connectivity, exposure, frozen opacity).  New sizes drop every graph,
+    the buffers and the pool: surgery and the capacity policy move forward,
+    so the old sizes do not recur.  ``release`` drops them too and keeps the
+    records.  ``step`` is the step function the body runs, ``train_step``
+    unless the caller wraps it.
+
+    ``captures`` records each capture: its capacities and flags, the host
+    seconds of its warm-up (to the end of its device work), capture and
+    instantiation and their sum, the launches the kernel wrappers counted
+    while it was captured, and its replays.  The
+    wrappers' counters are host counters: they count a captured launch once
+    however often the graph replays it, and the warm-up's launches as eager
+    ones."""
+
+    def __init__(self, step=None):
+        self.step = step if step is not None else train_step
+        self.captures: List[dict] = []
+        self._graphs: Dict[tuple, _Graph] = {}
+        self._sizes = self._bufs = self._pool = self._stream = None
+
+    @property
+    def capture_seconds(self) -> float:
+        return sum(c["seconds"] for c in self.captures)
+
+    @property
+    def warmup_steps(self) -> int:
+        return WARMUP_STEPS * len(self.captures)
+
+    def captured_launches(self) -> Dict[str, int]:
+        """Launches the wrappers counted inside captures, by wrapper."""
+        out: Dict[str, int] = {}
+        for c in self.captures:
+            for k, n in c["launches"].items():
+                out[k] = out.get(k, 0) + n
+        return out
+
+    def replayed_launches(self) -> Dict[str, int]:
+        """Launches the graphs' replays made on the device, by wrapper."""
+        out: Dict[str, int] = {}
+        for c in self.captures:
+            for k, n in c["launches"].items():
+                out[k] = out.get(k, 0) + n * c["replays"]
+        return out
+
+    def latest_graph(self) -> "torch.cuda.CUDAGraph":
+        """The graph captured last (kept with its ``cudaGraph_t``, so that
+        its nodes can be read)."""
+        return next(g.graph for g in self._graphs.values() if g.record is self.captures[-1])
+
+    def release(self) -> None:
+        self._graphs.clear()
+        self._sizes = self._bufs = self._pool = None
+
+    def _buffers(self, sizes: tuple, ts: TrainState, stacks, rows: int) -> _Buffers:
+        """The buffers of `sizes` with at least `rows` table rows; new ones
+        drop every graph (each reads the buffers it was captured with)."""
+        if sizes != self._sizes or self._bufs.rows.shape[0] < rows:
+            self.release()
+            self._sizes = sizes
+            self._bufs = _Buffers(ts, stacks, max(rows, MIN_CHUNK))
+        return self._bufs
+
+    def _capture(self, key: tuple, body, load, record: dict) -> _Graph:
+        """Warm up on a side stream, capture one step there, and instantiate
+        it; the caller restores the buffers that the warm-up advanced.  A
+        capture that fails raises.  ``capture_begin``/``capture_end`` in
+        place of the ``torch.cuda.graph`` context, which empties the
+        allocator's cache first: after the test renders that cache holds
+        seconds of ``cudaFree``s, and the graph's pool needs none of it."""
+        t = [time.time()]
+        dev = self._bufs.counter.device
+        with torch.cuda.device(dev):
+            load()
+            if self._stream is None:
+                self._stream = torch.cuda.Stream(dev)
+            self._stream.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(self._stream):
+                for _ in range(WARMUP_STEPS):
+                    body()
+                self._stream.synchronize()
+                t.append(time.time())
+                if self._pool is None:
+                    self._pool = torch.cuda.graph_pool_handle()
+                before = _launch_counts()
+                graph = torch.cuda.CUDAGraph(keep_graph=True)
+                graph.capture_begin(pool=self._pool)
+                try:
+                    names = body()
+                finally:
+                    graph.capture_end()
+                after = _launch_counts()
+                t.append(time.time())
+                graph.instantiate()
+            torch.cuda.current_stream(dev).wait_stream(self._stream)
+        t.append(time.time())
+        record.update(seconds=t[3] - t[0], warmup_seconds=t[1] - t[0],
+                      capture_seconds=t[2] - t[1], instantiate_seconds=t[3] - t[2], replays=0,
+                      launches={k: n - before[k] for k, n in after.items() if n != before[k]})
+        self.captures.append(record)
+        self._graphs[key] = g = _Graph(graph, names, record)
+        return g
+
+
+def _host_ints(x, name: str, n: int, bound: int) -> List[int]:
+    vals = [int(v) for v in (x.tolist() if torch.is_tensor(x) else x)]
+    if len(vals) != n or any(not 0 <= v < bound for v in vals):
+        raise ValueError(f"{name} must hold {n} indices in [0, {bound}), got {vals}")
+    return vals
+
+
+def train_steps_scan(
+    ts: TrainState,
+    cam_arrays,  # (w2c [V,4,4], proj [V,4,4], centers [V,3][, intrinsics [V,4]])
+    gts: torch.Tensor,  # [V, H, W]
+    bg,
+    opt_cfg: OptimizationConfig,
+    pipe_cfg: PipelineConfig,
+    use_mask: bool,
+    n_gaussians: int,
+    cam_geom,  # (H, W, tanfovx, tanfovy)
+    conn_on: bool | None = None,
+    n_active=None,
+    view_indices=None,  # [k] ints (use_exposure only)
+    use_exposure: bool = False,
+    *,
+    rows=None,
+    graphs: Optional[StepGraphs] = None,
+):
+    """k training steps as one chunk, the counterpart of the JAX package's
+    ``train_steps_scan``; returns (state, {metric: [k] float64}).
+
+    Step i trains on row ``rows[i]`` of the stacks (row i when ``rows`` is
+    None, the JAX function's per-step arrays: k = V); with ``use_exposure``
+    it applies exposure row ``view_indices[i]``.  ``intrinsics``
+    (``projection.intrinsics`` of each view) defaults to those of
+    ``cam_geom`` for every row.  Steps at or past ``n_active`` leave the
+    state as it is (their metrics are still computed).  The input state is
+    not modified: a chunk copies it into the body's buffers and copies the
+    result out.
+
+    On CUDA tensors the step is captured once per shape key into a CUDA
+    graph held by ``graphs`` (a new ``StepGraphs`` for this call when None)
+    and replayed k times: the host copies the chunk's tables to the device
+    once, then does nothing but replay.  On CPU tensors the same body runs
+    k times eagerly, bitwise equal to ``train_steps`` over the same views."""
+    if use_exposure and view_indices is None:
+        raise ValueError("use_exposure requires per-step view_indices")
+    graphs = graphs if graphs is not None else StepGraphs()
+    dev = gts.device
+    dt = ts.params["curve_points"].dtype
+    V = gts.shape[0]
+    rows = list(range(V)) if rows is None else _host_ints(rows, "rows", len(rows), V)
+    k = len(rows)
+    if k < 1:
+        raise ValueError("a chunk has at least one step")
+    n_views = ts.params["exposure"].shape[0]
+    vix = _host_ints(view_indices, "view_indices", k, n_views) if use_exposure else [0] * k
+    n_act = k if n_active is None else max(0, min(int(n_active), k))
+    if len(cam_arrays) == 3:
+        cam_arrays = (*cam_arrays,
+                      torch.tensor([intrinsics(*cam_geom)] * V, dtype=dt, device=dev))
+    stacks = (*cam_arrays, gts)
+    if any(s.shape[0] != V or s.device != dev for s in stacks):
+        raise ValueError("the camera stacks and gts must have one row per view, on one device")
+    tables = (torch.tensor(rows), torch.tensor(vix),
+              torch.tensor([optim.lr_row(opt_cfg, ts.step + i, ts.opt.count + i + 1)
+                            for i in range(k)], dtype=dt))
+    bg = float(bg)
+    args = dict(bg=bg, opt_cfg=opt_cfg, pipe_cfg=pipe_cfg, use_mask=use_mask,
+                n_gaussians=n_gaussians, cam_geom=tuple(cam_geom), conn_on=conn_on,
+                use_exposure=use_exposure)
+    frozen = ts.opacity_frozen
+
+    if dev.type != "cuda":
+        b = _Buffers(ts, stacks, k)
+        b.load(ts, stacks, tables, n_act)
+        for i in range(k):
+            j = min(i, n_act)
+            names = _step_body(b, graphs.step, args, ts.step + j, ts.opt.count + j, frozen)
+    else:
+        sizes = (dev, tuple((n, v.shape, v.dtype) for n, v in _state_leaves(ts).items()),
+                 tuple((s.shape, s.dtype) for s in stacks), opt_cfg, pipe_cfg, bg,
+                 tuple(cam_geom), _flavor())
+        key = (use_mask, conn_on, use_exposure, frozen)
+        b = graphs._buffers(sizes, ts, stacks, k)
+        g = graphs._graphs.get(key)
+        if g is None:
+            step0, count0 = ts.step, ts.opt.count
+            g = graphs._capture(
+                key, lambda: _step_body(b, graphs.step, args, step0, count0, frozen),
+                lambda: b.load(ts, stacks, tables, n_act),
+                dict(capacity=ts.alive.shape[0], tile_capacity=pipe_cfg.tile_capacity,
+                     big_capacity=pipe_cfg.big_capacity, use_mask=use_mask, conn_on=conn_on,
+                     use_exposure=use_exposure))
+        b.load(ts, stacks, tables, n_act)
+        for _ in range(k):
+            g.graph.replay()
+        g.record["replays"] += k
+        names = g.names
+
+    out = {k_: v.clone() for k_, v in b.state.items()}
+    out["is_bezier"], out["alive"] = ts.is_bezier, ts.alive
+    vals = b.metrics[:k, : len(names)].clone()
+    return (_state_of(out, ts.step + n_act, ts.opt.count + n_act, frozen),
+            {name: vals[:, j] for j, name in enumerate(names)})
 
 
 def eval_render(

@@ -53,7 +53,13 @@ def perspective_matrix(
 
 @dataclasses.dataclass(frozen=True)
 class Camera:
-    """One view: three tensors plus static image geometry."""
+    """One view: three tensors plus static image geometry.
+
+    ``intrinsics``, when set, holds ``projection.intrinsics`` of the view
+    as a [4] tensor in the state's dtype, and the projection reads it in
+    place of the values it derives from ``tanfovx``/``tanfovy``: a step
+    replayed from a CUDA graph (``engine/train.py::train_steps_scan``)
+    selects each view's row from a device stack."""
 
     world_to_cam: torch.Tensor  # [4,4] p_cam = world_to_cam @ p_hom
     full_proj: torch.Tensor  # [4,4] = perspective @ world_to_cam
@@ -62,6 +68,7 @@ class Camera:
     width: int
     tanfovx: float
     tanfovy: float
+    intrinsics: Optional[torch.Tensor] = None
 
     @property
     def focal_x(self) -> float:

@@ -16,6 +16,7 @@ from .camera import Camera
 
 NEAR_CULL_Z = 0.2
 H_VAR = 0.3
+FRUSTUM_CLAMP = 1.3
 
 
 class Preprocessed(NamedTuple):
@@ -28,17 +29,25 @@ class Preprocessed(NamedTuple):
     valid: torch.Tensor  # [P] bool
 
 
+def intrinsics(height: int, width: int, tanfovx: float, tanfovy: float) -> tuple:
+    """The per-view constants of the EWA Jacobian, (focal_x, focal_y,
+    1.3 tanfovx, 1.3 tanfovy), as float64 Python numbers.  Stored in a
+    tensor of the state's dtype they give the same products bit for bit:
+    a float32 kernel rounds a Python scalar operand to float32 too."""
+    return (width / (2.0 * tanfovx), height / (2.0 * tanfovy), FRUSTUM_CLAMP * tanfovx,
+            FRUSTUM_CLAMP * tanfovy)
+
+
 def _jacobian_rows(mean3d: torch.Tensor, cam: Camera):
     """The two image rows of J @ W as per-component [P] tensors, with the
     1.3 * tanfov frustum clamp inside J."""
     Wv = cam.world_to_cam[:3, :3]
     tview = mean3d @ Wv.T + cam.world_to_cam[:3, 3]
     tz = tview[:, 2]
-    limx = 1.3 * cam.tanfovx
-    limy = 1.3 * cam.tanfovy
+    fx, fy, limx, limy = (intrinsics(cam.height, cam.width, cam.tanfovx, cam.tanfovy)
+                          if cam.intrinsics is None else cam.intrinsics.unbind())
     tx = clip(tview[:, 0] / tz, -limx, limx) * tz
     ty = clip(tview[:, 1] / tz, -limy, limy) * tz
-    fx, fy = cam.focal_x, cam.focal_y
     inv_z = 1.0 / tz
     inv_z2 = inv_z * inv_z
     j00 = fx * inv_z
@@ -50,11 +59,12 @@ def _jacobian_rows(mean3d: torch.Tensor, cam: Camera):
     return T0, T1
 
 
-def clip(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
+def clip(x: torch.Tensor, lo, hi) -> torch.Tensor:
     """min(max(x, lo), hi) with JAX's gradient rule at the bounds (half the
-    gradient passes at a tie; ``torch.clamp`` passes all of it)."""
-    lo_t = torch.full((), lo, dtype=x.dtype, device=x.device)
-    hi_t = torch.full((), hi, dtype=x.dtype, device=x.device)
+    gradient passes at a tie; ``torch.clamp`` passes all of it).  The bounds
+    are numbers or 0-dim tensors of x's dtype on x's device."""
+    lo_t = lo if torch.is_tensor(lo) else torch.full((), lo, dtype=x.dtype, device=x.device)
+    hi_t = hi if torch.is_tensor(hi) else torch.full((), hi, dtype=x.dtype, device=x.device)
     return torch.minimum(torch.maximum(x, lo_t), hi_t)
 
 
