@@ -115,6 +115,21 @@
       renders at 300 and 600, through the step graphs: K1, K2, K7 and K8
       once per step and warm-up step (counted as in 9), K3 once per test
       view, finite losses and ``eval.json``.
+11. Evaluation and export:
+   a. ``render_curves`` of the driver's ``parametric_edges.json`` at its
+      defaults (a 60-frame orbit at 512x512): K3 once per frame, each PNG
+      read back as the array written, K3 (bitwise) on frame 0's inputs,
+      which must render frame 0; host ms per frame;
+   b. the batched ``ssim`` (the band-matrix path) of the 4 bench views'
+      renders against their ground truths: within 1e-5 of K7's per-pair
+      mean, with a finite gradient;
+   c. an ABC-format GT of the dataset scene's ``gt_edges.json`` and
+      ``run_batch_abc --in-process`` over two scans, the dataset run's
+      finished output (skipped) and the dataset scene trained 300
+      iterations through the step graphs: no failure, finite
+      ``eval_summary.json`` (per-type keys too); a second run skips both;
+   d. ``evaluate_replica`` of the dataset run's curves over 5 views: the
+      counts of stats.json, frames of [H, 2W, 3].
 
 Any failed check exits non-zero.  The last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -489,7 +504,10 @@ def main() -> None:
     driver(dev)
 
     # -- a dataset scene at the reference's operating point ------------------------
-    dataset_scene(dev, profile)
+    scene = dataset_scene(dev, profile)
+
+    # -- evaluation and export ------------------------------------------------------
+    kernels.append(eval_export(dev, ts, cams, gts, pipe_cfg, scene))
 
     print(json.dumps({"kernels": [{k: v for k, v in d.items() if k != "rel_err"}
                                   for d in kernels]}), flush=True)
@@ -815,11 +833,21 @@ def tile_inputs(state, cam, pipe_cfg, geo, invd, ones, color=None):
     """(fields, binning) of one view of a state for a channel set."""
     with torch.no_grad():
         g = cs.gaussians(state)
-        pre = preprocess(g["xyz"], g["scale"], g["quat"], g["opacity"], cam, alive=g["alive"])
-        b = bin_gaussians(pre, cam.height, cam.width, capacity=pipe_cfg.tile_capacity,
-                          big_capacity=pipe_cfg.big_capacity)
+    return splat_inputs(g["xyz"], g["scale"], g["quat"], g["opacity"], cam,
+                        pipe_cfg.tile_capacity, pipe_cfg.big_capacity, geo, invd, ones, color,
+                        alive=g["alive"])
+
+
+def splat_inputs(xyz, scale, quat, opacity, cam, capacity, big_capacity, geo, invd, ones,
+                 color=None, alive=None):
+    """(fields, binning) of one view of Gaussians for a channel set, as
+    ``render`` builds them."""
+    with torch.no_grad():
+        pre = preprocess(xyz, scale, quat, opacity, cam, alive=alive)
+        b = bin_gaussians(pre, cam.height, cam.width, capacity=capacity,
+                          big_capacity=big_capacity)
         color = torch.ones_like(pre.opacity) if color is None else color
-        fields = RC.stack_fields(pre, color, main_axis_allmap(g["xyz"], g["quat"], cam),
+        fields = RC.stack_fields(pre, color, main_axis_allmap(xyz, quat, cam),
                                  geo=geo, invd=invd, ones=ones).contiguous()
     return fields, b
 
@@ -1559,6 +1587,177 @@ def dataset_scene(dev, profile=False):
             and np.isfinite(np.array(tests, float)).all()
             and all(np.isfinite(v) for v in ev.values())):
         fail("the dataset run logged a non-finite loss, test metric or eval.json value")
+    return scene
+
+
+CURVES_DIR = os.path.join(DRIVER_DIR, "render_curves")
+BATCH_DIR = os.path.join(DRIVER_DIR, "abc")
+BATCH_EXTRA = ["--iterations", "300", "--seed", "0", "--quiet"]
+REPLICA_VIEWS = 5
+
+
+def write_abc_gt(gt_dir: str, edges: dict, scans) -> None:
+    """An ABC-format GT directory of the curves in `edges` (the extraction
+    format) for each scan: every edge a vertex chain in obj/<scan>_gt.obj
+    (a Bézier sampled at 64 parameters, a line its two endpoints), typed
+    BSpline or Line and sharp, with the bbox [0,0,0,1,1,1,1,1,1], so that
+    the harness's unit-cube normalisation is the identity."""
+    from curve_gaussian_tpu_torch.models.fitting import sample_bezier
+
+    verts, feats = [], []
+    for kind, chains in (
+            ("BSpline", [sample_bezier(cp, np.linspace(0.0, 1.0, 64)) for cp in
+                         np.asarray(edges["curves_ctl_pts"], float).reshape(-1, 4, 3)]),
+            ("Line", list(np.asarray(edges["lines_end_pts"], float).reshape(-1, 2, 3)))):
+        for chain in chains:
+            feats.append({"type": kind, "sharp": True,
+                          "vert_indices": list(range(len(verts), len(verts) + len(chain)))})
+            verts.extend(chain)
+    os.makedirs(os.path.join(gt_dir, "obj"))
+    for scan in scans:
+        with open(os.path.join(gt_dir, "obj", f"{scan}_gt.obj"), "w") as f:
+            f.writelines(f"v {float(x)!r} {float(y)!r} {float(z)!r}\n" for x, y, z in verts)
+    with open(os.path.join(gt_dir, "chunk_0000_feats.json"), "w") as f:
+        json.dump({scan: feats for scan in scans}, f)
+    with open(os.path.join(gt_dir, "chunk_0000_stats.json"), "w") as f:
+        json.dump({scan: {"bbox": [0, 0, 0, 1, 1, 1, 1, 1, 1]} for scan in scans}, f)
+
+
+def eval_export(dev, ts, cams, gts, pipe_cfg, scene):
+    """Phase 11 of the module docstring; returns K3's entry on the inputs of
+    render_curves' frame 0, with the launches of its run."""
+    import hashlib
+    import shutil
+
+    from curve_gaussian_tpu_torch import train as TR
+    from curve_gaussian_tpu_torch.eval import replica as RP
+    from curve_gaussian_tpu_torch.ops.ssim import ssim as ssim_any
+    from curve_gaussian_tpu_torch.scripts import render_curves as RV
+    from curve_gaussian_tpu_torch.scripts import run_batch_abc as RB
+
+    # -- a. render_curves of the driver's curves ----------------------------------------
+    edges = os.path.join(DRIVER_DIR, "run", "parametric_edges.json")
+    shutil.rmtree(CURVES_DIR, ignore_errors=True)
+    # the defaults: 60 orbit frames of 512x512
+    argv = ["--edges", edges, "--out", CURVES_DIR, "--device", str(dev)]
+    a = RV.parse_args(argv)
+    t0 = time.time()
+    res, c = run_path("render_curves", lambda: RV.render_curves(argv, quiet=True),
+                      ("tile_blend_fwd",), tuple(n for n in WRAPPERS if n != "tile_blend_fwd"))
+    wall = time.time() - t0
+    n = len(res["sha256"])
+    if n != a.n_orbit or c["tile_blend_fwd"] != n:
+        fail(f"render_curves wrote {n} frames and launched K3 {c['tile_blend_fwd']} times, "
+             f"not {a.n_orbit} each")
+    for i in range(n):
+        u8 = PNG.read_png(os.path.join(res["frame_dir"], f"frame_{i:04d}.png"))
+        if u8.shape != (a.size, a.size) or hashlib.sha256(u8.tobytes()).hexdigest() != \
+                res["sha256"][i]:
+            fail(f"render_curves frame {i} does not read back as the array written")
+    with open(edges) as f:
+        edge_dict = json.load(f)
+    splats = RV.edge_gaussians(edge_dict, a.width, dev)
+    fields, b = splat_inputs(*splats, RV.video_cameras(a, dev)[0], RV.CAPACITY, 1024,
+                             True, True, True)
+    k3, outs, _ = k3_entry("render_curves frame 0", fields, b, a.size, a.size, True, True, True)
+    k3["launches"] = c["tile_blend_fwd"]
+    if not np.array_equal(outs[0].clamp(0.0, 1.0).cpu().numpy(), res["first_frame"]):
+        fail("render_curves' frame 0 is not K3's render of its inputs")
+    rs, ws = np.array(res["render_seconds"]) * 1e3, np.array(res["write_seconds"]) * 1e3
+    print(f"render_curves: {n} frames of {a.size}x{a.size}, {len(edge_dict['curves_ctl_pts'])} "
+          f"curves and {len(edge_dict['lines_end_pts'])} lines as {splats[0].shape[0]} "
+          f"Gaussians, {wall:.2f} s; host ms per frame: render median {np.median(rs):.3f} "
+          f"(mean {rs.mean():.3f}, min {rs.min():.3f}, max {rs.max():.3f}), write median "
+          f"{np.median(ws):.3f}; K3 {k3['ms']:.4f} ms; video {res['video']}", flush=True)
+
+    # -- b. batched SSIM on the bench views' renders -------------------------------------
+    with torch.no_grad():
+        renders = torch.stack([T.eval_render(ts, cam, pipe_cfg, 0.0)["render"] for cam in cams])
+    gt_stack = torch.stack(gts)
+    pairs = [float(SC.ssim_fwd(renders[i].contiguous(), gts[i])) for i in range(len(gts))]
+    x = renders.clone().requires_grad_(True)
+    with torch.enable_grad():
+        v = ssim_any(x, gt_stack)
+        v.backward()
+    v = float(v.detach())
+    err = abs(v - float(np.mean(pairs)))
+    ms = cuda_ms(lambda: ssim_any(renders, gt_stack), 10)
+    print(f"batched ssim {tuple(renders.shape)}: {v:.7f} against K7's per-pair mean "
+          f"{float(np.mean(pairs)):.7f} (|difference| {err:.3g}, tol 1e-5); {ms:.4f} ms "
+          f"forward; gradient max |{float(x.grad.abs().max()):.3g}|", flush=True)
+    if not (err <= 1e-5 and bool(torch.isfinite(x.grad).all())):
+        fail("the batched SSIM disagrees with K7's per-pair mean or has a non-finite gradient")
+
+    # -- c. the ABC harness and the batch driver -----------------------------------------
+    shutil.rmtree(BATCH_DIR, ignore_errors=True)
+    gt_dir, data, out = (os.path.join(BATCH_DIR, d) for d in ("gt", "scans", "out"))
+    done_scan, new_scan = "00000001", "00000002"
+    with open(os.path.join(DATASET_DIR, "gt_edges.json")) as f:
+        write_abc_gt(gt_dir, json.load(f), (done_scan, new_scan))
+    os.makedirs(data)
+    for scan in (done_scan, new_scan):
+        os.symlink(os.path.abspath(DATASET_DIR), os.path.join(data, scan))
+    shutil.copytree(os.path.join(DRIVER_DIR, "refscale_run"), os.path.join(out, done_scan))
+    batch = ["--data-root", data, "--output-root", out, "--gt-base-dir", gt_dir, "--in-process",
+             "--device", str(dev), "--extra"] + BATCH_EXTRA
+    trained, real_main = [], TR.main
+
+    def main_timed(argv):  # the scan's TrainResult and host seconds
+        t1 = time.time()
+        r = real_main(argv)
+        trained.append((r, time.time() - t1))
+        return r
+
+    TR.main = main_timed
+    try:
+        t0 = time.time()
+        (done, skipped, failed), c = run_path("batch driver", lambda: RB.main(batch),
+                                              TRAIN_KERNELS)
+        wall = time.time() - t0
+    finally:
+        TR.main = real_main
+    if (done, skipped, failed) != ([new_scan], [done_scan], []) or len(trained) != 1:
+        fail(f"the batch driver trained {done}, skipped {skipped}, failed {failed}")
+    r, train_s = trained[0]
+    iters = int(r.ts.step)
+    check_step_launches("batch scan", c, r.graphs, iters, dict(tile_blend_fwd=0))
+    with open(os.path.join(out, "eval_summary.json")) as f:
+        summary = json.load(f)
+    mean = summary["mean"]
+    print(f"batch driver: scan {new_scan} {iters} iterations, {iters / r.seconds['train']:.3f} "
+          f"it/s over train_scene, main() {train_s:.2f} s; the rest of the batch (skip, eval "
+          f"of 2 scans, diagnostics) {wall - train_s:.2f} s", flush=True)
+    print("batch eval mean: " + ", ".join(f"{k} {mean[k]}" for k in sorted(mean)), flush=True)
+    per_type = {f"{m}_{t}" for m in ("acc", "comp") for t in ("curve", "line")}
+    if not (sorted(summary["per_scan"]) == [done_scan, new_scan] and per_type <= set(mean)
+            and all(np.isfinite(v) for s in summary["per_scan"].values() for v in s.values())
+            and all(np.isfinite(v) for v in mean.values())):
+        fail("eval_summary.json lacks a scan or a per-type metric, or holds a non-finite one")
+    if RB.main(batch) != ([], [done_scan, new_scan], []):
+        fail("a second batch run did not skip both scans")
+
+    # -- d. Replica overlays of the dataset run's curves ------------------------------------
+    rep_dir = os.path.join(DRIVER_DIR, "replica")
+    shutil.rmtree(rep_dir, ignore_errors=True)
+    pred = os.path.join(DRIVER_DIR, "refscale_run", "parametric_edges.json")
+    t0 = time.time()
+    stats = RP.evaluate_replica(pred, scene.train_cameras[:REPLICA_VIEWS],
+                                scene.train_edge_maps[:REPLICA_VIEWS], rep_dir)
+    rep_s = time.time() - t0
+    with open(pred) as f:
+        ed = json.load(f)
+    with open(os.path.join(rep_dir, "stats.json")) as f:
+        on_disk = json.load(f)
+    want = {"n_curves": len(ed["curves_ctl_pts"]), "n_lines": len(ed["lines_end_pts"]),
+            "n_frames": REPLICA_VIEWS}
+    cam0 = scene.train_cameras[0]
+    shapes = {PNG.read_png(os.path.join(rep_dir, f"frame_{i:04d}.png")).shape
+              for i in range(REPLICA_VIEWS)}
+    print(f"replica overlays: {stats} in {rep_s:.2f} s, frame shapes {shapes}", flush=True)
+    if stats != want or on_disk != want or shapes != {(cam0.height, 2 * cam0.width, 3)}:
+        fail(f"replica stats {stats} (on disk {on_disk}) are not {want}, or a frame is not "
+             f"[H, 2W, 3]")
+    return k3
 
 
 def write_png_paeth(path: str, img: np.ndarray) -> None:

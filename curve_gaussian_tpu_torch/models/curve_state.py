@@ -66,9 +66,18 @@ def trainable(state: CurveState) -> Dict[str, torch.Tensor]:
     return {k: getattr(state, k) for k in TRAINABLE_FIELDS}
 
 
+def with_trainable(state: CurveState, t: Dict[str, torch.Tensor]) -> CurveState:
+    """`state` with its trainable leaves replaced by those in `t`."""
+    return dataclasses.replace(state, **t)
+
+
 def curve_state_of(ts) -> CurveState:
     """The CurveState of a training state (its params and topology masks)."""
     return CurveState(**ts.params, is_bezier=ts.is_bezier, alive=ts.alive)
+
+
+def inverse_sigmoid(x):
+    return torch.log(x / (1.0 - x))
 
 
 def inverse_sigmoid_np(x):
@@ -127,6 +136,10 @@ def curve_opacity(state: CurveState) -> torch.Tensor:
 
 def curve_width(state: CurveState) -> torch.Tensor:
     return torch.exp(state.width_raw)
+
+
+def mask_sigmoid(state: CurveState) -> torch.Tensor:
+    return torch.sigmoid(state.mask_raw)
 
 
 def gaussians(state: CurveState, use_mask: bool = False, mask_threshold: float = 0.01):

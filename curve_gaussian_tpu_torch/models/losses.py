@@ -31,6 +31,15 @@ def edge_aware_loss(image: torch.Tensor, gt: torch.Tensor, threshold: float = 0.
     return torch.mean((image - gt) ** 2 * mask)
 
 
+def l1_loss(a, b):
+    return torch.abs(a - b).mean()
+
+
+def psnr(a, b):
+    mse = torch.mean((a - b) ** 2)
+    return 20.0 * torch.log10(1.0 / torch.sqrt(mse + 1e-12))
+
+
 def curve_smoothness(tangent: torch.Tensor, alive: torch.Tensor, n_gaussians: int):
     """mean(1 - |cos|) of consecutive Gaussian main axes of live curves."""
     t = safe_normalize(tangent.reshape(-1, n_gaussians, 3))

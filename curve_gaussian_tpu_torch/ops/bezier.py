@@ -9,7 +9,10 @@ the curve width, and a rotation whose first axis is the tangent.  Mirrors
 matrices keep its float32-rounded coefficients so that both packages
 sample the same points.
 
-De Casteljau split and trim belong to topology surgery, a later slice.
+The evaluation helpers (``bezier_point`` ... ``curve_tangent``), De
+Casteljau split and trim and ``curve_lengths`` keep the JAX signatures;
+topology surgery runs on the host with the numpy versions in
+``models/surgery.py``.
 """
 from __future__ import annotations
 
@@ -32,6 +35,43 @@ def safe_normalize(x: torch.Tensor, dim=-1, eps: float = 1e-12):
     """x/|x| with zero output (and finite gradient) for zero input."""
     n = safe_norm(x, dim=dim, keepdim=True, eps=eps)
     return x / torch.where(n > 0, n, torch.ones_like(n))
+
+
+def bezier_point(cp: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """Cubic Béziers at parameters t: cp [..., 4, 3], t [T] -> [..., T, 3]."""
+    t = t[..., :, None]
+    p0, p1, p2, p3 = (cp[..., i, None, :] for i in range(4))
+    u = 1.0 - t
+    return u**3 * p0 + 3.0 * u**2 * t * p1 + 3.0 * u * t**2 * p2 + t**3 * p3
+
+
+def bezier_tangent(cp: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """Derivative of cubic Béziers; [..., 4, 3], [T] -> [..., T, 3]."""
+    t = t[..., :, None]
+    p0, p1, p2, p3 = (cp[..., i, None, :] for i in range(4))
+    u = 1.0 - t
+    return 3.0 * u**2 * (p1 - p0) + 6.0 * u * t * (p2 - p1) + 3.0 * t**2 * (p3 - p2)
+
+
+def line_point(cp: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """Linear interpolation between control rows 0 and 3."""
+    t = t[..., :, None]
+    p0, p3 = cp[..., 0, None, :], cp[..., 3, None, :]
+    return (1.0 - t) * p0 + t * p3
+
+
+def line_tangent(cp: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    d = cp[..., 3, None, :] - cp[..., 0, None, :]
+    return d.expand(d.shape[:-2] + (t.shape[-1], 3))
+
+
+def curve_point(cp: torch.Tensor, t: torch.Tensor, is_bezier: torch.Tensor) -> torch.Tensor:
+    """Mixed Bézier/line evaluation; is_bezier [...] bool -> [..., T, 3]."""
+    return torch.where(is_bezier[..., None, None], bezier_point(cp, t), line_point(cp, t))
+
+
+def curve_tangent(cp: torch.Tensor, t: torch.Tensor, is_bezier: torch.Tensor) -> torch.Tensor:
+    return torch.where(is_bezier[..., None, None], bezier_tangent(cp, t), line_tangent(cp, t))
 
 
 def sample_t_midpoints(n_gaussians: int, dtype=torch.float32, device="cpu") -> torch.Tensor:
@@ -151,3 +191,48 @@ def initialize_bezier_curves(points: torch.Tensor, bound: torch.Tensor) -> torch
         ],
         dim=1,
     )
+
+
+def de_casteljau_split(cp: torch.Tensor, t: torch.Tensor, is_bezier: torch.Tensor):
+    """Split curves at parameter t: cp [N, 4, 3], t [N] (or [N, 1]),
+    is_bezier [N] -> (left, right), each [N, 4, 3].  A line splits
+    linearly, with its interior control points at thirds."""
+    t = torch.reshape(t, (-1, 1))
+    c0, c1, c2, c3 = cp[:, 0], cp[:, 1], cp[:, 2], cp[:, 3]
+    q0 = (1 - t) * c0 + t * c1
+    q1 = (1 - t) * c1 + t * c2
+    q2 = (1 - t) * c2 + t * c3
+    r0 = (1 - t) * q0 + t * q1
+    r1 = (1 - t) * q1 + t * q2
+    s = (1 - t) * r0 + t * r1
+    left_b = torch.stack([c0, q0, r0, s], dim=1)
+    right_b = torch.stack([s, r1, q2, c3], dim=1)
+
+    sl = (1 - t) * c0 + t * c3
+    left_l = torch.stack(
+        [c0, (2 / 3) * c0 + (1 / 3) * sl, (1 / 3) * c0 + (2 / 3) * sl, sl], dim=1
+    )
+    right_l = torch.stack(
+        [sl, (2 / 3) * sl + (1 / 3) * c3, (1 / 3) * sl + (2 / 3) * c3, c3], dim=1
+    )
+    sel = is_bezier[:, None, None]
+    return torch.where(sel, left_b, left_l), torch.where(sel, right_b, right_l)
+
+
+def de_casteljau_trim(cp: torch.Tensor, from_t: torch.Tensor, end_t: torch.Tensor,
+                      is_bezier: torch.Tensor) -> torch.Tensor:
+    """The [from_t, end_t] portion of each curve: split at from_t, keep the
+    right part, split it at the original end_t (the reference's semantics:
+    end_t on the right part lands at another arclength)."""
+    from_t = torch.clamp(torch.reshape(from_t, (-1,)), 0.0, 1.0)
+    end_t = torch.clamp(torch.reshape(end_t, (-1,)), 0.0, 1.0)
+    _, right = de_casteljau_split(cp, from_t, is_bezier)
+    left, _ = de_casteljau_split(right, end_t, is_bezier)
+    return left
+
+
+def curve_lengths(cp: torch.Tensor, is_bezier: torch.Tensor, n_samples: int = 64) -> torch.Tensor:
+    """Polyline arclength approximation, [N, 4, 3] -> [N]."""
+    t = torch.linspace(0.0, 1.0, n_samples, dtype=cp.dtype, device=cp.device)
+    pts = curve_point(cp, t, is_bezier)
+    return torch.linalg.norm(torch.diff(pts, dim=-2), dim=-1).sum(dim=-1)

@@ -13,6 +13,7 @@ from typing import NamedTuple
 import torch
 
 from .camera import Camera
+from .quaternion import quat_to_rotmat
 
 NEAR_CULL_Z = 0.2
 H_VAR = 0.3
@@ -57,6 +58,29 @@ def _jacobian_rows(mean3d: torch.Tensor, cam: Camera):
     T0 = tuple(j00 * Wv[0, i] + j02 * Wv[2, i] for i in range(3))
     T1 = tuple(j11 * Wv[1, i] + j12 * Wv[2, i] for i in range(3))
     return T0, T1
+
+
+def build_cov3d(scale: torch.Tensor, quat: torch.Tensor, modifier: float = 1.0) -> torch.Tensor:
+    """[P,3] scales, [P,4] unit quats -> [P,3,3] world covariance R S^2 R^T."""
+    R = quat_to_rotmat(quat)
+    s2 = (modifier * scale) ** 2
+    return torch.einsum("pij,pj,pkj->pik", R, s2, R)
+
+
+def ewa_cov2d(mean3d: torch.Tensor, cov3d: torch.Tensor, cam: Camera) -> torch.Tensor:
+    """World covariance [P,3,3] projected to the 2D pixel covariance [P,3]
+    = (cxx, cxy, cyy) = T Sigma T^T, without the low-pass dilation.  The
+    general form for an explicit cov3d; ``preprocess`` uses
+    ``ewa_cov2d_direct``, which never builds the 3x3s."""
+    (t00, t01, t02), (t10, t11, t12) = _jacobian_rows(mean3d, cam)
+    T0 = torch.stack([t00, t01, t02], dim=-1)
+    T1 = torch.stack([t10, t11, t12], dim=-1)
+    S0 = torch.einsum("pi,pij->pj", T0, cov3d)
+    S1 = torch.einsum("pi,pij->pj", T1, cov3d)
+    cxx = torch.einsum("pj,pj->p", S0, T0)
+    cxy = torch.einsum("pj,pj->p", S0, T1)
+    cyy = torch.einsum("pj,pj->p", S1, T1)
+    return torch.stack([cxx, cxy, cyy], dim=-1)
 
 
 def clip(x: torch.Tensor, lo, hi) -> torch.Tensor:

@@ -1,5 +1,5 @@
 """The port stands alone: no module of ``curve_gaussian_tpu_torch`` (nor
-``chip_smoke.py``) imports JAX, the JAX package or PIL, entry points run on the
+``chip_smoke.py``) imports JAX, the JAX package, PIL or matplotlib, entry points run on the
 card unless the caller asks for the CPU, and the kernel wrappers launch
 nothing for CPU tensors.  The last three tests need a CUDA card: they hold
 every kernel against its plain version there, K7/K8 at shapes ragged
@@ -27,12 +27,14 @@ from curve_gaussian_tpu_torch.ops import camera as pcam
 from curve_gaussian_tpu_torch.ops import rasterize_cuda as prc
 from curve_gaussian_tpu_torch.ops import ssim_cuda as psc
 from curve_gaussian_tpu_torch.ops import tile_blend_cuda as ptb
+from curve_gaussian_tpu_torch.scripts import run_batch_abc
 from curve_gaussian_tpu_torch.scripts.make_ref_scale_scene import make_ref_scale_scene
+from curve_gaussian_tpu_torch.scripts.render_curves import render_curves
 from test_torch_port_cull_cases import FAMILIES, packed_family
 
 ROOT = Path(__file__).resolve().parent.parent
 PKG = ROOT / "curve_gaussian_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "curve_gaussian_tpu", "PIL")
+FORBIDDEN = ("jax", "jaxlib", "curve_gaussian_tpu", "PIL", "matplotlib")
 
 
 def _modules():
@@ -47,7 +49,8 @@ def test_importing_every_module_loads_no_jax():
     for m in ("engine.loop", "engine.checkpoint", "models.surgery", "models.fitting",
               "eval.extract", "eval.metrics", "data.ply", "models.ellipsoids",
               "models.gaussian_ply", "train", "data.colmap", "data.png", "data.dataset",
-              "scripts.make_ref_scale_scene"):
+              "scripts.make_ref_scale_scene", "ops.sh", "eval.abc", "eval.replica",
+              "scripts.render_curves", "scripts.run_batch_abc", "scripts.eval_gt_json"):
         assert f"curve_gaussian_tpu_torch.{m}" in mods, m
     code = (
         "import importlib, sys\n"
@@ -98,6 +101,8 @@ def test_entry_points_default_to_the_card():
         lambda: ptrain_cli.main(["--synthetic", "--iterations", "2", "--image-size", "32"]),
         lambda: dataset.load_emap(ModelConfig(source_path="unused")),
         lambda: make_ref_scale_scene(["--out", "unused"]),
+        lambda: render_curves(["--edges", "unused"]),
+        lambda: run_batch_abc.main(["--data-root", "unused"]),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA is not available"):

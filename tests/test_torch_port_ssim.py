@@ -9,7 +9,9 @@ below the fused kernel's 128-row tile, one above it and ragged.
 
 float64: against ``ssim.ssim``, which under x64 takes the banded-matmul
 route (only float32 goes to the fused kernels); both sides use the same
-float32-rounded window taps.
+float32-rounded window taps.  The port's ``ssim`` takes that route for
+float64 too, so the fused pair's plain versions are held there through
+``ssim_fused``.
 """
 import numpy as np
 import pytest
@@ -39,10 +41,10 @@ def _pair(shape, dtype, seed):
     return a, b
 
 
-def _port(a, b, scale=1.0):
+def _port(a, b, scale=1.0, fn=pssim.ssim):
     at = tt(a, None).requires_grad_(True)
     bt = tt(b, None).requires_grad_(True)
-    v = pssim.ssim(at, bt)
+    v = fn(at, bt)
     (scale * v).backward()
     return v.detach(), at.grad, bt.grad
 
@@ -66,10 +68,11 @@ def test_float64_matches_ssim(shape):
     a, b = _pair(shape, np.float64, 3)
     jv, (ja, jb) = jax.value_and_grad(lambda x, y: jssim.ssim(x, y), argnums=(0, 1))(
         jnp.asarray(a), jnp.asarray(b))
-    v, ga, gb = _port(a, b)
-    assert abs(float(v) - float(jv)) < 1e-12
-    assert_close(ga, np.asarray(ja), 1e-10, "d img1")
-    assert_close(gb, np.asarray(jb), 1e-10, "d img2")
+    for fn in (pssim.ssim, psc.ssim_fused):  # the band-matrix path, K7/K8's plain versions
+        v, ga, gb = _port(a, b, fn=fn)
+        assert abs(float(v) - float(jv)) < 1e-12
+        assert_close(ga, np.asarray(ja), 1e-10, "d img1")
+        assert_close(gb, np.asarray(jb), 1e-10, "d img2")
 
 
 def test_plain_backward_is_the_gradient():
