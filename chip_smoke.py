@@ -50,6 +50,18 @@
    the driver's ``cuGraphGetNodes``), beside one eager step captured the
    same way; no host node and no copy from host memory, and the wrappers
    must have launched K1, K2, K7 and K8 once each during the capture.
+6b. The view-batched step (``parallel/sharding.py``), B = 2 and B = 4
+   views per optimizer step over the bench views, from the same state: one
+   step captured whole as a CUDA graph (``parallel_train_steps_scan``), its
+   capture holding K1, K2, K7 and K8 B times each and no host work; that
+   step against the same step run eagerly (``parallel_train_step``) and
+   against Adam applied by hand to the mean of B ``step_grads`` calls: the
+   loss within 1e-6 relative, every state array no further than 2x a
+   second eager step's distance plus 1e-6 of its max; then 20 B-view steps
+   in turns with the same views as one-view graphed steps (one-view, B,
+   B, one-view): ms per step and per view on the host clock, each turn's
+   peak memory, and the device time of one replay of each graph (CUDA
+   events).
 7. The full-channel render, from the state after the eager steps:
    a. K3, K4 and K5 against their plain versions at the shapes the paths
       below give them: (geo, invd, ones) = (T, T, T) (the eval render),
@@ -98,6 +110,12 @@
    exist, that the checkpoint loads into a template leaf by leaf bitwise,
    and that a second run resumes from it to 600 (the same launch checks
    over its 50 steps) and writes its own ``parametric_edges.json``.
+9b. The driver run of 9 (without the resume) at ``--views-per-step 4``:
+   each chunk through ``parallel_train_steps_scan``, each capture holding
+   K1, K2, K7 and K8 4 times and each kernel run 4 times per step and
+   warm-up step on the device; its it/s, views/s, final curve count and
+   host seconds by phase beside the one-view run's, finite losses and
+   ``eval.json``.
 10. A dataset scene at the reference's operating point:
    a. the port's scene maker at its defaults (50 views of 1600x1600, 24
       Beziers and 8 lines, tile capacity 1024): K1 once per view, no view
@@ -164,6 +182,7 @@ from curve_gaussian_tpu_torch.ops import tile_blend_cuda as TB
 from curve_gaussian_tpu_torch.ops.binning import bin_gaussians, tile_grid
 from curve_gaussian_tpu_torch.ops.projection import preprocess
 from curve_gaussian_tpu_torch.ops.render import main_axis_allmap, render
+from curve_gaussian_tpu_torch.parallel import sharding as PS
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM rate, float32 outside
 # the tensor cores (an FMA counts 2), and the special-function unit's exp2,
@@ -490,6 +509,9 @@ def main() -> None:
     # -- the main path through the step graph ----------------------------------
     graphed_step(ts, cams, gts, opt_cfg, pipe_cfg, M, profile)
 
+    # -- the view-batched step (B = 2, 4) through its step graph ----------------
+    view_batches(ts, cams, gts, opt_cfg, pipe_cfg, M, smi)
+
     # -- the full-channel render ---------------------------------------------
     kernels += full_channel(ts, cams, gts, opt_cfg, pipe_cfg, M, dev)
 
@@ -500,8 +522,8 @@ def main() -> None:
     if profile:
         profile_step(lambda: [step(i) for i in range(2)], 2, "eager bench step")
 
-    # -- the training driver at full width ---------------------------------------
-    driver(dev)
+    # -- the training driver at full width, one view and four views a step ---------
+    views_driver(dev, driver(dev), smi)
 
     # -- a dataset scene at the reference's operating point ------------------------
     scene = dataset_scene(dev, profile)
@@ -770,7 +792,8 @@ def graphed_step(ts, cams, gts, opt_cfg, pipe_cfg, M, profile=False):
               f"{peak / 2**30:.3f} GiB", flush=True)
     mean = {n: np.mean([dt for m, (dt, _) in turns if m == n]) for n in ("eager", "graphed")}
     print(f"graphed step: {mean['graphed'] * 1e3:.3f} ms/step against eager "
-          f"{mean['eager'] * 1e3:.3f} ({mean['eager'] / mean['graphed']:.2f}x), captures "
+          f"{mean['eager'] * 1e3:.3f} ({mean['eager'] / mean['graphed']:.2f}x), device time "
+          f"{replay_ms(graphs):.3f} ms (CUDA events around one replay), captures "
           f"{len(graphs.captures)} in {graphs.capture_seconds:.3f} s, memory reserved "
           f"{torch.cuda.memory_reserved() / 2**30:.3f} GiB (the graph pool included)",
           flush=True)
@@ -780,14 +803,166 @@ def graphed_step(ts, cams, gts, opt_cfg, pipe_cfg, M, profile=False):
     graphs.release()
 
 
-def check_step_launches(label: str, counts: dict, graphs, steps: int, eager: dict) -> None:
+# the view-batched step (B views per optimizer step): B = 2 and 4 over the
+# bench views, 20 steps a timed chunk; one graphed step against the same
+# step run eagerly, and against Adam applied to the mean of B step_grads:
+# the loss within 1e-6 relative, every state array no further than 2x a
+# second eager step's distance plus 1e-6 of its max (K2's atomics move the
+# last float32 bits from run to run, 1.4e-7 of max)
+VIEW_BATCHES = (2, 4)
+VIEW_STEPS = 20
+VIEW_TOL = 1e-6
+
+
+def replay_ms(graphs) -> float:
+    """Device milliseconds of one replay of the graph captured last (CUDA
+    events around it, median of 20; the step counter reset before each)."""
+    g, b = graphs.latest_graph(), graphs._bufs
+    return cuda_ms(lambda _: g.replay(), 20, setup=lambda: b.counter.zero_())
+
+
+def mean_grads_step(ts, cams, gts, views, opt_cfg, pipe_cfg, M):
+    """The B-view step written out: B ``step_grads`` calls, their mean
+    gradient through ``optim.adam_update`` at the rates of ``ts.step``, and
+    the statistics; returns (the state's leaves, the mean loss)."""
+    sums = None
+    for v in views:
+        _, aux, grads, goff, vis, rad, _ = T.step_grads(ts, cams[v], gts[v], 0.0, opt_cfg,
+                                                        pipe_cfg, use_mask=False, n_gaussians=M)
+        if sums is None:
+            sums = [{k: torch.zeros_like(g) for k, g in grads.items()}, torch.zeros_like(goff),
+                    0.0, torch.zeros_like(vis), torch.zeros_like(rad)]
+        sums = [{k: sums[0][k] + g for k, g in grads.items()}, sums[1] + goff,
+                sums[2] + float(aux["total"]), sums[3] | vis, torch.maximum(sums[4], rad)]
+    B = len(views)
+    grads, goff, total, vis, rad = sums
+    params, opt = optim.adam_update(ts.params, {k: g / B for k, g in grads.items()}, ts.opt,
+                                    optim.group_lrs(opt_cfg, ts.step))
+    H, W = cams[0].height, cams[0].width
+    gnorm = (goff / B * torch.tensor([0.5 * W, 0.5 * H], device=goff.device)).norm(dim=-1)
+    leaves = {**{f"params/{k}": v for k, v in params.items()},
+              **{f"mu/{k}": v for k, v in opt.mu.items()},
+              **{f"nu/{k}": v for k, v in opt.nu.items()},
+              "xyz_grad_accum": ts.xyz_grad_accum + gnorm * vis,
+              "denom": ts.denom + vis.to(ts.denom.dtype),
+              "max_radii": torch.maximum(ts.max_radii, torch.where(vis, rad, 0))}
+    return leaves, total / B
+
+
+def view_batches(ts, cams, gts, opt_cfg, pipe_cfg, M, smi: str):
+    """Phase 6b of the module docstring, from the state after the main
+    path's eager steps."""
+    H, W = cams[0].height, cams[0].width
+    dev = gts[0].device
+    nv = len(cams)
+    stacks = T.camera_stacks(cams, torch.float32, dev)
+    gt_stack = torch.stack(gts)
+    geom = (H, W, cams[0].tanfovx, cams[0].tanfovy)
+    one = T.StepGraphs()
+
+    def single(rows):
+        return T.train_steps_scan(ts, stacks, gt_stack, 0.0, opt_cfg, pipe_cfg, use_mask=False,
+                                  n_gaussians=M, cam_geom=geom, rows=rows, graphs=one)
+
+    single([0])  # the one-view capture, outside the turns
+    one_ms = replay_ms(one)
+    for B in VIEW_BATCHES:
+        graphs = T.StepGraphs(PS._local_batch_step)
+        table = [[(i * B + j) % nv for j in range(B)] for i in range(VIEW_STEPS)]
+
+        def batched(tab):
+            return PS.parallel_train_steps_scan(ts, stacks, gt_stack, 0.0, opt_cfg, pipe_cfg,
+                                                use_mask=False, mesh_shape=None, cam_geom=geom,
+                                                rows=tab, graphs=graphs)
+
+        # -- the capture: one step, K1, K2, K7 and K8 B times each, no host work --------
+        (g1, mg), counts = run_path(f"B={B} graphed step", lambda: batched(table[:1]),
+                                    TRAIN_KERNELS)
+        check_step_launches(f"B={B} graphed step", counts, graphs, 1, {}, views=B)
+        nodes = graph_nodes(graphs.latest_graph())
+        print(f"B={B} graphed step: the captured step's nodes {nodes}", flush=True)
+        if nodes.get("host", 0) or nodes.get("memcpy_from_host", 0) or not nodes.get("kernel"):
+            fail(f"the B={B} captured step holds host work or copies from host memory: {nodes}")
+
+        # -- against the same step eagerly, and against the mean of B step_grads ------------
+        row = table[0]
+
+        def eager():
+            return PS.parallel_train_step(ts, tuple(s[row] for s in stacks), gt_stack[row], 0.0,
+                                          opt_cfg, pipe_cfg, use_mask=False, mesh_shape=None,
+                                          cam_geom=geom)
+
+        (e1, m1), (e2, _) = eager(), eager()
+        mean_leaves, mean_loss = mean_grads_step(ts, cams, gts, row, opt_cfg, pipe_cfg, M)
+        torch.cuda.synchronize()
+        loss_g = float(mg["total"][0])
+        loss_err = {"eager": abs(loss_g - float(m1["total"])) / abs(float(m1["total"])),
+                    "mean of step_grads": abs(loss_g - mean_loss) / abs(mean_loss)}
+        gl, el, ol = (T._state_leaves(t) for t in (g1, e1, e2))
+        worst = []
+        for k, e in el.items():
+            e, o = e.double(), ol[k].double()
+            bound = GRAPH_STATE_SLACK * (o - e).abs().max().item() + VIEW_TOL * e.abs().max().item()
+            for name, ref in (("eager", e), ("mean of step_grads", mean_leaves.get(k))):
+                if ref is None:
+                    continue
+                d = (gl[k].double() - ref.double()).abs().max().item()
+                worst.append((d / bound if bound > 0 else (0.0 if d == 0 else np.inf), name, k,
+                              d, bound))
+        worst.sort(key=lambda w: -w[0])
+        print(f"B={B} graphed step against eager and against the mean of {B} step_grads "
+              f"(an Adam step by hand): loss {loss_g:.8f}, error over value "
+              f"{ {k: f'{v:.3g}' for k, v in loss_err.items()} } (tol {VIEW_TOL:g}); state, "
+              "worst (max |graphed - ref| over its bound): " + ", ".join(
+                  f"{n} {k} {d:.3g}/{b:.3g}" for _, n, k, d, b in worst[:6]), flush=True)
+        if max(loss_err.values()) > VIEW_TOL:
+            fail(f"the B={B} graphed step's loss disagrees: {loss_err}")
+        if worst[0][0] > 1.0:
+            fail(f"the B={B} graphed step's {worst[0][2]} is further from the {worst[0][1]} "
+                 f"step than {GRAPH_STATE_SLACK:g} x a second eager step plus {VIEW_TOL:g} of "
+                 "max")
+
+        # -- timing in turns against one-view graphed steps over the same views -----------
+        flat = [v for r in table for v in r]
+
+        def timed(fn, arg):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.time()
+            fn(arg)
+            torch.cuda.synchronize()
+            return time.time() - t0, torch.cuda.max_memory_allocated()
+
+        turns = [("one-view", timed(single, flat)), (f"B={B}", timed(batched, table)),
+                 (f"B={B}", timed(batched, table)), ("one-view", timed(single, flat))]
+        for name, (dt, peak) in turns:
+            steps = len(flat) if name == "one-view" else len(table)
+            print(f"turn {name}: {dt / steps * 1e3:.3f} ms/step, {dt / len(flat) * 1e3:.3f} "
+                  f"ms/view ({steps} steps, {len(flat)} views, host clock), peak memory "
+                  f"{peak / 2**30:.3f} GiB", flush=True)
+        b_ms = replay_ms(graphs)
+        per_view = {n: np.mean([dt for m, (dt, _) in turns if m == n]) / len(flat)
+                    for n in ("one-view", f"B={B}")}
+        print(f"B={B} graphed step: {per_view[f'B={B}'] * B * 1e3:.3f} ms/step, "
+              f"{per_view[f'B={B}'] * 1e3:.3f} ms/view against one-view graphed "
+              f"{per_view['one-view'] * 1e3:.3f} ms/view (host clock, mean of two turns); "
+              f"device time per step {b_ms:.3f} ms ({b_ms / B:.3f} ms/view) against one-view "
+              f"{one_ms:.3f} ms (CUDA events around one replay); capture "
+              f"{graphs.capture_seconds:.3f} s; {smi}", flush=True)
+        graphs.release()
+    one.release()
+
+
+def check_step_launches(label: str, counts: dict, graphs, steps: int, eager: dict,
+                        views: int = 1) -> None:
     """The launch checks of a run through ``train_scene``'s step graphs: the
     wrappers' counts are host counts (a captured launch counts once), so
     the device's launches are the counts less those of the captures plus
     each capture's times its replays.  Every capture must hold K1, K2, K7
-    and K8 once each and nothing else, the replays must be the run's steps,
-    and K1, K2, K7 and K8 must have run once per step and per warm-up step
-    on the device; `eager` gives the other kernels' launches."""
+    and K8 `views` times each (once per view of a step) and nothing else,
+    the replays must be the run's steps, and K1, K2, K7 and K8 must have
+    run `views` times per step and per warm-up step on the device; `eager`
+    gives the other kernels' launches."""
     captured, replayed = graphs.captured_launches(), graphs.replayed_launches()
     device = {n: v - captured.get(n, 0) + replayed.get(n, 0) for n, v in counts.items()}
     replays = sum(c["replays"] for c in graphs.captures)
@@ -796,15 +971,17 @@ def check_step_launches(label: str, counts: dict, graphs, steps: int, eager: dic
           f"on the device {device}", flush=True)
     for c in graphs.captures:
         print(f"{label} capture: capacity {c['capacity']} K {c['tile_capacity']} big "
-              f"{c['big_capacity']} mask {c['use_mask']} connectivity {c['conn_on']}: "
+              f"{c['big_capacity']} views {c['views']} mask {c['use_mask']} connectivity "
+              f"{c['conn_on']}: "
               f"{c['seconds']:.3f} s (warm-up {c['warmup_seconds']:.3f}, capture "
               f"{c['capture_seconds']:.3f}, instantiation {c['instantiate_seconds']:.3f}), "
               f"{c['replays']} replays, launches {c['launches']}", flush=True)
-        if c["launches"] != {n: 1 for n in TRAIN_KERNELS}:
-            fail(f"a {label} capture launched {c['launches']}, not K1, K2, K7 and K8 once each")
+        if c["launches"] != {n: views for n in TRAIN_KERNELS}:
+            fail(f"a {label} capture launched {c['launches']}, not K1, K2, K7 and K8 "
+                 f"{views} times each")
     if replays != steps:
         fail(f"the {label} replayed its step graphs {replays} times, not {steps}")
-    want = {**{n: steps + graphs.warmup_steps for n in TRAIN_KERNELS}, **eager}
+    want = {**{n: views * (steps + graphs.warmup_steps) for n in TRAIN_KERNELS}, **eager}
     for n, v in want.items():
         if device[n] != v:
             fail(f"the {label} launched {n} {device[n]} times on the device, not {v}")
@@ -1304,6 +1481,53 @@ def driver(dev):
             os.path.join(resume_dir, "parametric_edges.json")):
         fail(f"the resumed run did not train {ck_it} -> {n_it} and write its "
              "parametric_edges.json")
+    return res
+
+
+VIEWS_PER_STEP = 4
+
+
+def views_driver(dev, one_view, smi: str):
+    """Phase 9b of the module docstring: the driver run of phase 9 (without
+    its resume) at ``--views-per-step 4``, beside the one-view run
+    `one_view` (its TrainResult)."""
+    from curve_gaussian_tpu_torch import train as TR
+
+    a = TR.parse_args(DRIVER_ARGS)
+    run_dir = os.path.join(DRIVER_DIR, f"views{VIEWS_PER_STEP}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    res, c = run_path(f"driver views_per_step {VIEWS_PER_STEP}", lambda: TR.main(
+        DRIVER_ARGS + ["--model-path", run_dir, "--views-per-step", str(VIEWS_PER_STEP)]),
+        TRAIN_KERNELS + ("tile_blend_fwd",),
+        ("tile_blend_bwd", "blend_moment_bwd", "blend_train_bwd_basis"))
+    peak = torch.cuda.max_memory_allocated()
+    check_step_launches(f"driver views_per_step {VIEWS_PER_STEP}", c, res.graphs, a.iterations,
+                        dict(tile_blend_fwd=a.synthetic_views + 2 * len(a.test_iterations)),
+                        views=VIEWS_PER_STEP)
+    if int(res.ts.step) != a.iterations:
+        fail(f"the views_per_step {VIEWS_PER_STEP} run ended at step {int(res.ts.step)}")
+    with open(os.path.join(run_dir, "metrics.jsonl")) as fh:
+        totals = [json.loads(line).get("total") for line in fh]
+    totals = [t for t in totals if t is not None]
+    if not (totals and np.isfinite(totals).all()):
+        fail(f"the views_per_step {VIEWS_PER_STEP} run logged no finite losses")
+    with open(os.path.join(run_dir, "eval.json")) as fh:
+        ev = json.load(fh)
+    if not np.isfinite(ev["chamfer"]):
+        fail(f"the views_per_step {VIEWS_PER_STEP} run's Chamfer distance is not finite")
+    for name, r, b in (("one view", one_view, 1), (f"{VIEWS_PER_STEP} views", res,
+                                                    VIEWS_PER_STEP)):
+        sec, it = r.seconds, int(r.ts.step)
+        n = len(r.edge_dict["curves_ctl_pts"]) + len(r.edge_dict["lines_end_pts"])
+        print(f"driver at {name} a step: {it} iterations, {it / sec['train']:.3f} it/s, "
+              f"{b * it / sec['train']:.3f} views/s (host clock over train_scene); final "
+              f"{int(r.ts.alive.sum())} curves, {n} edges extracted; host seconds by phase "
+              + ", ".join(f"{k} {v:.3f}" for k, v in sec.items() if k != "train"), flush=True)
+    print(f"driver views_per_step {VIEWS_PER_STEP}: logged loss first {totals[0]:.5f} last "
+          f"{totals[-1]:.5f}; chamfer {ev['chamfer']:.5f}, F@0.01 {ev['fscore_0.01']:.4f}; "
+          f"peak memory {peak / 2**30:.3f} GiB; {smi}", flush=True)
 
 
 DATASET_DIR = os.path.join(DRIVER_DIR, "refscale")

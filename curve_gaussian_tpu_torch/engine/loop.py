@@ -23,16 +23,23 @@ What ``train_scene`` does, and how the port does it:
   curve count, growing or shrinking at once.  The adaptive tile capacity K
   and the big tier shrink toward their observed peaks at the chunk end too:
   the JAX package's TPU run switches once the smaller shapes' compile has
-  warmed, and the port has nothing to compile.
+  warmed, and the port has nothing to compile.  The B-view step reports no
+  ``big_peak`` (as in the JAX package), so on that path the big tier only
+  grows.
 - **Views and background** come from ``random.Random(seed)`` in the JAX
   package's order, so both packages visit the same views.
+- **Views per step.** With ``views_per_step = B > 1`` each chunk draws its
+  ``k * B`` views as a [k, B] table and runs through
+  ``parallel/sharding.py::parallel_train_steps_scan``: one optimizer step
+  over the mean gradient of B views, captured whole as one graph on the
+  card.  It runs on one device; ``n_devices`` other than None or 1 belongs
+  to the multi-device slice (ROADMAP slice 11b) and raises.
 - **Left out as TPU/XLA machinery:** the ``Prewarmer`` and ``engine/warm.py``
   (ahead-of-time compiles), the persistent compile cache, the
   ``device_put`` commits of the state, the padding of every chunk to one
   compiled length (a graph replays any number of steps), and the deferral
   of a capacity shrink until its compile is warm (a capture takes about a
-  step's time).  ``views_per_step > 1`` and ``n_devices`` belong to the
-  multi-device slice and raise.
+  step's time).
 """
 from __future__ import annotations
 
@@ -56,6 +63,7 @@ from ..models import surgery
 from ..models.ellipsoids import save_ellipsoid_mesh
 from ..models.gaussian_ply import save_gaussian_ply
 from ..ops.camera import Camera
+from ..parallel.sharding import _local_batch_step, parallel_train_steps_scan
 from . import checkpoint as ckpt_mod
 from .train import (StepGraphs, TrainState, camera_stacks, eval_render, init_train_state,
                     train_step, train_steps_scan)
@@ -225,13 +233,17 @@ def train_scene(
 ) -> TrainResult:
     """Train one scene end to end on `device`.  The cameras and edge maps
     (numpy or tensors) must be on that device or the host; the state is
-    float32, as in the JAX package."""
-    if views_per_step > 1 or n_devices not in (None, 1):
+    float32, as in the JAX package.  ``views_per_step`` views make one
+    optimizer step (their mean gradient) on the one device."""
+    if n_devices not in (None, 1):
         raise NotImplementedError(
-            "views_per_step > 1 and n_devices are the data-parallel path, which the "
-            "multi-device slice of the port (ROADMAP slice 11) brings; this driver "
+            f"n_devices={n_devices}: more than one device is the data-parallel path "
+            "of the multi-device slice of the port (ROADMAP slice 11b); this driver "
             "trains on one device"
         )
+    B = max(int(views_per_step), 1)
+    # the JAX driver's route: B views per step, or n_devices > 1 (raised above)
+    parallel = B > 1
     dev = resolve_device(device)
     m = model_cfg.n_gaussians
     state = cs.init_state(seed_points, n_views=len(cameras), n_gaussians=m, device=dev)
@@ -268,7 +280,9 @@ def train_scene(
     gt_all = torch.stack([torch.as_tensor(e) for e in edge_maps]).to(device=dev, dtype=dt)
     cam_stacks = camera_stacks(cameras, dt, dev)
     cam_geom = (cameras[0].height, cameras[0].width, cameras[0].tanfovx, cameras[0].tanfovy)
-    graphs = StepGraphs(train_step)
+    graphs = StepGraphs(_local_batch_step if parallel else train_step)
+    if parallel and not quiet:
+        print(f"data-parallel: {B} views/step over 1 device(s)", flush=True)
     test_gts = [extract_mod.host_array(e) for e in test_edge_maps]
     view_stack: List[int] = []
     t_start = time.time()
@@ -299,7 +313,7 @@ def train_scene(
         iteration, k = ch.start, ch.k
         use_mask, conn_on = ch.use_mask, ch.conn_on
         idxs = []
-        for _ in range(k):
+        for _ in range(k * B):
             if not view_stack:
                 view_stack = list(range(len(cameras)))
             idxs.append(view_stack.pop(rng.randrange(len(view_stack))))
@@ -314,11 +328,21 @@ def train_scene(
             prof.__enter__()
             profiled = True
         capture_s = graphs.capture_seconds
-        ts, mt = train_steps_scan(
-            ts, cam_stacks, gt_all, bg, opt_cfg, pipe_cfg, use_mask=use_mask, n_gaussians=m,
-            cam_geom=cam_geom, conn_on=conn_on, view_indices=idxs if use_exp else None,
-            use_exposure=use_exp, rows=idxs, graphs=graphs,
-        )
+        if parallel:
+            table = [idxs[j * B:(j + 1) * B] for j in range(k)]
+            ts, mt = parallel_train_steps_scan(
+                ts, cam_stacks, gt_all, bg, opt_cfg, pipe_cfg, use_mask=use_mask,
+                mesh_shape=(("data", 1),), cam_geom=cam_geom, conn_on=conn_on,
+                view_indices=table if use_exp else None, use_exposure=use_exp, rows=table,
+                graphs=graphs,
+            )
+        else:
+            ts, mt = train_steps_scan(
+                ts, cam_stacks, gt_all, bg, opt_cfg, pipe_cfg, use_mask=use_mask,
+                n_gaussians=m, cam_geom=cam_geom, conn_on=conn_on,
+                view_indices=idxs if use_exp else None, use_exposure=use_exp, rows=idxs,
+                graphs=graphs,
+            )
         metrics = _chunk_metrics(mt)  # the chunk's one host sync
         if prof is not None:
             prof.__exit__(None, None, None)
@@ -333,7 +357,8 @@ def train_scene(
         ov = int(metrics["overflow"].sum())
         tol = pipe_cfg.overflow_tolerance * float(metrics["n_visible"].sum())
         peak_window.append(int(metrics["tile_peak"].max()))
-        bigpeak_window.append(int(metrics["big_peak"].max()))
+        if "big_peak" in metrics:  # the B-view step has none (nor has the JAX one)
+            bigpeak_window.append(int(metrics["big_peak"].max()))
         if 0 < ov <= tol:
             k_floor = max(k_floor, pipe_cfg.tile_capacity)
             print(
@@ -408,8 +433,10 @@ def train_scene(
         # the observed peaks (2x headroom, power of two, hysteresis)
         if peak_window and iteration < opt_cfg.iterations:
             want = want_tile_capacity(max(peak_window[-3:]), pipe_cfg.tile_capacity, k_floor)
-            want_b = want_tile_capacity(max(bigpeak_window[-3:]), pipe_cfg.big_capacity,
-                                        b_floor)
+            want_b = pipe_cfg.big_capacity
+            if bigpeak_window:
+                want_b = want_tile_capacity(max(bigpeak_window[-3:]), pipe_cfg.big_capacity,
+                                            b_floor)
             if want < pipe_cfg.tile_capacity or want_b < pipe_cfg.big_capacity:
                 pk = max(peak_window[-3:])
                 if want < pipe_cfg.tile_capacity:

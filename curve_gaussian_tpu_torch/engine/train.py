@@ -16,7 +16,9 @@ tensors it captures the body once per shape key as a CUDA graph
 (``StepGraphs``) and replays it through the chunk, with no host work
 between the replays; on CPU tensors it runs the same body eagerly.
 ``train_steps``, the eager loop of ``train_step`` calls, is the reference
-it is held against.
+it is held against.  The same body (``run_chunk``) takes B views a step
+for ``parallel/sharding.py::parallel_train_steps_scan``: its tables hold
+B stack rows a step, and the step function gets the B views stacked.
 """
 from __future__ import annotations
 
@@ -135,6 +137,46 @@ def step_grads(
     return loss.detach(), aux, grads, goffset, visible, out["radii"], telemetry
 
 
+def update_state(ts: TrainState, grads, goffset: torch.Tensor, visible: torch.Tensor,
+                 radii: torch.Tensor, opt_cfg: OptimizationConfig, size,
+                 lr_row: Optional[torch.Tensor] = None) -> TrainState:
+    """The update of one step from its gradients: per-group Adam at the
+    rates of ``ts.step`` (or of ``lr_row``, see ``train_step``; a frozen
+    opacity trains at rate 0) and the densification statistics of the
+    screen-space gradient `goffset` of the `visible` Gaussians, on an image
+    of `size` (height, width)."""
+    if lr_row is None:
+        lrs, bias = optim.group_lrs(opt_cfg, ts.step), None
+    else:
+        *rates, c1, c2 = lr_row.unbind()
+        lrs, bias = dict(zip(optim.GROUPS, rates)), (c1, c2)
+    if ts.opacity_frozen:
+        lrs["opacity_raw"] = 0.0
+    new_params, new_opt = optim.adam_update(ts.params, grads, ts.opt, lrs, bias)
+
+    with torch.no_grad():
+        # accumulated norm of the screen-space gradient of visible Gaussians,
+        # in the reference's NDC * 0.5 * size units
+        height, width = size
+        ndc = torch.stack(
+            [goffset[:, 0] * (0.5 * width), goffset[:, 1] * (0.5 * height)], dim=-1
+        )
+        gnorm = torch.linalg.vector_norm(ndc, dim=-1)
+        vis_f = visible.to(gnorm.dtype)
+        return TrainState(
+            params=new_params,
+            opt=new_opt,
+            is_bezier=ts.is_bezier,
+            alive=ts.alive,
+            xyz_grad_accum=ts.xyz_grad_accum + gnorm * vis_f,
+            denom=ts.denom + vis_f,
+            max_radii=torch.maximum(ts.max_radii,
+                                    torch.where(visible, radii, torch.zeros_like(radii))),
+            step=ts.step + 1,
+            opacity_frozen=ts.opacity_frozen,
+        )
+
+
 def train_step(
     ts: TrainState,
     cam: Camera,
@@ -158,34 +200,8 @@ def train_step(
         ts, cam, gt_image, bg, opt_cfg, pipe_cfg, use_mask, n_gaussians, conn_on=conn_on,
         view_idx=view_idx, use_exposure=use_exposure,
     )
-    if lr_row is None:
-        lrs, bias = optim.group_lrs(opt_cfg, ts.step), None
-    else:
-        *rates, c1, c2 = lr_row.unbind()
-        lrs, bias = dict(zip(optim.GROUPS, rates)), (c1, c2)
-    if ts.opacity_frozen:
-        lrs["opacity_raw"] = 0.0
-    new_params, new_opt = optim.adam_update(ts.params, grads, ts.opt, lrs, bias)
-
-    with torch.no_grad():
-        # accumulated norm of the screen-space gradient of visible Gaussians,
-        # in the reference's NDC * 0.5 * size units
-        ndc = torch.stack(
-            [goffset[:, 0] * (0.5 * cam.width), goffset[:, 1] * (0.5 * cam.height)], dim=-1
-        )
-        gnorm = torch.linalg.vector_norm(ndc, dim=-1)
-        vis_f = visible.to(gnorm.dtype)
-        new_ts = TrainState(
-            params=new_params,
-            opt=new_opt,
-            is_bezier=ts.is_bezier,
-            alive=ts.alive,
-            xyz_grad_accum=ts.xyz_grad_accum + gnorm * vis_f,
-            denom=ts.denom + vis_f,
-            max_radii=torch.maximum(ts.max_radii, torch.where(visible, radii, torch.zeros_like(radii))),
-            step=ts.step + 1,
-            opacity_frozen=ts.opacity_frozen,
-        )
+    new_ts = update_state(ts, grads, goffset, visible, radii, opt_cfg,
+                          (cam.height, cam.width), lr_row)
     metrics = dict(aux)
     metrics.update(telemetry)
     metrics["n_visible"] = visible.sum()
@@ -276,17 +292,17 @@ def _state_of(leaves: Dict[str, torch.Tensor], step: int, count: int,
 class _Buffers:
     """The tensors the step body reads and writes, at fixed addresses: the
     state, the view stacks (w2c, proj, centre, intrinsics, ground truth),
-    the chunk's tables (stack row, exposure row and learning-rate row of
-    each step), the number of active steps, the step counter and the
-    metric rows."""
+    the chunk's tables (the stack rows and exposure rows of each step's
+    `views` views, [rows, views], and its learning-rate row), the number of
+    active steps, the step counter and the metric rows."""
 
-    def __init__(self, ts: TrainState, stacks, rows: int):
+    def __init__(self, ts: TrainState, stacks, rows: int, views: int):
         dev = ts.alive.device
         self.state = {k: torch.empty_like(v) for k, v in _state_leaves(ts).items()}
         self.stacks = tuple(torch.empty_like(s) for s in stacks)
         i64 = dict(dtype=torch.int64, device=dev)
-        self.rows = torch.zeros(rows, **i64)
-        self.vix = torch.zeros(rows, **i64)
+        self.rows = torch.zeros((rows, views), **i64)
+        self.vix = torch.zeros((rows, views), **i64)
         self.lrs = torch.zeros((rows, len(optim.GROUPS) + 2),
                                dtype=ts.params["curve_points"].dtype, device=dev)
         self.n_active = torch.zeros(1, **i64)
@@ -312,24 +328,29 @@ class _Buffers:
 def _step_body(b: _Buffers, step_fn, args: dict, step: int, count: int,
                opacity_frozen: bool) -> List[str]:
     """One step from the buffers into the buffers; returns the metric names
-    of its row.  Step ``counter`` of the chunk takes its view's row of the
-    stacks and its rows of the tables, writes the new state (unless the
-    step is at or past ``n_active``) and its metric row, and advances the
-    counter.  ``step`` and ``count`` are the host numbers of the state the
-    step function sees: exact when the body runs eagerly, the capture's own
-    in a graph, where nothing in the step reads them (the learning-rate row
-    decides what they would)."""
+    of its row.  Step ``counter`` of the chunk takes its views' rows of the
+    stacks (``index_select`` on the device) and its rows of the tables,
+    writes the new state (unless the step is at or past ``n_active``) and
+    its metric row, and advances the counter.  With ``args["batched"]`` the
+    step function takes the views stacked (a Camera of [B] stacks, gts
+    [B,H,W], exposure rows [B]); otherwise its one view.  ``step`` and
+    ``count`` are the host numbers of the state the step function sees:
+    exact when the body runs eagerly, the capture's own in a graph, where
+    nothing in the step reads them (the learning-rate row decides what they
+    would)."""
     h, w, tfx, tfy = args["cam_geom"]
     i = b.counter
-    row = b.rows.index_select(0, i)
-    w2c, proj, ctr, intr, gt = (s.index_select(0, row)[0] for s in b.stacks)
+    row = b.rows.index_select(0, i)[0]
+    w2c, proj, ctr, intr, gt = (s.index_select(0, row) for s in b.stacks)
+    if not args["batched"]:
+        w2c, proj, ctr, intr, gt = w2c[0], proj[0], ctr[0], intr[0], gt[0]
     cam = Camera(world_to_cam=w2c, full_proj=proj, cam_center=ctr, height=h, width=w,
                  tanfovx=tfx, tanfovy=tfy, intrinsics=intr)
     new, m = step_fn(
         _state_of(b.state, step, count, opacity_frozen), cam, gt, args["bg"], args["opt_cfg"],
         args["pipe_cfg"], use_mask=args["use_mask"], n_gaussians=args["n_gaussians"],
         conn_on=args["conn_on"],
-        view_idx=b.vix.index_select(0, i) if args["use_exposure"] else None,
+        view_idx=b.vix.index_select(0, i)[0] if args["use_exposure"] else None,
         use_exposure=args["use_exposure"], lr_row=b.lrs.index_select(0, i)[0],
     )
     with torch.no_grad():
@@ -360,15 +381,17 @@ class StepGraphs:
     capturing and replaying them cost.
 
     A caller keeps one for a run and passes it to every chunk, so that a
-    shape key captures once.  The key is the sizes (state, stacks, configs,
-    background, camera geometry, blend flavor) and the flags (mask,
-    connectivity, exposure, frozen opacity).  New sizes drop every graph,
-    the buffers and the pool: surgery and the capacity policy move forward,
-    so the old sizes do not recur.  ``release`` drops them too and keeps the
-    records.  ``step`` is the step function the body runs, ``train_step``
-    unless the caller wraps it.
+    shape key captures once.  The key is the sizes (state, stacks, views
+    per step, configs, background, camera geometry, blend flavor) and the
+    flags (mask, connectivity, exposure, frozen opacity).  New sizes drop
+    every graph, the buffers and the pool: surgery and the capacity policy
+    move forward, so the old sizes do not recur.  ``release`` drops them too
+    and keeps the records.  ``step`` is the step function the body runs,
+    ``train_step`` unless the caller wraps it or gives the view-batched
+    step (``parallel/sharding.py::_local_batch_step``, whose chunk is
+    ``parallel_train_steps_scan``).
 
-    ``captures`` records each capture: its capacities and flags, the host
+    ``captures`` records each capture: its capacities, views and flags, the host
     seconds of its warm-up (to the end of its device work), capture and
     instantiation and their sum, the launches the kernel wrappers counted
     while it was captured, and its replays.  The
@@ -415,13 +438,15 @@ class StepGraphs:
         self._graphs.clear()
         self._sizes = self._bufs = self._pool = None
 
-    def _buffers(self, sizes: tuple, ts: TrainState, stacks, rows: int) -> _Buffers:
-        """The buffers of `sizes` with at least `rows` table rows; new ones
-        drop every graph (each reads the buffers it was captured with)."""
+    def _buffers(self, sizes: tuple, ts: TrainState, stacks, rows: int,
+                 views: int) -> _Buffers:
+        """The buffers of `sizes` with at least `rows` table rows of `views`
+        views; new ones drop every graph (each reads the buffers it was
+        captured with)."""
         if sizes != self._sizes or self._bufs.rows.shape[0] < rows:
             self.release()
             self._sizes = sizes
-            self._bufs = _Buffers(ts, stacks, max(rows, MIN_CHUNK))
+            self._bufs = _Buffers(ts, stacks, max(rows, MIN_CHUNK), views)
         return self._bufs
 
     def _capture(self, key: tuple, body, load, record: dict) -> _Graph:
@@ -465,11 +490,16 @@ class StepGraphs:
         return g
 
 
-def _host_ints(x, name: str, n: int, bound: int) -> List[int]:
-    vals = [int(v) for v in (x.tolist() if torch.is_tensor(x) else x)]
-    if len(vals) != n or any(not 0 <= v < bound for v in vals):
-        raise ValueError(f"{name} must hold {n} indices in [0, {bound}), got {vals}")
-    return vals
+def _host_ints(x, name: str, shape: tuple, bound: int) -> list:
+    """`x` (a list, an array or a tensor) of `shape` as host ints in [0,
+    `bound`), as nested lists; raises otherwise."""
+    t = torch.as_tensor(x)
+    flat = t.reshape(-1).tolist()
+    if tuple(t.shape) != tuple(shape) or any(
+            not (isinstance(v, int) and 0 <= v < bound) for v in flat):
+        raise ValueError(f"{name} must hold {tuple(shape)} indices in [0, {bound}), "
+                         f"got {t.tolist()}")
+    return t.tolist()
 
 
 def train_steps_scan(
@@ -509,16 +539,34 @@ def train_steps_scan(
     k times eagerly, bitwise equal to ``train_steps`` over the same views."""
     if use_exposure and view_indices is None:
         raise ValueError("use_exposure requires per-step view_indices")
-    graphs = graphs if graphs is not None else StepGraphs()
+    V = gts.shape[0]
+    rows = list(range(V)) if rows is None else _host_ints(rows, "rows", (len(rows),), V)
+    vix = (_host_ints(view_indices, "view_indices", (len(rows),), ts.params["exposure"].shape[0])
+           if use_exposure else [0] * len(rows))
+    return run_chunk(ts, cam_arrays, gts, bg, opt_cfg, pipe_cfg, use_mask, n_gaussians,
+                     cam_geom, conn_on, n_active, [[r] for r in rows], [[v] for v in vix],
+                     use_exposure, graphs if graphs is not None else StepGraphs(),
+                     batched=False)
+
+
+def run_chunk(ts: TrainState, cam_arrays, gts: torch.Tensor, bg, opt_cfg: OptimizationConfig,
+              pipe_cfg: PipelineConfig, use_mask: bool, n_gaussians: int, cam_geom,
+              conn_on, n_active, rows: List[List[int]], vix: List[List[int]],
+              use_exposure: bool, graphs: StepGraphs, batched: bool):
+    """The chunk of ``train_steps_scan`` and of
+    ``parallel/sharding.py::parallel_train_steps_scan``: k steps of
+    ``graphs.step``, step i over the B rows ``rows[i]`` of the stacks of all
+    views (`cam_arrays`, `gts` [V,H,W]) with exposure rows ``vix[i]``
+    (checked host ints, [k][B]), the views stacked when `batched`, else
+    B = 1 and the step takes its view alone.  Returns (state, {metric: [k]
+    float64})."""
     dev = gts.device
     dt = ts.params["curve_points"].dtype
     V = gts.shape[0]
-    rows = list(range(V)) if rows is None else _host_ints(rows, "rows", len(rows), V)
     k = len(rows)
     if k < 1:
         raise ValueError("a chunk has at least one step")
-    n_views = ts.params["exposure"].shape[0]
-    vix = _host_ints(view_indices, "view_indices", k, n_views) if use_exposure else [0] * k
+    views = len(rows[0])
     n_act = k if n_active is None else max(0, min(int(n_active), k))
     if len(cam_arrays) == 3:
         cam_arrays = (*cam_arrays,
@@ -532,21 +580,21 @@ def train_steps_scan(
     bg = float(bg)
     args = dict(bg=bg, opt_cfg=opt_cfg, pipe_cfg=pipe_cfg, use_mask=use_mask,
                 n_gaussians=n_gaussians, cam_geom=tuple(cam_geom), conn_on=conn_on,
-                use_exposure=use_exposure)
+                use_exposure=use_exposure, batched=batched)
     frozen = ts.opacity_frozen
 
     if dev.type != "cuda":
-        b = _Buffers(ts, stacks, k)
+        b = _Buffers(ts, stacks, k, views)
         b.load(ts, stacks, tables, n_act)
         for i in range(k):
             j = min(i, n_act)
             names = _step_body(b, graphs.step, args, ts.step + j, ts.opt.count + j, frozen)
     else:
         sizes = (dev, tuple((n, v.shape, v.dtype) for n, v in _state_leaves(ts).items()),
-                 tuple((s.shape, s.dtype) for s in stacks), opt_cfg, pipe_cfg, bg,
-                 tuple(cam_geom), _flavor())
+                 tuple((s.shape, s.dtype) for s in stacks), views, batched, opt_cfg, pipe_cfg,
+                 bg, tuple(cam_geom), _flavor())
         key = (use_mask, conn_on, use_exposure, frozen)
-        b = graphs._buffers(sizes, ts, stacks, k)
+        b = graphs._buffers(sizes, ts, stacks, k, views)
         g = graphs._graphs.get(key)
         if g is None:
             step0, count0 = ts.step, ts.opt.count
@@ -554,8 +602,8 @@ def train_steps_scan(
                 key, lambda: _step_body(b, graphs.step, args, step0, count0, frozen),
                 lambda: b.load(ts, stacks, tables, n_act),
                 dict(capacity=ts.alive.shape[0], tile_capacity=pipe_cfg.tile_capacity,
-                     big_capacity=pipe_cfg.big_capacity, use_mask=use_mask, conn_on=conn_on,
-                     use_exposure=use_exposure))
+                     big_capacity=pipe_cfg.big_capacity, views=views, use_mask=use_mask,
+                     conn_on=conn_on, use_exposure=use_exposure))
         b.load(ts, stacks, tables, n_act)
         for _ in range(k):
             g.graph.replay()

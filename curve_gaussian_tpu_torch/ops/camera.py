@@ -129,3 +129,40 @@ def look_at_camera(
     return make_camera(
         Rcw.T, T, fovx, fovy, height, width, dtype=dtype, device=device
     )
+
+
+def stack_cameras(cams: list) -> Camera:
+    """Stack per-view tensors into a leading batch axis (views of one
+    height, width and field of view); ``intrinsics`` is stacked when every
+    view has it."""
+    h, w = cams[0].height, cams[0].width
+    if not all(c.height == h and c.width == w for c in cams):
+        raise ValueError("stack_cameras needs views of one image size")
+    intr = None
+    if all(c.intrinsics is not None for c in cams):
+        intr = torch.stack([c.intrinsics for c in cams])
+    return Camera(
+        world_to_cam=torch.stack([c.world_to_cam for c in cams]),
+        full_proj=torch.stack([c.full_proj for c in cams]),
+        cam_center=torch.stack([c.cam_center for c in cams]),
+        height=h,
+        width=w,
+        tanfovx=cams[0].tanfovx,
+        tanfovy=cams[0].tanfovy,
+        intrinsics=intr,
+    )
+
+
+def index_camera(cams: Camera, i) -> Camera:
+    """View `i` of a stacked Camera (tensor indexing: an int selects a view
+    of the stacks, no host read)."""
+    return Camera(
+        world_to_cam=cams.world_to_cam[i],
+        full_proj=cams.full_proj[i],
+        cam_center=cams.cam_center[i],
+        height=cams.height,
+        width=cams.width,
+        tanfovx=cams.tanfovx,
+        tanfovy=cams.tanfovy,
+        intrinsics=None if cams.intrinsics is None else cams.intrinsics[i],
+    )

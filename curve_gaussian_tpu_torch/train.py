@@ -61,9 +61,11 @@ def parse_args(argv=None):
     p.add_argument("--scan-chunk", type=int, default=100,
                    help="most training steps between two host reads of the metrics")
     p.add_argument("--views-per-step", type=int, default=1,
-                   help="views per optimizer step (multi-device slice; > 1 raises)")
+                   help="views per optimizer step: each step takes the mean gradient of "
+                        "this many views, on one device")
     p.add_argument("--n-devices", type=int, default=None,
-                   help="devices for the data-parallel path (multi-device slice; raises)")
+                   help="devices for the data-parallel path: 1 (or unset) runs; more "
+                        "devices are the multi-device slice and raise")
     p.add_argument("--synthetic", action="store_true",
                    help="train on a generated synthetic curve scene")
     p.add_argument("--synthetic-seed", type=int, default=0)

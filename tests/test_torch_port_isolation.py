@@ -50,7 +50,8 @@ def test_importing_every_module_loads_no_jax():
               "eval.extract", "eval.metrics", "data.ply", "models.ellipsoids",
               "models.gaussian_ply", "train", "data.colmap", "data.png", "data.dataset",
               "scripts.make_ref_scale_scene", "ops.sh", "eval.abc", "eval.replica",
-              "scripts.render_curves", "scripts.run_batch_abc", "scripts.eval_gt_json"):
+              "scripts.render_curves", "scripts.run_batch_abc", "scripts.eval_gt_json",
+              "parallel.sharding"):
         assert f"curve_gaussian_tpu_torch.{m}" in mods, m
     code = (
         "import importlib, sys\n"
@@ -98,6 +99,8 @@ def test_entry_points_default_to_the_card():
         lambda: curve_gaussian_tpu_torch.resolve_device(),
         lambda: ploop.train_scene([], [], pts, ModelConfig(), OptimizationConfig(),
                                   PipelineConfig(), "unused"),
+        lambda: ploop.train_scene([], [], pts, ModelConfig(), OptimizationConfig(),
+                                  PipelineConfig(), "unused", views_per_step=2),
         lambda: ptrain_cli.main(["--synthetic", "--iterations", "2", "--image-size", "32"]),
         lambda: dataset.load_emap(ModelConfig(source_path="unused")),
         lambda: make_ref_scale_scene(["--out", "unused"]),

@@ -319,10 +319,9 @@ def test_resume_below_the_seed_count(tmp_path):
 
 
 def test_multi_device_arguments_raise():
-    for kw in (dict(views_per_step=2), dict(n_devices=2)):
-        with pytest.raises(NotImplementedError, match="multi-device slice"):
-            ploop.train_scene([], [], np.zeros((4, 3)), ModelConfig(), OptimizationConfig(),
-                              PipelineConfig(), "unused", device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match="multi-device slice"):
+        ploop.train_scene([], [], np.zeros((4, 3)), ModelConfig(), OptimizationConfig(),
+                          PipelineConfig(), "unused", device="cpu", n_devices=2)
 
 
 @pytest.fixture
