@@ -5,6 +5,8 @@
     python3 chip_smoke.py --profile  # also print torch.profiler tables of the bench step
                                      # (eager and graphed) and of a step of the dataset scene
 
+(``--rank R`` runs one rank of phase 12; the phase starts them itself.)
+
 1. Prints the card (``nvidia-smi`` name and power limit) and the torch,
    CUDA and nvcc versions.
 2. Builds every kernel under ``curve_gaussian_tpu_torch/csrc/`` (one nvcc
@@ -148,6 +150,32 @@
       ``eval_summary.json`` (per-type keys too); a second run skips both;
    d. ``evaluate_replica`` of the dataset run's curves over 5 views: the
       counts of stats.json, frames of [H, 2W, 3].
+12. Two ranks on one card: this script started twice with ``--rank``
+   (``multihost.run_ranks``, a time limit on the pair; either failing
+   fails the phase), two ranks of a gloo process group both on cuda:0
+   (NCCL refuses two ranks on one card), at the bench configuration (a
+   fresh state, 4 views a step, 2 a rank):
+   a. one step through ``parallel_train_steps_scan`` over the two ranks
+      (the local sums and the update as two captured graphs, the exchange
+      between them eager) against the one-process 4-view graphed step from
+      the same state: the loss within 1e-6 relative, each state array no
+      further than 2x a second eager step's distance plus 1e-6 of its max;
+      each rank's captures holding K1, K2, K7 and K8 twice;
+   b. 20 steps, twice, timed on the host clock with the exchange's host
+      seconds, then the two collectives alone, and one-process 4-view
+      graphed steps on rank 0 for comparison;
+   c. the driver run of 9 at ``--views-per-step 4 --n-devices 2 --device
+      cuda:0 --dist-backend gloo`` (600 iterations, no resume): each rank's
+      launches counted through the replays, its it/s and curve count;
+      rank 0 alone writes (``eval.json`` once, finite), rank 1 nothing;
+   d. the tile-parallel render of the 4 bench views within 2e-5 of
+      ``eval_render`` (K3 once per view on each rank), and ``render_curves
+      --n-devices 2`` of the driver's curves (K3 once per frame on each
+      rank, frames from rank 0 alone) against one process on frame 0
+      within 2e-5;
+   e. ``dryrun_multichip(2)`` on the card.
+   The ranks' states must be bitwise equal after every chunk (1 to 3 and
+   each of the driver's); the phase's seconds are printed.
 
 Any failed check exits non-zero.  The last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -182,6 +210,7 @@ from curve_gaussian_tpu_torch.ops import tile_blend_cuda as TB
 from curve_gaussian_tpu_torch.ops.binning import bin_gaussians, tile_grid
 from curve_gaussian_tpu_torch.ops.projection import preprocess
 from curve_gaussian_tpu_torch.ops.render import main_axis_allmap, render
+from curve_gaussian_tpu_torch.parallel import multihost as MH
 from curve_gaussian_tpu_torch.parallel import sharding as PS
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM rate, float32 outside
@@ -530,6 +559,9 @@ def main() -> None:
 
     # -- evaluation and export ------------------------------------------------------
     kernels.append(eval_export(dev, ts, cams, gts, pipe_cfg, scene))
+
+    # -- two ranks on one card --------------------------------------------------------
+    two_ranks(smi)
 
     print(json.dumps({"kernels": [{k: v for k, v in d.items() if k != "rel_err"}
                                   for d in kernels]}), flush=True)
@@ -2007,6 +2039,301 @@ def write_png_paeth(path: str, img: np.ndarray) -> None:
         f.write(PNG._chunk(b"IEND", b""))
 
 
+TWO_RANKS = 2
+TWO_RANKS_DIR = os.path.join(DRIVER_DIR, "two_ranks")
+TWO_RANKS_TIMEOUT_S = 600  # both ranks' whole phase
+TWO_RANK_VIEWS = 4  # views a step, TWO_RANK_VIEWS / TWO_RANKS a rank
+TWO_RANK_STEPS = 20
+RENDER_TOL = 2e-5  # tests/test_parallel.py's row-sharded render
+
+
+def two_ranks(smi: str) -> None:
+    """Phase 12 of the module docstring: starts the two ranks (this script
+    with ``--rank``), waits for them, prints their output and fails if
+    either fails or outlives the phase's time limit."""
+    import shutil
+
+    shutil.rmtree(TWO_RANKS_DIR, ignore_errors=True)
+    os.makedirs(TWO_RANKS_DIR)
+    env = dict(os.environ, CGT_NUM_PROCESSES=str(TWO_RANKS),
+               CGT_COORDINATOR="file://" + os.path.abspath(os.path.join(TWO_RANKS_DIR,
+                                                                        "rendezvous")))
+    t0 = time.time()
+    res = MH.run_ranks([[sys.executable, os.path.abspath(__file__), "--rank", str(r)]
+                        for r in range(TWO_RANKS)], TWO_RANKS_TIMEOUT_S, env=env)
+    for r in res:
+        for line in r.output.splitlines():
+            print(f"[rank {r.rank}] {line}", flush=True)
+    bad = MH.failures(res)
+    if bad:
+        fail(f"two ranks on one card:\n{bad}")
+    print(f"two ranks on one card: phase {time.time() - t0:.1f} s (host clock, the ranks' "
+          f"start included); {smi}", flush=True)
+
+
+class _Writes:
+    """The files a process opens for writing under `root` while ``on``
+    (the interpreter's audit events)."""
+
+    def __init__(self, root: str):
+        self.root, self.paths, self.on = os.path.abspath(root), [], False
+        sys.addaudithook(self)
+
+    def __call__(self, event, args):
+        if self.on and event == "open" and isinstance(args[1], str) and any(
+                c in args[1] for c in "wax+") and isinstance(args[0], str):
+            path = os.path.abspath(args[0])
+            if path.startswith(self.root):
+                self.paths.append(os.path.relpath(path, self.root))
+
+
+def replicated(ts, what: str) -> None:
+    """Fails unless every rank holds `ts` bit for bit."""
+    from curve_gaussian_tpu_torch.parallel import dryrun as DRY
+
+    if not DRY.replicated(ts):
+        fail(f"the ranks' states differ {what}")
+
+
+def rank_main(rank: int) -> None:
+    """One rank of phase 12 on cuda:0: the group from the environment the
+    phase sets (gloo, which lets two ranks share a card)."""
+    import torch.distributed as dist
+
+    from curve_gaussian_tpu_torch import train as TR
+    from curve_gaussian_tpu_torch.engine import loop as LOOP
+    from curve_gaussian_tpu_torch.parallel import dryrun as DRY
+    from curve_gaussian_tpu_torch.scripts import render_curves as RV
+
+    t_start = time.time()
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    MH.initialize_distributed(process_id=rank, backend="gloo", device=dev)
+    mesh = PS.make_mesh(TWO_RANKS, device=dev)
+    writes = _Writes(TWO_RANKS_DIR)
+    print(f"rank {rank} of {mesh.size} on {torch.cuda.get_device_name(dev)}, gloo", flush=True)
+
+    # -- the bench configuration, as the main path's ---------------------------------
+    H = W = 512
+    n_views, M = 4, 12
+    cams = synthetic.ring_cameras(n_views, H, W, device=dev)
+    rng = np.random.default_rng(0)
+    gts = [torch.tensor(rng.uniform(size=(H, W)) ** 4, dtype=torch.float32, device=dev)
+           for _ in range(n_views)]
+    state = cs.init_state(synthetic.grid_seed_points(15), n_views=n_views, n_gaussians=M,
+                          device=dev)
+    ts = T.init_train_state(state)
+    opt_cfg, pipe_cfg = OptimizationConfig(), PipelineConfig()
+    stacks = T.camera_stacks(cams, torch.float32, dev)
+    gt_stack = torch.stack(gts)
+    geom = (H, W, cams[0].tanfovx, cams[0].tanfovy)
+    views = list(range(TWO_RANK_VIEWS))
+    graphs = T.StepGraphs(PS.batch_step(TWO_RANKS))
+
+    def two(table):
+        return PS.parallel_train_steps_scan(ts, stacks, gt_stack, 0.0, opt_cfg, pipe_cfg,
+                                            use_mask=False, mesh_shape=mesh.shape, cam_geom=geom,
+                                            rows=[mesh.block(r) for r in table], graphs=graphs)
+
+    # -- 1. one step against the one-process B-view step ------------------------------
+    (t1, m1), counts = run_path("two-rank graphed step", lambda: two([views]), TRAIN_KERNELS)
+    check_step_launches("two-rank graphed step", counts, graphs, 1, {},
+                        views=TWO_RANK_VIEWS // TWO_RANKS)
+    replicated(t1, "after the one-step chunk")
+    if rank == 0:
+        one = T.StepGraphs(PS._local_batch_step)
+        g1, mg = PS.parallel_train_steps_scan(ts, stacks, gt_stack, 0.0, opt_cfg, pipe_cfg,
+                                              use_mask=False, mesh_shape=None, cam_geom=geom,
+                                              rows=[views], graphs=one)
+
+        def eager():
+            return PS.parallel_train_step(ts, tuple(s[views] for s in stacks), gt_stack[views],
+                                          0.0, opt_cfg, pipe_cfg, use_mask=False,
+                                          mesh_shape=None, cam_geom=geom)
+
+        (e1, _), (e2, _) = eager(), eager()
+        torch.cuda.synchronize()
+        loss_t, loss_g = float(m1["total"][0]), float(mg["total"][0])
+        loss_err = abs(loss_t - loss_g) / abs(loss_g)
+        tl, gl, el, ol = (T._state_leaves(t) for t in (t1, g1, e1, e2))
+        worst = []
+        for k, g in gl.items():
+            e, o = el[k].double(), ol[k].double()
+            bound = GRAPH_STATE_SLACK * (o - e).abs().max().item() + VIEW_TOL * g.double(
+            ).abs().max().item()
+            for name, ref in (("graphed", g), ("eager", e)):
+                d = (tl[k].double() - ref.double()).abs().max().item()
+                worst.append((d / bound if bound > 0 else (0.0 if d == 0 else np.inf), name, k,
+                              d, bound))
+        worst.sort(key=lambda w: -w[0])
+        print(f"two-rank step against the one-process B={TWO_RANK_VIEWS} step: loss "
+              f"{loss_t:.8f} vs {loss_g:.8f}, error over value {loss_err:.3g} (tol "
+              f"{VIEW_TOL:g}); state, worst (max |two-rank - one-process| over its bound): "
+              + ", ".join(f"{n} {k} {d:.3g}/{b:.3g}" for _, n, k, d, b in worst[:6]),
+              flush=True)
+        if loss_err > VIEW_TOL:
+            fail("the two-rank step's loss disagrees with the one-process step's")
+        if worst[0][0] > 1.0:
+            fail(f"the two-rank step's {worst[0][2]} is further from the {worst[0][1]} "
+                 f"one-process step than {GRAPH_STATE_SLACK:g} x a second eager step plus "
+                 f"{VIEW_TOL:g} of max")
+    dist.barrier()
+
+    # -- 2. timed steps, and the collectives alone ---------------------------------------
+    table = [[(i * TWO_RANK_VIEWS + j) % n_views for j in range(TWO_RANK_VIEWS)]
+             for i in range(TWO_RANK_STEPS)]
+    for turn in range(2):
+        torch.cuda.synchronize()
+        dist.barrier()
+        ex_s, ex_n = graphs.exchange_seconds, graphs.exchanges
+        t0 = time.time()
+        tn, mn = two(table)
+        torch.cuda.synchronize()
+        dt = time.time() - t0
+        replicated(tn, f"after the {TWO_RANK_STEPS}-step chunk")
+        n_ex = graphs.exchanges - ex_n
+        print(f"two-rank steps, turn {turn + 1}: {TWO_RANK_STEPS} steps of {TWO_RANK_VIEWS} "
+              f"views in {dt:.4f} s, {dt / TWO_RANK_STEPS * 1e3:.3f} ms/step (host clock); "
+              f"exchange {(graphs.exchange_seconds - ex_s) / n_ex * 1e3:.3f} ms host per step "
+              f"over {n_ex} (with the wait for the local graph); losses finite "
+              f"{bool(torch.isfinite(mn['total']).all())}", flush=True)
+        if n_ex != TWO_RANK_STEPS or not bool(torch.isfinite(mn["total"]).all()):
+            fail("the two-rank chunk exchanged other than once a step or lost its loss")
+    bufs = next(g.exchanged for g in graphs._graphs.values())
+    probe = tuple(b.clone() for b in bufs)
+    torch.cuda.synchronize()
+    dist.barrier()
+    t0 = time.time()
+    for _ in range(TWO_RANK_STEPS):
+        PS._exchange(probe)
+    torch.cuda.synchronize()
+    bare = (time.time() - t0) / TWO_RANK_STEPS
+    print(f"two-rank exchange alone: {bare * 1e3:.3f} ms host each (SUM of "
+          f"{probe[0].numel()} and MAX of {probe[1].numel()} float32, "
+          f"{sum(b.numel() * 4 for b in probe)} bytes; gloo through host memory); capture "
+          f"{graphs.capture_seconds:.3f} s", flush=True)
+    if rank == 0:
+        torch.cuda.synchronize()
+        t0 = time.time()
+        one_n, _ = PS.parallel_train_steps_scan(ts, stacks, gt_stack, 0.0, opt_cfg, pipe_cfg,
+                                                use_mask=False, mesh_shape=None, cam_geom=geom,
+                                                rows=table, graphs=one)
+        torch.cuda.synchronize()
+        dt = time.time() - t0
+        print(f"one-process B={TWO_RANK_VIEWS} graphed steps beside them (the other rank "
+              f"idle): {dt / TWO_RANK_STEPS * 1e3:.3f} ms/step", flush=True)
+        one.release()
+    graphs.release()
+    dist.barrier()
+
+    # -- 3. the driver over the two ranks -------------------------------------------
+    a = TR.parse_args(DRIVER_ARGS)
+    run_dir = os.path.join(TWO_RANKS_DIR, "driver")
+    scan = LOOP.parallel_train_steps_scan
+    chunks = [0]
+
+    def checked(*args, **kw):
+        out = scan(*args, **kw)
+        replicated(out[0], f"after the driver's chunk {chunks[0]}")
+        chunks[0] += 1
+        return out
+
+    LOOP.parallel_train_steps_scan = checked
+    writes.on = True
+    try:
+        res, c = run_path("two-rank driver", lambda: TR.main(
+            DRIVER_ARGS + ["--model-path", run_dir, "--views-per-step", str(TWO_RANK_VIEWS),
+                           "--n-devices", str(TWO_RANKS), "--device", "cuda:0",
+                           "--dist-backend", "gloo"]),
+            TRAIN_KERNELS + ("tile_blend_fwd",),
+            ("tile_blend_bwd", "blend_moment_bwd", "blend_train_bwd_basis"))
+    finally:
+        LOOP.parallel_train_steps_scan = scan
+        writes.on = False
+    dist.barrier()  # rank 0's files are written
+    k3 = a.synthetic_views + (2 * len(a.test_iterations) if rank == 0 else 0)
+    check_step_launches("two-rank driver", c, res.graphs, a.iterations,
+                        dict(tile_blend_fwd=k3), views=TWO_RANK_VIEWS // TWO_RANKS)
+    sec, it = res.seconds, int(res.ts.step)
+    curves = int(res.ts.alive.sum())
+    every = [None] * TWO_RANKS
+    dist.all_gather_object(every, curves)
+    print(f"two-rank driver: {it} iterations, {it / sec['train']:.3f} it/s, "
+          f"{TWO_RANK_VIEWS * it / sec['train']:.3f} views/s (host clock over train_scene), "
+          f"{chunks[0]} chunks each replicated bitwise; exchange "
+          f"{res.graphs.exchange_seconds:.3f} s host over {res.graphs.exchanges}; final curves "
+          f"on the ranks {every}; host seconds by phase " + ", ".join(
+              f"{k} {v:.3f}" for k, v in sec.items() if k != "train"), flush=True)
+    if it != a.iterations or len(set(every)) != 1:
+        fail("the two-rank driver did not end at its last iteration with one curve count")
+    if rank == 0:
+        if writes.paths.count("driver/eval.json") != 1:
+            fail(f"rank 0 wrote eval.json {writes.paths.count('driver/eval.json')} times")
+        with open(os.path.join(run_dir, "eval.json")) as fh:
+            ev = json.load(fh)
+        with open(os.path.join(run_dir, "metrics.jsonl")) as fh:
+            totals = [json.loads(line).get("total") for line in fh]
+        totals = [t for t in totals if t is not None]
+        print(f"two-rank driver: logged loss first {totals[0]:.5f} last {totals[-1]:.5f}; "
+              f"chamfer {ev['chamfer']:.5f}, F@0.01 {ev['fscore_0.01']:.4f}; rank 0 wrote "
+              f"{len(writes.paths)} files", flush=True)
+        if not (np.isfinite(totals).all() and np.isfinite(list(ev.values())).all()):
+            fail("the two-rank driver's losses or eval.json are not finite")
+    elif writes.paths:
+        fail(f"rank {rank} wrote {writes.paths}")
+
+    # -- 4. the tile-parallel render ------------------------------------------------------
+    imgs, c = run_path("tile-parallel render", lambda: [
+        PS.tile_parallel_render(t1, (cam.world_to_cam, cam.full_proj, cam.cam_center), geom,
+                                pipe_cfg, 0.0, mesh.shape, n_gaussians=M) for cam in cams],
+        ("tile_blend_fwd",))
+    errs = []
+    with torch.no_grad():
+        for cam, img in zip(cams, imgs):
+            ref = T.eval_render(t1, cam, pipe_cfg, 0.0)["render"]
+            errs.append((img - ref).abs().max().item())
+    print(f"tile-parallel render of the {n_views} bench views over {TWO_RANKS} ranks "
+          f"({-(-H // (32 * TWO_RANKS)) * 32}-row bands): max |tile-parallel - eval_render| "
+          f"{max(errs):.3g} (tol {RENDER_TOL:g}), K3 {c['tile_blend_fwd']} launches", flush=True)
+    if c["tile_blend_fwd"] != n_views or max(errs) > RENDER_TOL:
+        fail("the tile-parallel render disagrees with eval_render or launched K3 other than "
+             "once per view")
+    edges = os.path.join(run_dir, "parametric_edges.json")
+    writes.paths.clear()
+    writes.on = True
+    tp, c = run_path("render_curves --n-devices 2", lambda: RV.render_curves(
+        ["--edges", edges, "--out", os.path.join(TWO_RANKS_DIR, "curves"), "--n-devices",
+         str(TWO_RANKS), "--device", "cuda:0", "--dist-backend", "gloo"], quiet=True),
+        ("tile_blend_fwd",))
+    writes.on = False
+    n_frames = len(tp["sha256"])
+    if c["tile_blend_fwd"] != n_frames or bool(writes.paths) != (rank == 0):
+        fail(f"render_curves --n-devices {TWO_RANKS} launched K3 {c['tile_blend_fwd']} times "
+             f"for {n_frames} frames, rank {rank} wrote {len(writes.paths)} files")
+    if rank == 0:
+        one_img = RV.render_curves(["--edges", edges, "--out", os.path.join(TWO_RANKS_DIR,
+                                                                          "curves_one"),
+                                    "--device", "cuda:0"], quiet=True)
+        err = float(np.abs(tp["first_frame"] - one_img["first_frame"]).max())
+        print(f"render_curves --n-devices {TWO_RANKS}: {n_frames} frames, "
+              f"{np.mean(tp['render_seconds']) * 1e3:.3f} ms host a frame against "
+              f"{np.mean(one_img['render_seconds']) * 1e3:.3f} on one process; frame 0 max "
+              f"|two ranks - one| {err:.3g} (tol {RENDER_TOL:g})", flush=True)
+        if err > RENDER_TOL:
+            fail("render_curves over two ranks disagrees with one process on frame 0")
+    dist.barrier()
+
+    # -- 5. the dry run on the card -----------------------------------------------------
+    line = DRY.dryrun_multichip(TWO_RANKS, dev)
+    if rank == 0:
+        print(line, flush=True)
+    dist.barrier()
+    print(f"rank {rank} done in {time.time() - t_start:.1f} s", flush=True)
+    dist.destroy_process_group()
+
+
 def small_check():
     """One step_grads on the card and on the CPU, float32, small scene."""
     H = W = 96
@@ -2058,4 +2385,7 @@ def profile_step(run, steps: int, label: str):
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--rank"]:
+        rank_main(int(sys.argv[2]))
+    else:
+        main()

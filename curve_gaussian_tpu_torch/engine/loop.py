@@ -28,12 +28,20 @@ What ``train_scene`` does, and how the port does it:
   grows.
 - **Views and background** come from ``random.Random(seed)`` in the JAX
   package's order, so both packages visit the same views.
-- **Views per step.** With ``views_per_step = B > 1`` each chunk draws its
-  ``k * B`` views as a [k, B] table and runs through
+- **Views per step and devices.** With ``views_per_step = B > 1`` each
+  chunk draws its ``k * B`` views as a [k, B] table and runs through
   ``parallel/sharding.py::parallel_train_steps_scan``: one optimizer step
   over the mean gradient of B views, captured whole as one graph on the
-  card.  It runs on one device; ``n_devices`` other than None or 1 belongs
-  to the multi-device slice (ROADMAP slice 11b) and raises.
+  card.  Over N devices, each a rank of a ``torch.distributed`` process
+  group that runs this same function (``torchrun``, or
+  ``parallel/multihost.py``), each rank takes its B/N columns of the table
+  and the ranks exchange their sums every step; every rank then holds the
+  same state and runs the same surgery, capacity policy and chunk plan on
+  the same reduced metrics.  N is the JAX rule's, ``min(n_devices, B,
+  world)`` shrunk until it divides B, and it must be the group's size: the
+  port raises where the JAX driver would quietly run fewer devices.  Only
+  rank 0 writes (the log, test renders, artifacts, checkpoints, the
+  extracted curves) and prints.
 - **Left out as TPU/XLA machinery:** the ``Prewarmer`` and ``engine/warm.py``
   (ahead-of-time compiles), the persistent compile cache, the
   ``device_put`` commits of the state, the padding of every chunk to one
@@ -63,7 +71,8 @@ from ..models import surgery
 from ..models.ellipsoids import save_ellipsoid_mesh
 from ..models.gaussian_ply import save_gaussian_ply
 from ..ops.camera import Camera
-from ..parallel.sharding import _local_batch_step, parallel_train_steps_scan
+from ..parallel.multihost import check_ranks, group_size
+from ..parallel.sharding import batch_step, make_mesh, parallel_train_steps_scan
 from . import checkpoint as ckpt_mod
 from .train import (StepGraphs, TrainState, camera_stacks, eval_render, init_train_state,
                     train_step, train_steps_scan)
@@ -73,10 +82,12 @@ class JsonlLogger:
     """Metrics logger: one JSON row per logged iteration in
     <model_path>/metrics.jsonl, and a progress line on stdout."""
 
-    def __init__(self, model_path: str, quiet: bool = False):
-        os.makedirs(model_path, exist_ok=True)
+    def __init__(self, model_path: str, quiet: bool = False, write: bool = True):
         self.path = os.path.join(model_path, "metrics.jsonl")
-        self.f = open(self.path, "a")
+        self.f = None
+        if write:  # a rank other than 0 keeps the averages only
+            os.makedirs(model_path, exist_ok=True)
+            self.f = open(self.path, "a")
         self.quiet = quiet
         self.ema: Dict[str, float] = {}
 
@@ -84,8 +95,9 @@ class JsonlLogger:
         row = {"iter": iteration, **{k: float(v) for k, v in metrics.items()}}
         if extra:
             row.update(extra)
-        self.f.write(json.dumps(row) + "\n")
-        self.f.flush()  # rows must be visible while the run is live
+        if self.f is not None:
+            self.f.write(json.dumps(row) + "\n")
+            self.f.flush()  # rows must be visible while the run is live
         for k, v in metrics.items():
             self.ema[k] = 0.4 * float(v) + 0.6 * self.ema.get(k, float(v))
 
@@ -101,7 +113,8 @@ class JsonlLogger:
         )
 
     def close(self):
-        self.f.close()
+        if self.f is not None:
+            self.f.close()
 
 
 class Chunk(NamedTuple):
@@ -234,17 +247,28 @@ def train_scene(
     """Train one scene end to end on `device`.  The cameras and edge maps
     (numpy or tensors) must be on that device or the host; the state is
     float32, as in the JAX package.  ``views_per_step`` views make one
-    optimizer step (their mean gradient) on the one device."""
-    if n_devices not in (None, 1):
-        raise NotImplementedError(
-            f"n_devices={n_devices}: more than one device is the data-parallel path "
-            "of the multi-device slice of the port (ROADMAP slice 11b); this driver "
-            "trains on one device"
-        )
+    optimizer step (their mean gradient), split over ``n_devices`` ranks of
+    the process group (every rank calls this function with the same
+    arguments and its own device)."""
     B = max(int(views_per_step), 1)
-    # the JAX driver's route: B views per step, or n_devices > 1 (raised above)
-    parallel = B > 1
+    world = group_size()
+    want = n_devices or world
+    check_ranks(want)  # raises unless the group has n_devices ranks, saying what to launch
+    # the JAX driver's rule: at most B and the devices there are, dividing B
+    ndev = min(want, B)
+    while B % ndev:
+        ndev -= 1
+    if ndev != world:
+        raise RuntimeError(
+            f"views_per_step={B} splits evenly over {ndev} device(s), not over the process "
+            f"group's {world} ranks; give a multiple of {world} views per step or launch "
+            f"{ndev} rank(s)")
+    # the JAX driver's route: B views per step, or more than one device
+    parallel = B > 1 or ndev > 1
     dev = resolve_device(device)
+    mesh = make_mesh(ndev, device=dev)
+    rank0 = mesh.rank == 0
+    quiet = quiet or not rank0
     m = model_cfg.n_gaussians
     state = cs.init_state(seed_points, n_views=len(cameras), n_gaussians=m, device=dev)
     ts = init_train_state(state)
@@ -273,16 +297,17 @@ def train_scene(
             "train_scene requires uniform image sizes across views (the edge "
             "maps are stacked on the device); resize with -r or split the scene"
         )
-    logger = JsonlLogger(model_path, quiet=quiet)
-    save_scene_artifacts(cameras, seed_points, model_path)
+    logger = JsonlLogger(model_path, quiet=quiet, write=rank0)
+    if rank0:
+        save_scene_artifacts(cameras, seed_points, model_path)
     dt = ts.params["curve_points"].dtype
     # device stacks of every view; each step selects its row on the device
     gt_all = torch.stack([torch.as_tensor(e) for e in edge_maps]).to(device=dev, dtype=dt)
     cam_stacks = camera_stacks(cameras, dt, dev)
     cam_geom = (cameras[0].height, cameras[0].width, cameras[0].tanfovx, cameras[0].tanfovy)
-    graphs = StepGraphs(_local_batch_step if parallel else train_step)
+    graphs = StepGraphs(batch_step(ndev) if parallel else train_step)
     if parallel and not quiet:
-        print(f"data-parallel: {B} views/step over 1 device(s)", flush=True)
+        print(f"data-parallel: {B} views/step over {ndev} device(s)", flush=True)
     test_gts = [extract_mod.host_array(e) for e in test_edge_maps]
     view_stack: List[int] = []
     t_start = time.time()
@@ -320,7 +345,7 @@ def train_scene(
         t_chunk = time.time()
         # profile the second chunk (the first one pays the kernel builds)
         prof = None
-        if profile_dir is not None and iteration > first_iter and not profiled:
+        if profile_dir is not None and rank0 and iteration > first_iter and not profiled:
             from torch.profiler import ProfilerActivity, profile
 
             acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if dev.type == "cuda" else [])
@@ -329,10 +354,11 @@ def train_scene(
             profiled = True
         capture_s = graphs.capture_seconds
         if parallel:
-            table = [idxs[j * B:(j + 1) * B] for j in range(k)]
+            # this rank's columns of the chunk's [k, B] view table
+            table = [mesh.block(idxs[j * B:(j + 1) * B]) for j in range(k)]
             ts, mt = parallel_train_steps_scan(
                 ts, cam_stacks, gt_all, bg, opt_cfg, pipe_cfg, use_mask=use_mask,
-                mesh_shape=(("data", 1),), cam_geom=cam_geom, conn_on=conn_on,
+                mesh_shape=mesh.shape, cam_geom=cam_geom, conn_on=conn_on,
                 view_indices=table if use_exp else None, use_exposure=use_exp, rows=table,
                 graphs=graphs,
             )
@@ -450,7 +476,7 @@ def train_scene(
                     print(f"[{iteration:6d}] shrinking tile_capacity -> {want} / "
                           f"big_capacity -> {want_b} (observed peaks {pk})", flush=True)
 
-        if iteration in test_iterations and test_cameras:
+        if iteration in test_iterations and test_cameras and rank0:
             t0 = time.time()
             l1s, psnrs = [], []
             for ti, (tc, tg) in enumerate(zip(test_cameras, test_gts)):
@@ -469,9 +495,9 @@ def train_scene(
                       f"PSNR {np.mean(psnrs):.2f}", flush=True)
 
         t0 = time.time()
-        if iteration in save_iterations:
+        if iteration in save_iterations and rank0:
             save_model_artifacts(ts, model_path, iteration)
-        if iteration in checkpoint_iterations:
+        if iteration in checkpoint_iterations and rank0:
             ckpt_mod.save_checkpoint(os.path.join(model_path, f"chkpnt{iteration}.npz"), ts)
         seconds["saves"] += time.time() - t0
 
@@ -488,10 +514,11 @@ def train_scene(
         host, merge_endpoints_flag=opt_cfg.merge_endpoints_flag)
     if opt_cfg.visible_checking:
         edge_dict = extract_mod.filter_visible_edges(edge_dict, cameras, edge_maps)
-    extract_mod.save_parametric_edges(edge_dict, model_path)
-    pts, _ = extract_mod.sample_edge_dict(edge_dict)
-    if len(pts):
-        extract_mod.save_edge_points_ply(pts, model_path)
+    if rank0:
+        extract_mod.save_parametric_edges(edge_dict, model_path)
+        pts, _ = extract_mod.sample_edge_dict(edge_dict)
+        if len(pts):
+            extract_mod.save_edge_points_ply(pts, model_path)
     logger.close()
     seconds["extraction"] = time.time() - t0
     seconds["train"] = wall

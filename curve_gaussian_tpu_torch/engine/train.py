@@ -18,13 +18,16 @@ between the replays; on CPU tensors it runs the same body eagerly.
 ``train_steps``, the eager loop of ``train_step`` calls, is the reference
 it is held against.  The same body (``run_chunk``) takes B views a step
 for ``parallel/sharding.py::parallel_train_steps_scan``: its tables hold
-B stack rows a step, and the step function gets the B views stacked.
+B stack rows a step, and the step function gets the B views stacked.  A
+step whose ranks exchange sums (``StagedStep``, the B-view step over more
+than one device) runs as two captured graphs with the exchange eager
+between them.
 """
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Dict, List, Optional, Sequence
+from typing import Callable, Dict, List, NamedTuple, Optional, Sequence
 
 import torch
 
@@ -325,19 +328,12 @@ class _Buffers:
         self.counter.zero_()
 
 
-def _step_body(b: _Buffers, step_fn, args: dict, step: int, count: int,
-               opacity_frozen: bool) -> List[str]:
-    """One step from the buffers into the buffers; returns the metric names
-    of its row.  Step ``counter`` of the chunk takes its views' rows of the
-    stacks (``index_select`` on the device) and its rows of the tables,
-    writes the new state (unless the step is at or past ``n_active``) and
-    its metric row, and advances the counter.  With ``args["batched"]`` the
-    step function takes the views stacked (a Camera of [B] stacks, gts
-    [B,H,W], exposure rows [B]); otherwise its one view.  ``step`` and
-    ``count`` are the host numbers of the state the step function sees:
-    exact when the body runs eagerly, the capture's own in a graph, where
-    nothing in the step reads them (the learning-rate row decides what they
-    would)."""
+def _step_inputs(b: _Buffers, args: dict, step: int, count: int, opacity_frozen: bool):
+    """The state, camera, ground truth and keyword arguments of step
+    ``counter`` of the chunk: its views' rows of the stacks
+    (``index_select`` on the device; with ``args["batched"]`` the views
+    stacked, a Camera of [B] stacks, gts [B,H,W], exposure rows [B];
+    otherwise its one view)."""
     h, w, tfx, tfy = args["cam_geom"]
     i = b.counter
     row = b.rows.index_select(0, i)[0]
@@ -346,13 +342,18 @@ def _step_body(b: _Buffers, step_fn, args: dict, step: int, count: int,
         w2c, proj, ctr, intr, gt = w2c[0], proj[0], ctr[0], intr[0], gt[0]
     cam = Camera(world_to_cam=w2c, full_proj=proj, cam_center=ctr, height=h, width=w,
                  tanfovx=tfx, tanfovy=tfy, intrinsics=intr)
-    new, m = step_fn(
-        _state_of(b.state, step, count, opacity_frozen), cam, gt, args["bg"], args["opt_cfg"],
-        args["pipe_cfg"], use_mask=args["use_mask"], n_gaussians=args["n_gaussians"],
-        conn_on=args["conn_on"],
-        view_idx=b.vix.index_select(0, i)[0] if args["use_exposure"] else None,
-        use_exposure=args["use_exposure"], lr_row=b.lrs.index_select(0, i)[0],
-    )
+    kw = dict(use_mask=args["use_mask"], n_gaussians=args["n_gaussians"],
+              conn_on=args["conn_on"],
+              view_idx=b.vix.index_select(0, i)[0] if args["use_exposure"] else None,
+              use_exposure=args["use_exposure"])
+    return _state_of(b.state, step, count, opacity_frozen), cam, gt, kw
+
+
+def _write_back(b: _Buffers, new: TrainState, m: dict) -> List[str]:
+    """Write a step's new state (unless the step is at or past
+    ``n_active``) and its metric row, and advance the counter; returns the
+    metric names of the row."""
+    i = b.counter
     with torch.no_grad():
         act = i < b.n_active
         for k, v in _state_leaves(new).items():
@@ -368,11 +369,69 @@ def _step_body(b: _Buffers, step_fn, args: dict, step: int, count: int,
     return names
 
 
+def _step_body(b: _Buffers, step_fn, args: dict, step: int, count: int,
+               opacity_frozen: bool) -> List[str]:
+    """One step from the buffers into the buffers; returns the metric names
+    of its row.  Step ``counter`` of the chunk takes its views' rows of the
+    stacks and its rows of the tables, writes the new state and its metric
+    row, and advances the counter (``_step_inputs``, ``_write_back``).
+    ``step`` and ``count`` are the host numbers of the state the step
+    function sees: exact when the body runs eagerly, the capture's own in a
+    graph, where nothing in the step reads them (the learning-rate row
+    decides what they would)."""
+    state, cam, gt, kw = _step_inputs(b, args, step, count, opacity_frozen)
+    new, m = step_fn(state, cam, gt, args["bg"], args["opt_cfg"], args["pipe_cfg"], **kw,
+                     lr_row=b.lrs.index_select(0, b.counter)[0])
+    return _write_back(b, new, m)
+
+
+class StagedStep(NamedTuple):
+    """A step whose ranks exchange sums between their local work and the
+    update, in three stages: ``local`` takes a step function's arguments
+    (without ``lr_row``) and returns the tensors to exchange, ``exchange``
+    reduces them across the ranks in place, and ``update(ts, tensors,
+    opt_cfg, (H, W), use_exposure, lr_row)`` returns (new TrainState,
+    metrics).  Called, it runs the three in turn.  On CUDA tensors
+    ``StepGraphs`` captures ``local`` and ``update`` as two graphs and runs
+    ``exchange`` eagerly between their replays."""
+
+    local: Callable
+    exchange: Callable
+    update: Callable
+
+    def __call__(self, ts, cams, gts, bg, opt_cfg, pipe_cfg, use_mask, n_gaussians=None,
+                 conn_on=None, view_idx=None, use_exposure=False, lr_row=None):
+        bufs = self.local(ts, cams, gts, bg, opt_cfg, pipe_cfg, use_mask, n_gaussians,
+                          conn_on=conn_on, view_idx=view_idx, use_exposure=use_exposure)
+        self.exchange(bufs)
+        return self.update(ts, bufs, opt_cfg, (cams.height, cams.width), use_exposure, lr_row)
+
+
+def _stage_local(b: _Buffers, step: StagedStep, args: dict, stepno: int, count: int,
+                 opacity_frozen: bool):
+    """The local stage of step ``counter`` of the chunk: the tensors to
+    exchange."""
+    state, cam, gt, kw = _step_inputs(b, args, stepno, count, opacity_frozen)
+    return step.local(state, cam, gt, args["bg"], args["opt_cfg"], args["pipe_cfg"], **kw)
+
+
+def _stage_update(b: _Buffers, step: StagedStep, args: dict, bufs, stepno: int, count: int,
+                  opacity_frozen: bool) -> List[str]:
+    """The update stage of step ``counter`` from the exchanged `bufs`,
+    written back as ``_step_body`` writes a step."""
+    h, w, _, _ = args["cam_geom"]
+    new, m = step.update(_state_of(b.state, stepno, count, opacity_frozen), bufs,
+                         args["opt_cfg"], (h, w), args["use_exposure"],
+                         b.lrs.index_select(0, b.counter)[0])
+    return _write_back(b, new, m)
+
+
 @dataclasses.dataclass
 class _Graph:
-    graph: "torch.cuda.CUDAGraph"
+    graphs: List["torch.cuda.CUDAGraph"]  # the step's, or a staged step's local and update
     names: List[str]  # the metric row's
     record: dict
+    exchanged: Optional[tuple] = None  # a staged step's: the local graph's outputs
 
 
 class StepGraphs:
@@ -388,8 +447,13 @@ class StepGraphs:
     move forward, so the old sizes do not recur.  ``release`` drops them too
     and keeps the records.  ``step`` is the step function the body runs,
     ``train_step`` unless the caller wraps it or gives the view-batched
-    step (``parallel/sharding.py::_local_batch_step``, whose chunk is
-    ``parallel_train_steps_scan``).
+    step (``parallel/sharding.py::batch_step``, whose chunk is
+    ``parallel_train_steps_scan``).  A ``StagedStep`` (the B-view step of
+    more than one rank) is captured as two graphs, its local work and its
+    update, and its ``exchange`` runs eagerly between their replays; its
+    host seconds (which include the wait for the local graph's device work
+    where the collective copies through host memory) add up in
+    ``exchange_seconds`` over ``exchanges`` calls.
 
     ``captures`` records each capture: its capacities, views and flags, the host
     seconds of its warm-up (to the end of its device work), capture and
@@ -402,8 +466,27 @@ class StepGraphs:
     def __init__(self, step=None):
         self.step = step if step is not None else train_step
         self.captures: List[dict] = []
+        self.exchange_seconds = 0.0
+        self.exchanges = 0
         self._graphs: Dict[tuple, _Graph] = {}
         self._sizes = self._bufs = self._pool = self._stream = None
+
+    def exchange(self, bufs) -> None:
+        """The staged step's exchange, timed on the host clock."""
+        t0 = time.perf_counter()
+        self.step.exchange(bufs)
+        self.exchange_seconds += time.perf_counter() - t0
+        self.exchanges += 1
+
+    def eager_step(self, b: "_Buffers", args: dict, stepno: int, count: int,
+                   opacity_frozen: bool) -> List[str]:
+        """One step of the chunk eagerly, through the same bodies (and the
+        same stages) as its graphs."""
+        if not isinstance(self.step, StagedStep):
+            return _step_body(b, self.step, args, stepno, count, opacity_frozen)
+        bufs = _stage_local(b, self.step, args, stepno, count, opacity_frozen)
+        self.exchange(bufs)
+        return _stage_update(b, self.step, args, bufs, stepno, count, opacity_frozen)
 
     @property
     def capture_seconds(self) -> float:
@@ -431,8 +514,9 @@ class StepGraphs:
 
     def latest_graph(self) -> "torch.cuda.CUDAGraph":
         """The graph captured last (kept with its ``cudaGraph_t``, so that
-        its nodes can be read)."""
-        return next(g.graph for g in self._graphs.values() if g.record is self.captures[-1])
+        its nodes can be read); of a staged step, its local work."""
+        return next(g.graphs[0] for g in self._graphs.values()
+                    if g.record is self.captures[-1])
 
     def release(self) -> None:
         self._graphs.clear()
@@ -449,13 +533,15 @@ class StepGraphs:
             self._bufs = _Buffers(ts, stacks, max(rows, MIN_CHUNK), views)
         return self._bufs
 
-    def _capture(self, key: tuple, body, load, record: dict) -> _Graph:
-        """Warm up on a side stream, capture one step there, and instantiate
-        it; the caller restores the buffers that the warm-up advanced.  A
-        capture that fails raises.  ``capture_begin``/``capture_end`` in
-        place of the ``torch.cuda.graph`` context, which empties the
-        allocator's cache first: after the test renders that cache holds
-        seconds of ``cudaFree``s, and the graph's pool needs none of it."""
+    def _capture(self, key: tuple, warm, stages, load, record: dict) -> _Graph:
+        """Warm up on a side stream (`warm`: one eager step), capture each of
+        `stages` there in turn (the last returns the metric names), and
+        instantiate them; the caller restores the buffers that the warm-up
+        advanced.  A capture that fails raises.  ``capture_begin``/
+        ``capture_end`` in place of the ``torch.cuda.graph`` context, which
+        empties the allocator's cache first: after the test renders that
+        cache holds seconds of ``cudaFree``s, and the graph's pool needs none
+        of it."""
         t = [time.time()]
         dev = self._bufs.counter.device
         with torch.cuda.device(dev):
@@ -465,28 +551,32 @@ class StepGraphs:
             self._stream.wait_stream(torch.cuda.current_stream(dev))
             with torch.cuda.stream(self._stream):
                 for _ in range(WARMUP_STEPS):
-                    body()
+                    warm()
                 self._stream.synchronize()
                 t.append(time.time())
                 if self._pool is None:
                     self._pool = torch.cuda.graph_pool_handle()
                 before = _launch_counts()
-                graph = torch.cuda.CUDAGraph(keep_graph=True)
-                graph.capture_begin(pool=self._pool)
-                try:
-                    names = body()
-                finally:
-                    graph.capture_end()
+                graphs = []
+                for stage in stages:
+                    graph = torch.cuda.CUDAGraph(keep_graph=True)
+                    graph.capture_begin(pool=self._pool)
+                    try:
+                        names = stage()
+                    finally:
+                        graph.capture_end()
+                    graphs.append(graph)
                 after = _launch_counts()
                 t.append(time.time())
-                graph.instantiate()
+                for graph in graphs:
+                    graph.instantiate()
             torch.cuda.current_stream(dev).wait_stream(self._stream)
         t.append(time.time())
         record.update(seconds=t[3] - t[0], warmup_seconds=t[1] - t[0],
                       capture_seconds=t[2] - t[1], instantiate_seconds=t[3] - t[2], replays=0,
                       launches={k: n - before[k] for k, n in after.items() if n != before[k]})
         self.captures.append(record)
-        self._graphs[key] = g = _Graph(graph, names, record)
+        self._graphs[key] = g = _Graph(graphs, names, record)
         return g
 
 
@@ -588,7 +678,7 @@ def run_chunk(ts: TrainState, cam_arrays, gts: torch.Tensor, bg, opt_cfg: Optimi
         b.load(ts, stacks, tables, n_act)
         for i in range(k):
             j = min(i, n_act)
-            names = _step_body(b, graphs.step, args, ts.step + j, ts.opt.count + j, frozen)
+            names = graphs.eager_step(b, args, ts.step + j, ts.opt.count + j, frozen)
     else:
         sizes = (dev, tuple((n, v.shape, v.dtype) for n, v in _state_leaves(ts).items()),
                  tuple((s.shape, s.dtype) for s in stacks), views, batched, opt_cfg, pipe_cfg,
@@ -598,15 +688,29 @@ def run_chunk(ts: TrainState, cam_arrays, gts: torch.Tensor, bg, opt_cfg: Optimi
         g = graphs._graphs.get(key)
         if g is None:
             step0, count0 = ts.step, ts.opt.count
+            step = graphs.step
+            held = {}
+            if isinstance(step, StagedStep):
+                def local():
+                    held["bufs"] = _stage_local(b, step, args, step0, count0, frozen)
+
+                stages = [local, lambda: _stage_update(b, step, args, held["bufs"], step0,
+                                                       count0, frozen)]
+            else:
+                stages = [lambda: _step_body(b, step, args, step0, count0, frozen)]
             g = graphs._capture(
-                key, lambda: _step_body(b, graphs.step, args, step0, count0, frozen),
+                key, lambda: graphs.eager_step(b, args, step0, count0, frozen), stages,
                 lambda: b.load(ts, stacks, tables, n_act),
                 dict(capacity=ts.alive.shape[0], tile_capacity=pipe_cfg.tile_capacity,
                      big_capacity=pipe_cfg.big_capacity, views=views, use_mask=use_mask,
                      conn_on=conn_on, use_exposure=use_exposure))
+            g.exchanged = held.get("bufs")
         b.load(ts, stacks, tables, n_act)
         for _ in range(k):
-            g.graph.replay()
+            g.graphs[0].replay()
+            if g.exchanged is not None:
+                graphs.exchange(g.exchanged)
+                g.graphs[1].replay()
         g.record["replays"] += k
         names = g.names
 

@@ -150,7 +150,13 @@ def bin_gaussians(
     tier1_rect: int = 4,
     big_capacity: int = 1024,
     packed: bool | None = None,
+    key_tiles: int | None = None,
 ) -> Binning:
+    """The per-tile lists of `pre` on a `height` x `width` image.
+    ``key_tiles`` (default: this image's tile count) sets the tile bits of
+    the packed sort key, and so its depth resolution: a band of a larger
+    image passes the whole image's count, so that its tiles keep the
+    image's order among near-equal depths."""
     if method not in ("sort", "pairs"):
         raise ValueError(f"binning method {method!r} is not 'sort' or 'pairs'")
     if packed is None:
@@ -203,7 +209,7 @@ def bin_gaussians(
     if packed:
         # uint32 [tile | depth bits >> tbits] key with the index below it:
         # bit for bit the JAX package's packed (key, index) sort
-        tbits = (T + 1).bit_length()
+        tbits = (max(T, key_tiles or 0) + 1).bit_length()
         dq = _depth_bits(depth_flat) >> tbits
         key = (tiles_flat.to(torch.int64) << (32 - tbits)) | dq
         order = torch.sort((key << 31) | vals.to(torch.int64)).indices

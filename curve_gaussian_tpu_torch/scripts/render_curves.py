@@ -7,10 +7,16 @@ each edge into 32 Gaussians of the given width at opacity 0.95
 its default channel set (K3 on the card, one launch per frame).  The
 cameras are an orbit (``ring_cameras``) or a NeRF-style
 ``transforms_video.json``.  Frames land in <out>/frames/ and are stitched
-to <out>/curves.mp4 when ffmpeg is installed.
+to <out>/curves.mp4 when ffmpeg is installed.  With ``--n-devices N`` each
+frame is the tile-parallel render (``parallel/sharding.py::
+tile_parallel_render_gaussians``) over the N ranks of the process group
+(``torchrun --nproc-per-node N``, as ``train.py`` runs), and rank 0 writes
+the frames.
 
     python -m curve_gaussian_tpu_torch.scripts.render_curves --edges <run>/parametric_edges.json
     python -m curve_gaussian_tpu_torch.scripts.render_curves --edges ... --device cpu --size 64
+    torchrun --nproc-per-node 2 -m curve_gaussian_tpu_torch.scripts.render_curves \
+        --edges ... --n-devices 2
 """
 from __future__ import annotations
 
@@ -23,13 +29,15 @@ import time
 import numpy as np
 import torch
 
-from .. import resolve_device
+from ..config import PipelineConfig
 from ..data.png import write_png
 from ..data.synthetic import ring_cameras
 from ..eval.replica import stitch_video
 from ..ops import bezier
 from ..ops.camera import make_camera
 from ..ops.render import render
+from ..parallel import multihost
+from ..parallel.sharding import make_mesh, tile_parallel_render_gaussians
 
 M_PER = 32  # Gaussians per edge
 OPACITY = 0.95
@@ -46,8 +54,12 @@ def parse_args(argv=None):
     p.add_argument("--n-orbit", type=int, default=60)
     p.add_argument("--width", type=float, default=0.003)
     p.add_argument("--n-devices", type=int, default=None,
-                   help="tile-parallel rendering over N devices (multi-device slice; raises)")
+                   help="tile-parallel rendering over N devices, the ranks of the process "
+                        "group (one process each)")
     p.add_argument("--device", default="cuda", help="torch device (default cuda)")
+    p.add_argument("--dist-backend", default=None, choices=[None, "nccl", "gloo"],
+                   help="torch.distributed backend with more than one process (default: "
+                        "nccl on CUDA, gloo on the CPU)")
     return p.parse_args(argv)
 
 
@@ -93,37 +105,49 @@ def render_curves(argv=None, quiet: bool = False) -> dict:
     """Render and write every frame.  Returns the host seconds per frame of
     the render (to the image on the host) and of the write, the SHA-256 of
     each frame's uint8 pixels as written, frame 0's float render, the frame
-    directory and whether a video was stitched."""
+    directory and whether a video was stitched.  With ``--n-devices`` every
+    rank renders and returns the same; only rank 0 writes (its write
+    seconds are 0 elsewhere)."""
     args = parse_args(argv)
-    if args.n_devices:
-        raise NotImplementedError(
-            "--n-devices is the tile-parallel render, which the multi-device slice of the "
-            "port (ROADMAP slice 11) brings; this script renders on one device")
-    dev = resolve_device(args.device)
+    with multihost.distributed(args.device, args.dist_backend) as dev:
+        return _render_frames(args, dev, quiet)
+
+
+def _render_frames(args, dev, quiet: bool) -> dict:
+    mesh = make_mesh(args.n_devices, device=dev) if args.n_devices else None
+    rank0 = mesh is None or mesh.rank == 0
+    quiet = quiet or not rank0
+    pipe = PipelineConfig(tile_capacity=CAPACITY)
     with open(args.edges) as f:
         edge_dict = json.load(f)
     xyz, scale, quat, opa = edge_gaussians(edge_dict, args.width, dev)
+    gauss = {"xyz": xyz, "scale": scale, "quat": quat, "opacity": opa}
     cams = video_cameras(args, dev)
 
     frame_dir = os.path.join(args.out, "frames")
-    os.makedirs(frame_dir, exist_ok=True)
+    if rank0:
+        os.makedirs(frame_dir, exist_ok=True)
     render_s, write_s, digests, first = [], [], [], None
     for i, cam in enumerate(cams):
         t0 = time.time()
         with torch.no_grad():
-            img = render(xyz, scale, quat, opa, cam, bg=0.0, capacity=CAPACITY)["render"]
+            if mesh is None:
+                img = render(xyz, scale, quat, opa, cam, bg=0.0, capacity=CAPACITY)["render"]
+            else:
+                img = tile_parallel_render_gaussians(gauss, cam, pipe, 0.0, mesh.shape)
         img = img.cpu().numpy()
         t1 = time.time()
         first = img if first is None else first
         u8 = (np.clip(img, 0, 1) * 255).astype(np.uint8)
-        write_png(os.path.join(frame_dir, f"frame_{i:04d}.png"), u8)
+        if rank0:
+            write_png(os.path.join(frame_dir, f"frame_{i:04d}.png"), u8)
         digests.append(hashlib.sha256(u8.tobytes()).hexdigest())
         render_s.append(t1 - t0)
         write_s.append(time.time() - t1)
         if not quiet:
             print(f"frame {i + 1}/{len(cams)}", end="\r", flush=True)
     video = os.path.join(args.out, "curves.mp4")
-    stitched = stitch_video(frame_dir, video)
+    stitched = rank0 and stitch_video(frame_dir, video)
     if not quiet:
         print()
         print("wrote", video if stitched else f"{len(cams)} frames in {frame_dir} (no ffmpeg)")

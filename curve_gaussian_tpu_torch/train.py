@@ -4,6 +4,8 @@ scene on disk or a synthetic one.
     python -m curve_gaussian_tpu_torch.train -s output_torch/refscale -r 2
     python -m curve_gaussian_tpu_torch.train --synthetic --iterations 600 --image-size 512
     python -m curve_gaussian_tpu_torch.train --synthetic --device cpu --iterations 30 --image-size 64
+    torchrun --nproc-per-node 2 -m curve_gaussian_tpu_torch.train --synthetic \
+        --views-per-step 4 --n-devices 2
 
 ``--source-path`` loads an EMAP, Blender or COLMAP scene (``data/dataset.py``)
 with its train and test views and seed points; ``--synthetic`` makes a
@@ -14,6 +16,13 @@ compresses the surgery schedule in proportion.  Training runs through
 extracted curves are evaluated into ``eval.json`` against the ground truth:
 the synthetic scene's curves, or a dataset scene's ``gt_edges.json`` when it
 has one (``scripts/make_ref_scale_scene.py`` writes it).
+
+Under ``torchrun --nproc-per-node N`` (or the ``CGT_NUM_PROCESSES``,
+``CGT_COORDINATOR``, ``CGT_PROCESS_ID`` variables) each process is a rank of
+one process group and ``--n-devices N`` splits each step's views over the
+ranks.  Each rank runs on ``cuda:LOCAL_RANK`` unless ``--device`` names a
+device, which then holds every rank (two ranks on one card need
+``--dist-backend gloo``: NCCL refuses them).  Only rank 0 writes files.
 """
 from __future__ import annotations
 
@@ -26,6 +35,7 @@ import torch
 
 from .config import (PRESETS, ModelConfig, OptimizationConfig, PipelineConfig,
                      add_dataclass_args, dataclass_from_args)
+from .parallel import multihost
 
 
 def parse_args(argv=None):
@@ -62,10 +72,13 @@ def parse_args(argv=None):
                    help="most training steps between two host reads of the metrics")
     p.add_argument("--views-per-step", type=int, default=1,
                    help="views per optimizer step: each step takes the mean gradient of "
-                        "this many views, on one device")
+                        "this many views, split over the devices")
     p.add_argument("--n-devices", type=int, default=None,
-                   help="devices for the data-parallel path: 1 (or unset) runs; more "
-                        "devices are the multi-device slice and raise")
+                   help="devices (ranks of the process group, one process each) that "
+                        "split each step's views; more than the processes launched raises")
+    p.add_argument("--dist-backend", default=None, choices=[None, "nccl", "gloo"],
+                   help="torch.distributed backend with more than one process (default: "
+                        "nccl on CUDA, gloo on the CPU)")
     p.add_argument("--synthetic", action="store_true",
                    help="train on a generated synthetic curve scene")
     p.add_argument("--synthetic-seed", type=int, default=0)
@@ -111,8 +124,14 @@ def gt_edge_dict(scene):
 
 
 def main(argv=None):
-    """Train (and evaluate) one scene; returns the TrainResult."""
+    """Train (and evaluate) one scene; returns the TrainResult.  With more
+    than one process, each is a rank (``multihost.distributed``)."""
     args = parse_args(argv)
+    with multihost.distributed(args.device, args.dist_backend) as dev:
+        return _main(args, str(dev))
+
+
+def _main(args, device: str):
     if args.detect_anomaly:
         torch.autograd.set_detect_anomaly(True)
 
@@ -143,7 +162,7 @@ def main(argv=None):
             seed=args.synthetic_seed, n_curves=args.synthetic_curves,
             n_lines=args.synthetic_lines, n_views=args.synthetic_views,
             height=args.image_size, width=args.image_size, backend=args.backend,
-            noise=args.synthetic_noise, device=args.device,
+            noise=args.synthetic_noise, device=device,
         )
         cameras, edge_maps = scene.cameras, scene.edge_maps
         test_cams, test_maps = cameras[:2], edge_maps[:2]
@@ -153,7 +172,7 @@ def main(argv=None):
     else:
         from .data.dataset import load_scene
 
-        scene = load_scene(model_cfg, device=args.device)
+        scene = load_scene(model_cfg, device=device)
         cameras, edge_maps = scene.train_cameras, scene.train_edge_maps
         test_cams, test_maps = scene.test_cameras, scene.test_edge_maps
         seed_points = scene.seed_points
@@ -163,9 +182,11 @@ def main(argv=None):
         if args.source_path and os.path.exists(gt_path):
             with open(gt_path) as f:
                 gt_dict = json.load(f)
-    os.makedirs(model_path, exist_ok=True)
-    with open(os.path.join(model_path, "cfg_args"), "w") as f:
-        f.write(repr(vars(args)))
+    rank0 = multihost.group_size() == 1 or torch.distributed.get_rank() == 0
+    if rank0:
+        os.makedirs(model_path, exist_ok=True)
+        with open(os.path.join(model_path, "cfg_args"), "w") as f:
+            f.write(repr(vars(args)))
 
     result = train_scene(
         cameras, edge_maps, seed_points, model_cfg, opt_cfg, pipe_cfg, model_path,
@@ -175,10 +196,10 @@ def main(argv=None):
         checkpoint_iterations=args.checkpoint_iterations,
         start_checkpoint=args.start_checkpoint, quiet=args.quiet, seed=args.seed,
         views_per_step=args.views_per_step, n_devices=args.n_devices,
-        scan_chunk=args.scan_chunk, profile_dir=args.profile_dir, device=args.device,
+        scan_chunk=args.scan_chunk, profile_dir=args.profile_dir, device=device,
     )
 
-    if gt_dict is not None:
+    if gt_dict is not None and rank0:
         pred_pts, pred_dirs = sample_edge_dict(result.edge_dict, with_directions=True)
         gt_pts, gt_dirs = sample_edge_dict(gt_dict, with_directions=True)
         res = M.evaluate_edges(pred_pts, gt_pts, pred_dirs, gt_dirs)
@@ -187,7 +208,8 @@ def main(argv=None):
             print(f"  {k}: {v:.4f}")
         with open(os.path.join(model_path, "eval.json"), "w") as f:
             json.dump(res, f, indent=1)
-    print("\nTraining complete.")
+    if rank0:
+        print("\nTraining complete.")
     return result
 
 

@@ -27,6 +27,7 @@ from curve_gaussian_tpu_torch.ops import camera as pcam
 from curve_gaussian_tpu_torch.ops import rasterize_cuda as prc
 from curve_gaussian_tpu_torch.ops import ssim_cuda as psc
 from curve_gaussian_tpu_torch.ops import tile_blend_cuda as ptb
+from curve_gaussian_tpu_torch.parallel import dryrun, multihost, sharding
 from curve_gaussian_tpu_torch.scripts import run_batch_abc
 from curve_gaussian_tpu_torch.scripts.make_ref_scale_scene import make_ref_scale_scene
 from curve_gaussian_tpu_torch.scripts.render_curves import render_curves
@@ -51,7 +52,7 @@ def test_importing_every_module_loads_no_jax():
               "models.gaussian_ply", "train", "data.colmap", "data.png", "data.dataset",
               "scripts.make_ref_scale_scene", "ops.sh", "eval.abc", "eval.replica",
               "scripts.render_curves", "scripts.run_batch_abc", "scripts.eval_gt_json",
-              "parallel.sharding"):
+              "parallel.sharding", "parallel.multihost", "parallel.dryrun"):
         assert f"curve_gaussian_tpu_torch.{m}" in mods, m
     code = (
         "import importlib, sys\n"
@@ -106,6 +107,9 @@ def test_entry_points_default_to_the_card():
         lambda: make_ref_scale_scene(["--out", "unused"]),
         lambda: render_curves(["--edges", "unused"]),
         lambda: run_batch_abc.main(["--data-root", "unused"]),
+        lambda: sharding.make_mesh(),
+        lambda: multihost.global_mesh(),
+        lambda: dryrun.dryrun_multichip(1),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA is not available"):

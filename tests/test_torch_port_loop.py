@@ -319,7 +319,9 @@ def test_resume_below_the_seed_count(tmp_path):
 
 
 def test_multi_device_arguments_raise():
-    with pytest.raises(NotImplementedError, match="multi-device slice"):
+    """More devices than the process group's ranks (no group: one) raise,
+    saying what to launch, rather than training on fewer."""
+    with pytest.raises(RuntimeError, match="needs 2 ranks and this process has no process"):
         ploop.train_scene([], [], np.zeros((4, 3)), ModelConfig(), OptimizationConfig(),
                           PipelineConfig(), "unused", device="cpu", n_devices=2)
 

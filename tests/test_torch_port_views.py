@@ -282,7 +282,7 @@ def test_one_view_batch_equals_train_step(use_exp):
 
 def test_cameras_stack_and_index():
     """stack_cameras / index_camera, intrinsics included; mixed sizes and
-    more than one device raise."""
+    a mesh of more devices than the process group's ranks raise."""
     cams = psyn.ring_cameras(3, 16, 24, device="cpu")
     intr = [dataclasses.replace(c, intrinsics=torch.tensor([float(i)] * 4))
             for i, c in enumerate(cams)]
@@ -293,8 +293,8 @@ def test_cameras_stack_and_index():
     assert pps.batch_cameras(cams).intrinsics is None
     with pytest.raises(ValueError, match="one image size"):
         pcam.stack_cameras(cams + psyn.ring_cameras(1, 16, 32, device="cpu"))
-    with pytest.raises(NotImplementedError, match="slice 11b"):
-        pps.camera_batch_arrays(cams, (("data", 2),))
+    with pytest.raises(RuntimeError, match="needs 2 ranks and this process has no process"):
+        pps.camera_batch_arrays(cams, pps.make_mesh(2, device="cpu"))
 
 
 # ---------------------------------------------------------------------------
@@ -380,7 +380,10 @@ def test_driver_logged_losses_match_jax(driver_runs):
 
 
 def test_driver_more_devices_raise():
-    with pytest.raises(NotImplementedError, match="slice 11b"):
+    """views_per_step over more devices than this process's group (none)
+    raises with the launch to make, where the JAX driver would quietly
+    take fewer."""
+    with pytest.raises(RuntimeError, match="torchrun --nproc-per-node 2"):
         ploop.train_scene([], [], np.zeros((4, 3)), ModelConfig(), OptimizationConfig(),
                           PipelineConfig(), "unused", views_per_step=2, n_devices=2,
                           device="cpu")
