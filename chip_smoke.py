@@ -74,7 +74,15 @@
       indirect flavor's inputs (its rows index-added are K2's
       accumulator), timed in turns;
    b. ``eval_render`` of each of the 4 views (no gradient): finite maps,
-      the render in [0, 1];
+      the render in [0, 1], K3 once per view; then (the graphed eval
+      render) ``eval_renders`` of the 4 views, one captured CUDA graph
+      replayed once per view: the capture holding K3 once and no host work
+      (its ``graph_nodes``), K3 run once per view and once in the warm-up on
+      the device, render, invdepth, alpha and final_T bitwise equal to
+      ``eval_render``'s and dir within 1e-6 of its max; eager and graphed in
+      turns (eager, graphed, graphed, eager): host ms a view, each turn's
+      peak memory, one replay's device ms (``replay_ms``) and the capture's
+      seconds;
    c. the gradient of sum(render k1 + invdepth k2 + alpha k3 + dir k4) to
       xyz, scale, quat and opacity: finite and nonzero;
    d. ``make_scene`` at ``train.py --synthetic``'s defaults (seed 0, 8
@@ -107,7 +115,9 @@
    are their counts less the captures' plus each capture's times its
    replays; each capture must hold K1, K2, K7 and K8 once, the replays
    must be the iterations, so K1, K2, K7 and K8 run once per step and per
-   eager warm-up step; K3 once per rendered view), and eval.json's
+   eager warm-up step; the test renders replay their render graphs, each
+   capture holding K3 once, so K3 runs once per view of make_scene, per
+   test view rendered and per warm-up render), and eval.json's
    Chamfer, precision, recall and F-score; checks that the artifacts
    exist, that the checkpoint loads into a template leaf by leaf bitwise,
    and that a second run resumes from it to 600 (the same launch checks
@@ -134,12 +144,16 @@
    d. ``train.main -s <scene> -r 2 --eval`` for 600 iterations with test
       renders at 300 and 600, through the step graphs: K1, K2, K7 and K8
       once per step and warm-up step (counted as in 9), K3 once per test
-      view, finite losses and ``eval.json``.
+      view (replayed) and warm-up render, finite losses and ``eval.json``;
+   e. the graphed eval render of 7b on the trained state over the 50 test
+      views at 800x800.
 11. Evaluation and export:
    a. ``render_curves`` of the driver's ``parametric_edges.json`` at its
-      defaults (a 60-frame orbit at 512x512): K3 once per frame, each PNG
-      read back as the array written, K3 (bitwise) on frame 0's inputs,
-      which must render frame 0; host ms per frame;
+      defaults (a 60-frame orbit at 512x512), its frames one captured render
+      replayed: K3 once per frame and once in the warm-up, each PNG read
+      back as the array written, K3 (bitwise) on frame 0's inputs, which
+      must render frame 0, frames 0 and 59 the SHA-256 of an eager render
+      of their cameras; host ms per frame;
    b. the batched ``ssim`` (the band-matrix path) of the 4 bench views'
       renders against their ground truths: within 1e-5 of K7's per-pair
       mean, with a finite gradient;
@@ -170,9 +184,10 @@
       rank 0 alone writes (``eval.json`` once, finite), rank 1 nothing;
    d. the tile-parallel render of the 4 bench views within 2e-5 of
       ``eval_render`` (K3 once per view on each rank), and ``render_curves
-      --n-devices 2`` of the driver's curves (K3 once per frame on each
-      rank, frames from rank 0 alone) against one process on frame 0
-      within 2e-5;
+      --n-devices 2`` of the driver's curves (each rank's band one captured
+      graph replayed per frame, the sum eager between: K3 once per frame
+      and warm-up on each rank, frames from rank 0 alone) bitwise equal to
+      one process on every frame (SHA-256);
    e. ``dryrun_multichip(2)`` on the card.
    The ranks' states must be bitwise equal after every chunk (1 to 3 and
    each of the driver's); the phase's seconds are printed.
@@ -542,7 +557,7 @@ def main() -> None:
     view_batches(ts, cams, gts, opt_cfg, pipe_cfg, M, smi)
 
     # -- the full-channel render ---------------------------------------------
-    kernels += full_channel(ts, cams, gts, opt_cfg, pipe_cfg, M, dev)
+    kernels += full_channel(ts, cams, gts, opt_cfg, pipe_cfg, M, dev, smi)
 
     # -- the basis flavor (K6b), on the main path's K2 inputs -------------------
     kernels.append(basis_flavor((fields, binning.gather_idx, binning.counts, col, finT, gc, gtt),
@@ -555,7 +570,7 @@ def main() -> None:
     views_driver(dev, driver(dev), smi)
 
     # -- a dataset scene at the reference's operating point ------------------------
-    scene = dataset_scene(dev, profile)
+    scene = dataset_scene(dev, smi, profile)
 
     # -- evaluation and export ------------------------------------------------------
     kernels.append(eval_export(dev, ts, cams, gts, pipe_cfg, scene))
@@ -985,18 +1000,50 @@ def view_batches(ts, cams, gts, opt_cfg, pipe_cfg, M, smi: str):
     one.release()
 
 
+def device_launches(counts: dict, *graphs) -> dict:
+    """The launches on the device from the wrappers' host counts: a
+    captured launch counts once on the host, so the counts less those of
+    each of `graphs`' captures plus each capture's times its replays."""
+    out = dict(counts)
+    for g in graphs:
+        captured, replayed = g.captured_launches(), g.replayed_launches()
+        out = {n: v - captured.get(n, 0) + replayed.get(n, 0) for n, v in out.items()}
+    return out
+
+
+def check_render_graphs(label: str, rg, n_views: int) -> int:
+    """Every capture of the render graphs `rg` must hold K3 once and
+    nothing else, and their replays must be the `n_views` views rendered;
+    prints each capture and returns the number of captures (each made one
+    eager warm-up render)."""
+    for c in rg.captures:
+        print(f"{label} render capture: {c['baked']} {c['views']} views of {c['height']}x"
+              f"{c['width']}: {c['seconds']:.3f} s (warm-up {c['warmup_seconds']:.3f}, capture "
+              f"{c['capture_seconds']:.3f}, instantiation {c['instantiate_seconds']:.3f}), "
+              f"{c['replays']} replays, launches {c['launches']}", flush=True)
+        if c["launches"] != {"tile_blend_fwd": 1}:
+            fail(f"a {label} render capture launched {c['launches']}, not K3 once")
+    replays = sum(c["replays"] for c in rg.captures)
+    if replays != n_views:
+        fail(f"the {label} replayed its render graphs {replays} times, not {n_views}")
+    return len(rg.captures)
+
+
 def check_step_launches(label: str, counts: dict, graphs, steps: int, eager: dict,
-                        views: int = 1) -> None:
-    """The launch checks of a run through ``train_scene``'s step graphs: the
-    wrappers' counts are host counts (a captured launch counts once), so
-    the device's launches are the counts less those of the captures plus
-    each capture's times its replays.  Every capture must hold K1, K2, K7
-    and K8 `views` times each (once per view of a step) and nothing else,
-    the replays must be the run's steps, and K1, K2, K7 and K8 must have
-    run `views` times per step and per warm-up step on the device; `eager`
-    gives the other kernels' launches."""
-    captured, replayed = graphs.captured_launches(), graphs.replayed_launches()
-    device = {n: v - captured.get(n, 0) + replayed.get(n, 0) for n, v in counts.items()}
+                        views: int = 1, renders=None) -> None:
+    """The launch checks of a run through ``train_scene``'s step graphs
+    (``device_launches``).  Every capture must hold K1, K2, K7 and K8
+    `views` times each (once per view of a step) and nothing else, the
+    replays must be the run's steps, and K1, K2, K7 and K8 must have run
+    `views` times per step and per warm-up step on the device; `eager`
+    gives the other kernels' launches.  `renders` = (the run's render
+    graphs, the test views it rendered): their captures and replays are
+    checked (``check_render_graphs``), and K3 must have run once per
+    rendered view and per warm-up render besides `eager`'s."""
+    device = device_launches(counts, graphs, *([renders[0]] if renders else []))
+    if renders:
+        warm = check_render_graphs(label, *renders)
+        eager = dict(eager, tile_blend_fwd=eager.get("tile_blend_fwd", 0) + renders[1] + warm)
     replays = sum(c["replays"] for c in graphs.captures)
     print(f"{label}: {len(graphs.captures)} step captures in {graphs.capture_seconds:.3f} s "
           f"(host clock, {graphs.warmup_steps} warm-up steps), {replays} replays; launches "
@@ -1145,7 +1192,114 @@ def report(k, label=""):
              f"{k['rel_err']} > {TOL[k['name']]}")
 
 
-def full_channel(ts, cams, gts, opt_cfg, pipe_cfg, M, dev):
+# the graphed eval render against the eager one: render, invdepth, alpha and
+# final_T bitwise (K3 and the sort are deterministic); dir within 1e-6 of its
+# max, since its einsum may take another cuBLAS kernel under capture
+RENDER_DIR_TOL = 1e-6
+
+
+def render_turns(label: str, ts, cams, pipe_cfg, smi: str) -> int:
+    """Phases 7b and 10e of the module docstring: ``eval_renders`` of
+    `cams` (their views captured as one CUDA graph and replayed) against
+    ``eval_render`` of each, then in turns; returns K3's launches on the
+    device in the graphed path's first call (one per view and one warm-up
+    render)."""
+    H, W = cams[0].height, cams[0].width
+    stacks = T.camera_stacks(cams, torch.float32, ts.alive.device)
+    geom = (H, W, cams[0].tanfovx, cams[0].tanfovy)
+    views = list(range(len(cams)))
+    rg = T.RenderGraphs()
+
+    def graphed(full=()):
+        return T.eval_renders(ts, stacks, geom, pipe_cfg, 0.0, views, graphs=rg, full=full)
+
+    def eager(keep_maps=False):  # the driver's eager loop held one view's maps at a time
+        renders, maps = [], {}
+        for v, cam in enumerate(cams):
+            with torch.no_grad():
+                out = T.eval_render(ts, cam, pipe_cfg, 0.0)
+            renders.append(out["render"])
+            if keep_maps:
+                maps[v] = out
+        return torch.stack(renders), maps
+
+    # -- the capture, in the first call: K3 once, no host work --------------------------
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    (g_stack, g_maps), c = run_path(f"{label} graphed eval render", lambda: graphed(views),
+                                    ("tile_blend_fwd",),
+                                    tuple(n for n in WRAPPERS if n != "tile_blend_fwd"))
+    peak_capture = torch.cuda.max_memory_allocated()
+    (cap,) = rg.captures
+    r = rg.latest()
+    nodes = graph_nodes(r.graph)
+    k3 = device_launches(c, rg)["tile_blend_fwd"]
+    print(f"{label} graphed eval render: {len(views)} views of {H}x{W}, capture "
+          f"{cap['seconds']:.3f} s (host clock: an eager warm-up render "
+          f"{cap['warmup_seconds']:.3f}, the capture {cap['capture_seconds']:.3f}, "
+          f"instantiation {cap['instantiate_seconds']:.3f}), wrapper launches in the capture "
+          f"{cap['launches']}, K3 on the device {k3}; graph_nodes {nodes}; peak memory over the "
+          f"first call {peak_capture / 2**30:.3f} GiB", flush=True)
+    if cap["launches"] != {"tile_blend_fwd": 1} or k3 != len(views) + 1:
+        fail(f"the {label} render capture launched {cap['launches']} and K3 ran {k3} times on "
+             f"the device, not once and {len(views)} + 1")
+    if nodes.get("host", 0) or nodes.get("memcpy_from_host", 0) or not nodes.get("kernel"):
+        fail(f"the {label} captured render holds host work or copies from host memory: {nodes}")
+
+    # -- against the eager render of each view ----------------------------------------
+    e_stack, e_maps = eager(keep_maps=True)
+    torch.cuda.synchronize()
+    same = {k: all(torch.equal(g_maps[v][k], e_maps[v][k]) for v in views)
+            for k in T.EVAL_MAPS if k != "dir"}
+    same["stack"] = torch.equal(g_stack, e_stack)
+    dir_err = max(rel_err(g_maps[v]["dir"], e_maps[v]["dir"]) for v in views)
+    dir_same = all(torch.equal(g_maps[v]["dir"], e_maps[v]["dir"]) for v in views)
+    print(f"{label} graphed eval render against eval_render of each view: bitwise {same}; dir "
+          f"bitwise {dir_same}, error over max {dir_err:.3g} (tol {RENDER_DIR_TOL:g})", flush=True)
+    if not all(same.values()) or dir_err > RENDER_DIR_TOL:
+        fail(f"the {label} graphed eval render disagrees with eval_render")
+
+    # -- in turns (eager, graphed, graphed, eager) ----------------------------------------
+    def timed(fn):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        fn()
+        torch.cuda.synchronize()
+        return (time.time() - t0) / len(views), torch.cuda.max_memory_allocated()
+
+    map0 = g_maps[0]
+    del e_stack, e_maps, g_stack, g_maps  # out of the turns' peaks
+    turns = [("eager", timed(eager)), ("graphed", timed(graphed)), ("graphed", timed(graphed)),
+             ("eager", timed(eager))]
+    for name, (dt, peak) in turns:
+        print(f"{label} render turn {name}: {dt * 1e3:.3f} ms/view ({len(views)} views of "
+              f"{H}x{W}, host clock), peak memory {peak / 2**30:.3f} GiB", flush=True)
+    mean = {n: np.mean([dt for m, (dt, _) in turns if m == n]) for n in ("eager", "graphed")}
+    rep_ms = cuda_ms(lambda _: r.graph.replay(), 20, setup=lambda: r.bufs.counter.zero_())
+    print(f"{label} graphed eval render: {mean['graphed'] * 1e3:.3f} ms/view against eager "
+          f"{mean['eager'] * 1e3:.3f} ({mean['eager'] / mean['graphed']:.2f}x, host clock); "
+          f"replay_ms {rep_ms:.4f} (CUDA events around one replay); capture "
+          f"{rg.capture_seconds:.3f} s; graph_nodes {nodes}; {smi}", flush=True)
+    rg.release()
+
+    # what else a test render costs the driver: the stack's copy to the host and the
+    # debug PNGs of one view (train_scene writes them for views 0-4)
+    from curve_gaussian_tpu_torch.engine.loop import save_debug_images
+
+    stack, _ = graphed()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    host = stack.cpu().numpy()
+    t1 = time.time()
+    save_debug_images(map0, host[0], os.path.join(DRIVER_DIR, "debug_png"), 0, 0)
+    print(f"{label} test render extras: the [{len(views)}, {H}, {W}] stack to the host "
+          f"{(t1 - t0) * 1e3:.3f} ms; one view's 5 debug PNGs {(time.time() - t1) * 1e3:.3f} ms "
+          f"(host clock)", flush=True)
+    return k3
+
+
+def full_channel(ts, cams, gts, opt_cfg, pipe_cfg, M, dev, smi: str):
     """Phase 7 of the module docstring; returns the K3, K4 and K5 entries
     (K3 and K4 at the eval render's channel set)."""
     H, W = cams[0].height, cams[0].width
@@ -1245,7 +1399,12 @@ def full_channel(ts, cams, gts, opt_cfg, pipe_cfg, M, dev):
         torch.cuda.synchronize()
     print(f"eval render: {(time.time() - t0) / len(cams) * 1e3:.3f} ms per eval render "
           f"(host clock, 4 views, repeated)", flush=True)
-    k3["launches"] = c_eval["tile_blend_fwd"]
+    if c_eval["tile_blend_fwd"] != len(cams):
+        fail(f"the eager eval render of {len(cams)} views launched K3 "
+             f"{c_eval['tile_blend_fwd']} times")
+
+    # -- b2. the same views through the graphed eval render, in turns -----------
+    k3["launches"] = render_turns("bench", ts, cams, pipe_cfg, smi)
 
     # -- c. the differentiable full-channel render -----------------------------
     def grad_path():
@@ -1455,9 +1614,10 @@ def driver(dev):
     if missing:
         fail(f"the driver run fired no {sorted(missing)} event")
     # K1, K2, K7, K8 once per step (replayed) and warm-up step; K3 once per view of
-    # make_scene and of each test render
+    # make_scene, of each test render (replayed) and warm-up render
     check_step_launches("driver run", c, res.graphs, n_it,
-                        dict(tile_blend_fwd=a.synthetic_views + 2 * len(a.test_iterations)))
+                        dict(tile_blend_fwd=a.synthetic_views),
+                        renders=(res.render_graphs, 2 * len(a.test_iterations)))
     if iters != n_it:
         fail(f"the driver run ended at step {iters}, not {n_it}")
 
@@ -1536,8 +1696,8 @@ def views_driver(dev, one_view, smi: str):
         ("tile_blend_bwd", "blend_moment_bwd", "blend_train_bwd_basis"))
     peak = torch.cuda.max_memory_allocated()
     check_step_launches(f"driver views_per_step {VIEWS_PER_STEP}", c, res.graphs, a.iterations,
-                        dict(tile_blend_fwd=a.synthetic_views + 2 * len(a.test_iterations)),
-                        views=VIEWS_PER_STEP)
+                        dict(tile_blend_fwd=a.synthetic_views), views=VIEWS_PER_STEP,
+                        renders=(res.render_graphs, 2 * len(a.test_iterations)))
     if int(res.ts.step) != a.iterations:
         fail(f"the views_per_step {VIEWS_PER_STEP} run ended at step {int(res.ts.step)}")
     with open(os.path.join(run_dir, "metrics.jsonl")) as fh:
@@ -1701,7 +1861,7 @@ def train_kernels(inputs, gt, label, library=False):
     return [k1, k2, k7, k8], pairs, acc
 
 
-def dataset_scene(dev, profile=False):
+def dataset_scene(dev, smi: str, profile=False):
     """Phase 10 of the module docstring; with `profile`, a torch.profiler
     table of two steps of the loaded scene."""
     import shutil
@@ -1822,9 +1982,10 @@ def dataset_scene(dev, profile=False):
         else:
             print(f"dataset driver event {e['iter']}: {e['kind']} {e['old']} -> {e['new']} "
                   f"({e['why']})", flush=True)
-    n_views = len(scene.train_cameras)
-    check_step_launches("dataset run", c, res.graphs, a.iterations,
-                        dict(tile_blend_fwd=n_views * len(a.test_iterations)))
+    # under --eval every view of an EMAP scene is a test view too
+    check_step_launches("dataset run", c, res.graphs, a.iterations, {},
+                        renders=(res.render_graphs,
+                                 len(scene.train_cameras) * len(a.test_iterations)))
     if iters != a.iterations or res.ts.params["curve_points"].device.type != "cuda":
         fail(f"the dataset run ended at step {iters} or left the card")
     with open(os.path.join(run_dir, "metrics.jsonl")) as fh:
@@ -1843,6 +2004,9 @@ def dataset_scene(dev, profile=False):
             and np.isfinite(np.array(tests, float)).all()
             and all(np.isfinite(v) for v in ev.values())):
         fail("the dataset run logged a non-finite loss, test metric or eval.json value")
+
+    # -- e. its test views through the graphed eval render, at 800x800 -----------------
+    render_turns("dataset", res.ts, scene.train_cameras, res.pipe_cfg, smi)
     return scene
 
 
@@ -1902,9 +2066,11 @@ def eval_export(dev, ts, cams, gts, pipe_cfg, scene):
                       ("tile_blend_fwd",), tuple(n for n in WRAPPERS if n != "tile_blend_fwd"))
     wall = time.time() - t0
     n = len(res["sha256"])
-    if n != a.n_orbit or c["tile_blend_fwd"] != n:
-        fail(f"render_curves wrote {n} frames and launched K3 {c['tile_blend_fwd']} times, "
-             f"not {a.n_orbit} each")
+    warm = check_render_graphs("render_curves", res["graphs"], n)
+    k3_dev = device_launches(c, res["graphs"])["tile_blend_fwd"]
+    if n != a.n_orbit or k3_dev != n + warm:
+        fail(f"render_curves wrote {n} frames and launched K3 {k3_dev} times on the device, "
+             f"not {a.n_orbit} and one per frame and warm-up render")
     for i in range(n):
         u8 = PNG.read_png(os.path.join(res["frame_dir"], f"frame_{i:04d}.png"))
         if u8.shape != (a.size, a.size) or hashlib.sha256(u8.tobytes()).hexdigest() != \
@@ -1913,12 +2079,21 @@ def eval_export(dev, ts, cams, gts, pipe_cfg, scene):
     with open(edges) as f:
         edge_dict = json.load(f)
     splats = RV.edge_gaussians(edge_dict, a.width, dev)
-    fields, b = splat_inputs(*splats, RV.video_cameras(a, dev)[0], RV.CAPACITY, 1024,
-                             True, True, True)
+    vcams = RV.video_cameras(a, dev)
+    fields, b = splat_inputs(*splats, vcams[0], RV.CAPACITY, 1024, True, True, True)
     k3, outs, _ = k3_entry("render_curves frame 0", fields, b, a.size, a.size, True, True, True)
-    k3["launches"] = c["tile_blend_fwd"]
+    k3["launches"] = k3_dev
     if not np.array_equal(outs[0].clamp(0.0, 1.0).cpu().numpy(), res["first_frame"]):
         fail("render_curves' frame 0 is not K3's render of its inputs")
+    # the graphed frames against an eager render of the first and last cameras
+    gauss = dict(zip(("xyz", "scale", "quat", "opacity"), splats))
+    for i in (0, n - 1):
+        with torch.no_grad():
+            img = RV.frame_render(gauss, vcams[i]).cpu().numpy()
+        if hashlib.sha256(RV.frame_u8(img).tobytes()).hexdigest() != res["sha256"][i]:
+            fail(f"render_curves frame {i} (replayed) differs from an eager render of its camera")
+    print(f"render_curves: frames 0 and {n - 1} replayed bitwise as eager renders (SHA-256)",
+          flush=True)
     rs, ws = np.array(res["render_seconds"]) * 1e3, np.array(res["write_seconds"]) * 1e3
     print(f"render_curves: {n} frames of {a.size}x{a.size}, {len(edge_dict['curves_ctl_pts'])} "
           f"curves and {len(edge_dict['lines_end_pts'])} lines as {splats[0].shape[0]} "
@@ -2253,9 +2428,10 @@ def rank_main(rank: int) -> None:
         LOOP.parallel_train_steps_scan = scan
         writes.on = False
     dist.barrier()  # rank 0's files are written
-    k3 = a.synthetic_views + (2 * len(a.test_iterations) if rank == 0 else 0)
     check_step_launches("two-rank driver", c, res.graphs, a.iterations,
-                        dict(tile_blend_fwd=k3), views=TWO_RANK_VIEWS // TWO_RANKS)
+                        dict(tile_blend_fwd=a.synthetic_views), views=TWO_RANK_VIEWS // TWO_RANKS,
+                        renders=(res.render_graphs,
+                                 2 * len(a.test_iterations) if rank == 0 else 0))
     sec, it = res.seconds, int(res.ts.step)
     curves = int(res.ts.alive.sum())
     every = [None] * TWO_RANKS
@@ -2309,20 +2485,24 @@ def rank_main(rank: int) -> None:
         ("tile_blend_fwd",))
     writes.on = False
     n_frames = len(tp["sha256"])
-    if c["tile_blend_fwd"] != n_frames or bool(writes.paths) != (rank == 0):
-        fail(f"render_curves --n-devices {TWO_RANKS} launched K3 {c['tile_blend_fwd']} times "
+    warm = check_render_graphs(f"render_curves --n-devices {TWO_RANKS}", tp["graphs"], n_frames)
+    k3_dev = device_launches(c, tp["graphs"])["tile_blend_fwd"]
+    if k3_dev != n_frames + warm or bool(writes.paths) != (rank == 0):
+        fail(f"render_curves --n-devices {TWO_RANKS} launched K3 {k3_dev} times on the device "
              f"for {n_frames} frames, rank {rank} wrote {len(writes.paths)} files")
     if rank == 0:
         one_img = RV.render_curves(["--edges", edges, "--out", os.path.join(TWO_RANKS_DIR,
                                                                           "curves_one"),
                                     "--device", "cuda:0"], quiet=True)
         err = float(np.abs(tp["first_frame"] - one_img["first_frame"]).max())
-        print(f"render_curves --n-devices {TWO_RANKS}: {n_frames} frames, "
-              f"{np.mean(tp['render_seconds']) * 1e3:.3f} ms host a frame against "
-              f"{np.mean(one_img['render_seconds']) * 1e3:.3f} on one process; frame 0 max "
-              f"|two ranks - one| {err:.3g} (tol {RENDER_TOL:g})", flush=True)
-        if err > RENDER_TOL:
-            fail("render_curves over two ranks disagrees with one process on frame 0")
+        same = sum(a == b for a, b in zip(tp["sha256"], one_img["sha256"]))
+        print(f"render_curves --n-devices {TWO_RANKS} (each rank's band a captured graph, the "
+              f"sum eager): {n_frames} frames, {np.mean(tp['render_seconds']) * 1e3:.3f} ms "
+              f"host a frame against {np.mean(one_img['render_seconds']) * 1e3:.3f} on one "
+              f"process; frames bitwise equal to one process (SHA-256) {same} of {n_frames}; "
+              f"frame 0 max |two ranks - one| {err:.3g}", flush=True)
+        if same != n_frames or err != 0.0:
+            fail("render_curves over two ranks is not bitwise one process's")
     dist.barrier()
 
     # -- 5. the dry run on the card -----------------------------------------------------

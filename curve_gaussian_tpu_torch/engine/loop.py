@@ -74,8 +74,8 @@ from ..ops.camera import Camera
 from ..parallel.multihost import check_ranks, group_size
 from ..parallel.sharding import batch_step, make_mesh, parallel_train_steps_scan
 from . import checkpoint as ckpt_mod
-from .train import (StepGraphs, TrainState, camera_stacks, eval_render, init_train_state,
-                    train_step, train_steps_scan)
+from .train import (RenderGraphs, StepGraphs, TrainState, camera_stacks, eval_renders,
+                    init_train_state, train_step, train_steps_scan)
 
 
 class JsonlLogger:
@@ -211,6 +211,8 @@ class TrainResult:
     seconds: Dict[str, float] = dataclasses.field(default_factory=dict)
     # the step graphs' captures and replays (released; no graph is held)
     graphs: Optional[StepGraphs] = None
+    # the test renders' graphs: their captures and replays (released too)
+    render_graphs: Optional[RenderGraphs] = None
 
 
 def _chunk_metrics(ms: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
@@ -309,6 +311,8 @@ def train_scene(
     if parallel and not quiet:
         print(f"data-parallel: {B} views/step over {ndev} device(s)", flush=True)
     test_gts = [extract_mod.host_array(e) for e in test_edge_maps]
+    test_groups = _view_groups(test_cameras, dt, dev)
+    render_graphs = RenderGraphs()
     view_stack: List[int] = []
     t_start = time.time()
     seconds = dict(steps=0.0, capture=0.0, surgery=0.0, test_renders=0.0, saves=0.0,
@@ -479,15 +483,23 @@ def train_scene(
         if iteration in test_iterations and test_cameras and rank0:
             t0 = time.time()
             l1s, psnrs = [], []
-            for ti, (tc, tg) in enumerate(zip(test_cameras, test_gts)):
-                with torch.no_grad():
-                    out = eval_render(ts, tc, pipe_cfg, bg, use_mask=use_mask,
-                                      mask_threshold=opt_cfg.mask_threshold)
-                img = out["render"].cpu().numpy()
+            # each geometry's views in one call; its stack reaches the host in one copy
+            imgs, maps = [None] * len(test_cameras), {}
+            for idx, stacks, geom in test_groups:
+                stack, full = eval_renders(
+                    ts, stacks, geom, pipe_cfg, bg, range(len(idx)), use_mask=use_mask,
+                    mask_threshold=opt_cfg.mask_threshold, graphs=render_graphs,
+                    full=[j for j, ti in enumerate(idx) if dump_images and ti < 5])
+                host = stack.cpu().numpy()
+                for j, ti in enumerate(idx):
+                    imgs[ti] = host[j]
+                    if j in full:
+                        maps[ti] = full[j]
+            for ti, (img, tg) in enumerate(zip(imgs, test_gts)):
                 l1s.append(float(np.abs(img - tg).mean()))
                 psnrs.append(-10.0 * np.log10(float(np.mean((img - tg) ** 2)) + 1e-12))
-                if dump_images and ti < 5:
-                    save_debug_images(out, tg, model_path, iteration, ti)
+                if ti in maps:
+                    save_debug_images(maps[ti], tg, model_path, iteration, ti)
             seconds["test_renders"] += time.time() - t0
             logger.log(iteration, {"test_l1": np.mean(l1s), "test_psnr": np.mean(psnrs)})
             if not quiet:
@@ -502,6 +514,7 @@ def train_scene(
         seconds["saves"] += time.time() - t0
 
     graphs.release()
+    render_graphs.release()
     wall = time.time() - t_start
     done = int(ts.step) - first_iter
     if not quiet and done:
@@ -524,7 +537,22 @@ def train_scene(
     seconds["train"] = wall
     return TrainResult(ts=ts, edge_dict=edge_dict, metrics_path=logger.path,
                        model_path=model_path, pipe_cfg=pipe_cfg, events=events_log,
-                       seconds=seconds, graphs=graphs)
+                       seconds=seconds, graphs=graphs, render_graphs=render_graphs)
+
+
+def _view_groups(cameras: Sequence[Camera], dtype, device) -> List[tuple]:
+    """The views of `cameras` by image size, in order of first appearance:
+    [(their indices, their ``camera_stacks`` on `device`, the first one's
+    (H, W, tanfovx, tanfovy))], one ``eval_renders`` call each."""
+    groups: Dict[Tuple[int, int], List[int]] = {}
+    for i, c in enumerate(cameras):
+        groups.setdefault((c.height, c.width), []).append(i)
+    out = []
+    for idx in groups.values():
+        c = cameras[idx[0]]
+        out.append((idx, camera_stacks([cameras[i] for i in idx], dtype, device),
+                    (c.height, c.width, c.tanfovx, c.tanfovy)))
+    return out
 
 
 def _colormap_turbo(x: np.ndarray) -> np.ndarray:

@@ -22,6 +22,18 @@ B stack rows a step, and the step function gets the B views stacked.  A
 step whose ranks exchange sums (``StagedStep``, the B-view step over more
 than one device) runs as two captured graphs with the exchange eager
 between them.
+
+The compiled render: ``eval_renders``, the counterpart of the JAX
+package's jitted ``eval_render`` called once per view, renders many views
+of one state through one body (``render_views``) that reads the state's
+leaves, the view's row of camera stacks (by a device view counter) and
+writes the render into its row of an output stack.  On CUDA tensors it
+captures the body once per key as a CUDA graph (``RenderGraphs``) and
+replays it once per view; on CPU tensors it runs the same body eagerly.
+``eval_render``, the eager render of one view, is the reference it is held
+against.  ``scripts/render_curves.py`` and
+``parallel/sharding.py::tile_parallel_renders`` replay their frames
+through the same body.
 """
 from __future__ import annotations
 
@@ -426,6 +438,87 @@ def _stage_update(b: _Buffers, step: StagedStep, args: dict, bufs, stepno: int, 
     return _write_back(b, new, m)
 
 
+class _Graphs:
+    """What ``StepGraphs`` and ``RenderGraphs`` share: the records of their
+    captures, the memory pool and side stream of their graphs, and the
+    capture itself.
+
+    ``captures`` records each capture: what the caller put in it, the host
+    seconds of its warm-up (to the end of its device work), capture and
+    instantiation and their sum, the launches the kernel wrappers counted
+    while it was captured, and its replays.  The wrappers' counters are
+    host counters: they count a captured launch once however often the
+    graph replays it, and the warm-up's launches as eager ones."""
+
+    def __init__(self):
+        self.captures: List[dict] = []
+        self._pool = self._stream = None
+
+    @property
+    def capture_seconds(self) -> float:
+        return sum(c["seconds"] for c in self.captures)
+
+    def captured_launches(self) -> Dict[str, int]:
+        """Launches the wrappers counted inside captures, by wrapper."""
+        out: Dict[str, int] = {}
+        for c in self.captures:
+            for k, n in c["launches"].items():
+                out[k] = out.get(k, 0) + n
+        return out
+
+    def replayed_launches(self) -> Dict[str, int]:
+        """Launches the graphs' replays made on the device, by wrapper."""
+        out: Dict[str, int] = {}
+        for c in self.captures:
+            for k, n in c["launches"].items():
+                out[k] = out.get(k, 0) + n * c["replays"]
+        return out
+
+    def _capture_stages(self, dev, warm, stages, load, record: dict):
+        """Load the buffers (`load`, on the current stream), warm up on a
+        side stream that waits for the current one (`warm`: the eager body),
+        capture each of `stages` there in turn, and instantiate them;
+        returns (the graphs, what the last stage returned).  The caller
+        restores the buffers that the warm-up advanced.  A capture that
+        fails raises.  ``capture_begin``/``capture_end`` in place of the
+        ``torch.cuda.graph`` context, which empties the allocator's cache
+        first: after the test renders that cache holds seconds of
+        ``cudaFree``s, and the graph's pool needs none of it."""
+        t = [time.time()]
+        with torch.cuda.device(dev):
+            load()
+            if self._stream is None:
+                self._stream = torch.cuda.Stream(dev)
+            self._stream.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(self._stream):
+                warm()
+                self._stream.synchronize()
+                t.append(time.time())
+                if self._pool is None:
+                    self._pool = torch.cuda.graph_pool_handle()
+                before = _launch_counts()
+                graphs = []
+                for stage in stages:
+                    graph = torch.cuda.CUDAGraph(keep_graph=True)
+                    graph.capture_begin(pool=self._pool)
+                    try:
+                        result = stage()
+                    finally:
+                        graph.capture_end()
+                    graphs.append(graph)
+                after = _launch_counts()
+                t.append(time.time())
+                for graph in graphs:
+                    graph.instantiate()
+            torch.cuda.current_stream(dev).wait_stream(self._stream)
+        t.append(time.time())
+        record.update(seconds=t[3] - t[0], warmup_seconds=t[1] - t[0],
+                      capture_seconds=t[2] - t[1], instantiate_seconds=t[3] - t[2], replays=0,
+                      launches={k: n - before[k] for k, n in after.items() if n != before[k]})
+        self.captures.append(record)
+        return graphs, result
+
+
 @dataclasses.dataclass
 class _Graph:
     graphs: List["torch.cuda.CUDAGraph"]  # the step's, or a staged step's local and update
@@ -434,7 +527,7 @@ class _Graph:
     exchanged: Optional[tuple] = None  # a staged step's: the local graph's outputs
 
 
-class StepGraphs:
+class StepGraphs(_Graphs):
     """The CUDA graphs of ``train_steps_scan``: one captured step per shape
     key, all in one memory pool and over one set of buffers, and what
     capturing and replaying them cost.
@@ -455,21 +548,16 @@ class StepGraphs:
     where the collective copies through host memory) add up in
     ``exchange_seconds`` over ``exchanges`` calls.
 
-    ``captures`` records each capture: its capacities, views and flags, the host
-    seconds of its warm-up (to the end of its device work), capture and
-    instantiation and their sum, the launches the kernel wrappers counted
-    while it was captured, and its replays.  The
-    wrappers' counters are host counters: they count a captured launch once
-    however often the graph replays it, and the warm-up's launches as eager
-    ones."""
+    ``captures`` records each capture (``_Graphs``) with its capacities,
+    views and flags."""
 
     def __init__(self, step=None):
+        super().__init__()
         self.step = step if step is not None else train_step
-        self.captures: List[dict] = []
         self.exchange_seconds = 0.0
         self.exchanges = 0
         self._graphs: Dict[tuple, _Graph] = {}
-        self._sizes = self._bufs = self._pool = self._stream = None
+        self._sizes = self._bufs = None
 
     def exchange(self, bufs) -> None:
         """The staged step's exchange, timed on the host clock."""
@@ -489,28 +577,8 @@ class StepGraphs:
         return _stage_update(b, self.step, args, bufs, stepno, count, opacity_frozen)
 
     @property
-    def capture_seconds(self) -> float:
-        return sum(c["seconds"] for c in self.captures)
-
-    @property
     def warmup_steps(self) -> int:
         return WARMUP_STEPS * len(self.captures)
-
-    def captured_launches(self) -> Dict[str, int]:
-        """Launches the wrappers counted inside captures, by wrapper."""
-        out: Dict[str, int] = {}
-        for c in self.captures:
-            for k, n in c["launches"].items():
-                out[k] = out.get(k, 0) + n
-        return out
-
-    def replayed_launches(self) -> Dict[str, int]:
-        """Launches the graphs' replays made on the device, by wrapper."""
-        out: Dict[str, int] = {}
-        for c in self.captures:
-            for k, n in c["launches"].items():
-                out[k] = out.get(k, 0) + n * c["replays"]
-        return out
 
     def latest_graph(self) -> "torch.cuda.CUDAGraph":
         """The graph captured last (kept with its ``cudaGraph_t``, so that
@@ -534,48 +602,14 @@ class StepGraphs:
         return self._bufs
 
     def _capture(self, key: tuple, warm, stages, load, record: dict) -> _Graph:
-        """Warm up on a side stream (`warm`: one eager step), capture each of
-        `stages` there in turn (the last returns the metric names), and
-        instantiate them; the caller restores the buffers that the warm-up
-        advanced.  A capture that fails raises.  ``capture_begin``/
-        ``capture_end`` in place of the ``torch.cuda.graph`` context, which
-        empties the allocator's cache first: after the test renders that
-        cache holds seconds of ``cudaFree``s, and the graph's pool needs none
-        of it."""
-        t = [time.time()]
-        dev = self._bufs.counter.device
-        with torch.cuda.device(dev):
-            load()
-            if self._stream is None:
-                self._stream = torch.cuda.Stream(dev)
-            self._stream.wait_stream(torch.cuda.current_stream(dev))
-            with torch.cuda.stream(self._stream):
-                for _ in range(WARMUP_STEPS):
-                    warm()
-                self._stream.synchronize()
-                t.append(time.time())
-                if self._pool is None:
-                    self._pool = torch.cuda.graph_pool_handle()
-                before = _launch_counts()
-                graphs = []
-                for stage in stages:
-                    graph = torch.cuda.CUDAGraph(keep_graph=True)
-                    graph.capture_begin(pool=self._pool)
-                    try:
-                        names = stage()
-                    finally:
-                        graph.capture_end()
-                    graphs.append(graph)
-                after = _launch_counts()
-                t.append(time.time())
-                for graph in graphs:
-                    graph.instantiate()
-            torch.cuda.current_stream(dev).wait_stream(self._stream)
-        t.append(time.time())
-        record.update(seconds=t[3] - t[0], warmup_seconds=t[1] - t[0],
-                      capture_seconds=t[2] - t[1], instantiate_seconds=t[3] - t[2], replays=0,
-                      launches={k: n - before[k] for k, n in after.items() if n != before[k]})
-        self.captures.append(record)
+        """``_capture_stages`` with ``WARMUP_STEPS`` eager steps (`warm`) for
+        the warm-up; the last of `stages` returns the metric names."""
+        def warm_steps():
+            for _ in range(WARMUP_STEPS):
+                warm()
+
+        graphs, names = self._capture_stages(self._bufs.counter.device, warm_steps, stages,
+                                             load, record)
         self._graphs[key] = g = _Graph(graphs, names, record)
         return g
 
@@ -721,6 +755,19 @@ def run_chunk(ts: TrainState, cam_arrays, gts: torch.Tensor, bg, opt_cfg: Optimi
             {name: vals[:, j] for j, name in enumerate(names)})
 
 
+def _render_state(state: cs.CurveState, cam: Camera, pipe_cfg: PipelineConfig, bg,
+                  use_mask: bool, mask_threshold: float, exposure=None) -> dict:
+    """``render``'s dict of every channel of `state`'s Gaussians at `cam`:
+    the body of ``eval_render`` and of each view of ``eval_renders``."""
+    gauss = cs.gaussians(state, use_mask=use_mask, mask_threshold=mask_threshold)
+    return render(
+        gauss["xyz"], gauss["scale"], gauss["quat"], gauss["opacity"], cam,
+        bg=bg, alive=gauss["alive"], antialiasing=pipe_cfg.antialiasing,
+        render_geo=pipe_cfg.render_geo, capacity=pipe_cfg.tile_capacity,
+        big_capacity=pipe_cfg.big_capacity, backend=pipe_cfg.backend, exposure=exposure,
+    )
+
+
 def eval_render(
     ts: TrainState,
     cam: Camera,
@@ -736,15 +783,240 @@ def eval_render(
     config's ``render_geo``, capacities and backend, and the view's learned
     exposure when ``use_exposure``.  It stays differentiable; callers that
     only read the values wrap it in ``torch.no_grad()``.  The JAX function's
-    ``n_gaussians`` has no counterpart: it is unused there too."""
-    gauss = cs.gaussians(cs.curve_state_of(ts), use_mask=use_mask, mask_threshold=mask_threshold)
+    ``n_gaussians`` has no counterpart: it is unused there too.  It runs
+    eagerly; ``eval_renders`` is the same render of many views, captured as
+    a CUDA graph on the card."""
     if use_exposure and view_idx is None:
         raise ValueError("use_exposure requires the view's train index")
-    return render(
-        gauss["xyz"], gauss["scale"], gauss["quat"], gauss["opacity"], cam,
-        bg=bg, alive=gauss["alive"], antialiasing=pipe_cfg.antialiasing,
-        render_geo=pipe_cfg.render_geo, capacity=pipe_cfg.tile_capacity,
-        big_capacity=pipe_cfg.big_capacity, backend=pipe_cfg.backend,
-        exposure=ts.params["exposure"][view_idx] if use_exposure else None,
-    )
+    return _render_state(cs.curve_state_of(ts), cam, pipe_cfg, bg, use_mask, mask_threshold,
+                         ts.params["exposure"][view_idx] if use_exposure else None)
 
+
+# the maps ``eval_renders`` returns for the views its caller names
+EVAL_MAPS = ("render", "invdepth", "alpha", "dir", "final_T")
+# the state leaves an eval render reads (``cs.gaussians``)
+_RENDER_LEAVES = ("curve_points", "opacity_raw", "width_raw", "mask_raw")
+
+
+class _RenderBuffers:
+    """The tensors a render body reads and writes, at fixed addresses: its
+    inputs (state leaves or a Gaussian set, by name), the camera stacks
+    (w2c, proj, centre, intrinsics), the stack rows of the views to render,
+    the view counter and, for a stacked render, the output stack [n, H,
+    W] (made by the first view, in its render's dtype)."""
+
+    def __init__(self, inputs: Dict[str, torch.Tensor], stacks, n: int, stacked: bool):
+        dev = stacks[0].device
+        self.inputs = {k: torch.empty_like(v) for k, v in inputs.items()}
+        self.stacks = tuple(torch.empty_like(s) for s in stacks)
+        self.rows = torch.zeros(n, dtype=torch.int64, device=dev)
+        self.counter = torch.zeros(1, dtype=torch.int64, device=dev)
+        self.stacked = stacked
+        self.out: Optional[torch.Tensor] = None
+
+    def load(self, inputs: Dict[str, torch.Tensor], stacks, views: List[int]) -> None:
+        """A call's inputs and stacks by device copies, its rows in one copy,
+        and the counter at 0."""
+        for k, v in inputs.items():
+            self.inputs[k].copy_(v)
+        for dst, src in zip(self.stacks, stacks):
+            dst.copy_(src)
+        rows = torch.tensor(views, dtype=torch.int64)
+        if self.rows.is_cuda:  # pinned, so the copy neither waits nor blocks the host
+            rows = rows.pin_memory()
+        self.rows.copy_(rows, non_blocking=True)
+        self.counter.zero_()
+
+
+def _render_view(b: _RenderBuffers, fn, geom) -> dict:
+    """View ``counter`` of a call: the camera of its stack row (its
+    projection from the row's intrinsics), ``fn(inputs, camera)``, the
+    render written into its row of the output stack, and the counter
+    advanced; returns fn's dict."""
+    h, w, tfx, tfy = geom
+    i = b.counter
+    row = b.rows.index_select(0, i)
+    w2c, proj, ctr, intr = (s.index_select(0, row)[0] for s in b.stacks)
+    cam = Camera(world_to_cam=w2c, full_proj=proj, cam_center=ctr, height=h, width=w,
+                 tanfovx=tfx, tanfovy=tfy, intrinsics=intr)
+    with torch.no_grad():
+        out = fn(b.inputs, cam)
+        if b.stacked:
+            if b.out is None:  # an eager first view: the warm-up of a capture
+                b.out = out["render"].new_empty((b.rows.shape[0], *out["render"].shape))
+            b.out.index_copy_(0, i, out["render"][None])
+        i.add_(1)
+    return out
+
+
+def render_key(baked: tuple, inputs: Dict[str, torch.Tensor], stacks, geom, n: int) -> tuple:
+    """The key of a render graph: (sizes, view group).  `baked` holds the
+    host numbers the caller's render bakes into a capture (capacities,
+    flags, background); the sizes add the device and the inputs' shapes
+    and dtypes (a state's capacity and mask width); the view group is the
+    views' geometry (H, W, tangents), the stacks' shapes and the number of
+    views."""
+    dev = stacks[0].device
+    return ((baked, dev, tuple((k, tuple(v.shape), v.dtype) for k, v in inputs.items())),
+            (tuple(geom), tuple((tuple(s.shape), s.dtype) for s in stacks), n))
+
+
+@dataclasses.dataclass
+class _Render:
+    bufs: _RenderBuffers
+    graph: "torch.cuda.CUDAGraph"
+    out: dict  # the captured body's outputs, rewritten by every replay
+    record: dict
+
+
+class RenderGraphs(_Graphs):
+    """The CUDA graphs of ``render_views``: one captured render per key
+    (``render_key``), replayed once per view, over buffers of its own and
+    all in one memory pool, and what capturing and replaying them cost.
+
+    A caller keeps one for a run (``engine/loop.py::train_scene``'s test
+    renders, the frames of ``scripts/render_curves.py``) and passes it to
+    every call, so that a key captures once.  Views of another geometry
+    capture a render of their own beside the held ones; a key of other
+    sizes (a state's capacity or mask width, a capacity of the pipeline, a
+    flag, the background) drops every held render and the pool: surgery and
+    the capacity policy move forward, so the old sizes do not recur.
+    ``release`` drops them too and keeps the records (``_Graphs``: what
+    the caller baked in, its views and image size)."""
+
+    def __init__(self):
+        super().__init__()
+        self._held: Dict[tuple, _Render] = {}
+
+    def release(self) -> None:
+        self._held.clear()
+        self._pool = None
+
+    def latest(self) -> _Render:
+        """The render captured last: its graph (kept with its
+        ``cudaGraph_t``, so that its nodes can be read) and buffers."""
+        return next(r for r in self._held.values() if r.record is self.captures[-1])
+
+    def _lookup(self, key: tuple) -> Optional[_Render]:
+        """The render held for `key`, or None; a key of other sizes than
+        the held ones' drops them all first."""
+        if any(k[0] != key[0] for k in self._held):
+            self.release()
+        return self._held.get(key)
+
+
+def render_views(fn, inputs: Dict[str, torch.Tensor], stacks, geom, views, baked: tuple,
+                 graphs: Optional[RenderGraphs] = None, stacked: bool = False):
+    """Render the stack rows `views` one at a time, the counterpart of a
+    jitted render called once per view; yields (buffers, fn's dict) after
+    each view, in order.
+
+    ``fn(inputs, camera)`` renders one view from the tensors `inputs` (a
+    state's leaves or a Gaussian set, by name) and returns a dict; with
+    `stacked` its ``"render"`` lands in row i of the buffers' output stack
+    ``out`` [n, H, W].  `stacks` are the views' camera stacks (w2c, proj,
+    centre, intrinsics; ``camera_stacks``) and `geom` their (H, W, tanfovx,
+    tanfovy); each view's projection reads its row's intrinsics.  `baked`
+    names every host number fn bakes into a capture beyond the shapes
+    (``render_key``).
+
+    On CUDA tensors the body (``_render_view``: the camera picked by a
+    device counter, fn, the stack row) is captured once per key into a
+    CUDA graph held by `graphs` (a new ``RenderGraphs`` for this call when
+    None) and replayed once per view: the host copies the inputs, stacks
+    and rows in once, then does nothing but replay.  The dict yielded is
+    the graph's own output, rewritten by the next replay.  A capture that
+    fails raises.  On CPU tensors the same body runs eagerly."""
+    views = list(views)
+    n, V = len(views), stacks[0].shape[0]
+    if n < 1:
+        raise ValueError("render_views renders at least one view")
+    views = _host_ints(views, "views", (n,), V)
+    dev = stacks[0].device
+    if len(stacks) != 4 or any(s.shape[0] != V or s.device != dev for s in stacks) or any(
+            v.device != dev for v in inputs.values()):
+        raise ValueError("render_views needs the four camera stacks (w2c, proj, centre, "
+                         "intrinsics) of one row per view and its inputs on one device")
+    if dev.type != "cuda":
+        b = _RenderBuffers(inputs, stacks, n, stacked)
+        b.load(inputs, stacks, views)
+        for _ in views:
+            yield b, _render_view(b, fn, geom)
+        return
+    graphs = graphs if graphs is not None else RenderGraphs()
+    key = render_key(baked, inputs, stacks, geom, n)
+    r = graphs._lookup(key)
+    if r is None:
+        b = _RenderBuffers(inputs, stacks, n, stacked)
+        record = dict(baked=baked, views=n, height=geom[0], width=geom[1])
+        (graph,), out = graphs._capture_stages(
+            dev, lambda: _render_view(b, fn, geom), [lambda: _render_view(b, fn, geom)],
+            lambda: b.load(inputs, stacks, views), record)
+        r = graphs._held[key] = _Render(b, graph, out, record)
+    r.bufs.load(inputs, stacks, views)
+    for _ in views:
+        r.graph.replay()
+        r.record["replays"] += 1
+        yield r.bufs, r.out
+
+
+def _eval_baked(pipe_cfg: PipelineConfig, bg, use_mask: bool, mask_threshold: float) -> tuple:
+    return ("eval_render", pipe_cfg.tile_capacity, pipe_cfg.big_capacity, pipe_cfg.render_geo,
+            pipe_cfg.antialiasing, pipe_cfg.backend, bool(use_mask), float(mask_threshold),
+            float(bg))
+
+
+def _render_leaves(ts: TrainState) -> Dict[str, torch.Tensor]:
+    out = {k: ts.params[k] for k in _RENDER_LEAVES}
+    out.update(is_bezier=ts.is_bezier, alive=ts.alive)
+    return out
+
+
+def eval_render_key(ts: TrainState, cam_stacks, geom, pipe_cfg: PipelineConfig, bg,
+                    n_views: int, use_mask: bool = False, mask_threshold: float = 0.01) -> tuple:
+    """The ``render_key`` of an ``eval_renders`` call of `n_views` views."""
+    return render_key(_eval_baked(pipe_cfg, bg, use_mask, mask_threshold), _render_leaves(ts),
+                      cam_stacks, geom, n_views)
+
+
+def eval_renders(
+    ts: TrainState,
+    cam_stacks,  # (w2c [V,4,4], proj [V,4,4], centers [V,3], intrinsics [V,4])
+    geom,  # (H, W, tanfovx, tanfovy) of the views
+    pipe_cfg: PipelineConfig,
+    bg,
+    views,  # stack rows to render
+    *,
+    use_mask: bool = False,
+    mask_threshold: float = 0.01,
+    graphs: Optional[RenderGraphs] = None,
+    full=(),  # stack rows among `views` whose maps to return
+):
+    """``eval_render`` of the stack rows `views` (no gradient, no
+    exposure), the counterpart of calling the JAX package's jitted
+    ``eval_render`` once per view; returns (renders [n, H, W] on the
+    state's device, {row: its ``EVAL_MAPS``} for each row in `full`).
+
+    The state's leaves that ``cs.gaussians`` reads are copied in once per
+    call, not once per view.  On CUDA tensors the render is one captured
+    CUDA graph per key (``eval_render_key``) of `graphs`, replayed once per
+    view; on CPU tensors the same body runs eagerly, bitwise equal to
+    ``eval_render`` of each view."""
+    views = list(views)
+    full = set(_host_ints(list(full), "full", (len(full),), cam_stacks[0].shape[0]))
+    if not full <= set(views):
+        raise ValueError(f"full names rows {sorted(full - set(views))} outside views")
+
+    def fn(leaves, cam):
+        state = cs.CurveState(**{k: leaves[k] for k in _RENDER_LEAVES}, features_dc=None,
+                              exposure=None, is_bezier=leaves["is_bezier"],
+                              alive=leaves["alive"])
+        return _render_state(state, cam, pipe_cfg, bg, use_mask, mask_threshold)
+
+    maps = {}
+    for v, (b, out) in zip(views, render_views(
+            fn, _render_leaves(ts), cam_stacks, geom, views,
+            _eval_baked(pipe_cfg, bg, use_mask, mask_threshold), graphs, stacked=True)):
+        if v in full and v not in maps:
+            maps[v] = {k: out[k].clone() for k in EVAL_MAPS}
+    return b.out.clone(), maps

@@ -38,7 +38,12 @@ On CPU tensors the same bodies run eagerly.
 
 ``tile_parallel_render`` renders one view with its tile rows split across
 the ranks: each bins and blends (K3) only its band of rows, and the bands
-are summed into the full image on every rank.
+are summed into the full image on every rank.  ``tile_parallel_renders``,
+the counterpart of the JAX ``render_tp`` jit of ``render_curves
+--n-devices``, renders many views of one Gaussian set so: on CUDA tensors
+each rank's band (everything before the sum) is one captured CUDA graph
+(``engine/train.py::render_views``) replayed once per view, and the sum
+runs eagerly between the replays.
 """
 from __future__ import annotations
 
@@ -337,23 +342,40 @@ def tile_parallel_render_gaussians(gauss: dict, cam: Camera, pipe_cfg: PipelineC
                                    mesh_shape: Tuple[Tuple[str, int], ...]) -> torch.Tensor:
     """``tile_parallel_render`` of a Gaussian set (xyz, scale, quat,
     opacity [, alive]): the core shared by state renders and
-    ``scripts/render_curves.py``.  Every rank preprocesses the view with the
-    full camera, shifts the means by its band's first row, bins its band of
-    ``ceil(H / (32 N)) * 32`` rows at ``pipe_cfg.tile_capacity`` and blends
-    it with K3 at (geo, invd, ones) = (T, T, T); the bands are written into
-    a zeroed image and summed across the ranks (exact), then cropped at
-    H.  A band sorts its tiles with the whole image's packed key (its depth
-    resolution), so that near-equal depths blend in the single-device
-    render's order: the JAX function keys by the band's tile count, and
-    the reordered near-ties move the early stop of dense pixels."""
+    ``tile_parallel_renders``.  Every rank renders its band
+    (``_band_image``); the bands are summed across the ranks (exact), then
+    cropped at H."""
     n, rank = _mesh_ranks(mesh_shape)
+    return _sum_bands(_band_image(gauss, cam, pipe_cfg, bg, n, rank), n, cam.height)
+
+
+def _sum_bands(img: torch.Tensor, n: int, H: int) -> torch.Tensor:
+    if n > 1:
+        dist.all_reduce(img, op=dist.ReduceOp.SUM)
+    return img[:H]
+
+
+def _band_image(gauss: dict, cam: Camera, pipe_cfg: PipelineConfig, bg, n: int,
+                rank: int) -> torch.Tensor:
+    """Rank `rank`'s band of the view in a zeroed image of N bands [N rows,
+    W]: the view preprocessed with the full camera, the means shifted by the
+    band's first row, its ``rows = ceil(H / (32 N)) * 32`` rows binned at
+    ``pipe_cfg.tile_capacity`` and blended with K3 at (geo, invd, ones) =
+    (T, T, T).  A band sorts its tiles with the whole image's packed key
+    (its depth resolution), so that near-equal depths blend in the
+    single-device render's order: the JAX function keys by the band's tile
+    count, and the reordered near-ties move the early stop of dense
+    pixels.  No host number is read from the device, and none is copied to
+    it, so a band can be captured."""
     H, W = cam.height, cam.width
     rows = -(-H // (TILE_H * n)) * TILE_H
     xyz, quat, opacity = gauss["xyz"], gauss["quat"], gauss["opacity"]
     pre = preprocess(xyz, gauss["scale"], quat, opacity, cam, alive=gauss.get("alive"))
     allmap = main_axis_allmap(xyz, quat, cam)
     r0 = rank * rows
-    local = pre._replace(mean2d=pre.mean2d - pre.mean2d.new_tensor([0.0, float(r0)]))
+    shift = pre.mean2d.new_zeros(2)
+    shift[1:].fill_(r0)  # a fill kernel: a capture refuses the host copy of ``shift[1] = r0``
+    local = pre._replace(mean2d=pre.mean2d - shift)
     nty, ntx = tile_grid(H, W)
     binning = bin_gaussians(local, rows, W, capacity=pipe_cfg.tile_capacity,
                             key_tiles=nty * ntx)
@@ -366,6 +388,26 @@ def tile_parallel_render_gaussians(gauss: dict, cam: Camera, pipe_cfg: PipelineC
                           True, True)[0]
     img = band.new_zeros((n * rows, W))
     img[r0:r0 + rows] = band
-    if n > 1:
-        dist.all_reduce(img, op=dist.ReduceOp.SUM)
-    return img[:H]
+    return img
+
+
+def tile_parallel_renders(gauss: dict, cam_stacks, geom, pipe_cfg: PipelineConfig, bg,
+                          mesh_shape: Tuple[Tuple[str, int], ...], views,
+                          graphs: Optional[T.RenderGraphs] = None):
+    """``tile_parallel_render_gaussians`` of the stack rows `views` of
+    `cam_stacks` (``camera_stacks``: w2c, proj, centre, intrinsics) with
+    geometry `geom` (H, W, tanfovx, tanfovy), the counterpart of the JAX
+    ``render_tp`` jit; yields each view's [H, W] image in order, the same on
+    every rank.  Each rank's band runs through ``render_views``: on CUDA
+    tensors one captured graph of `graphs` per key, replayed once per view,
+    with the SUM across the ranks eager between the replays (a gloo
+    collective cannot be captured); on CPU tensors eagerly."""
+    n, rank = _mesh_ranks(mesh_shape)
+    bg = float(bg)
+
+    def band(g, cam):
+        return {"band": _band_image(g, cam, pipe_cfg, bg, n, rank)}
+
+    baked = ("tile_parallel", n, rank, pipe_cfg.tile_capacity, bg)
+    for _, out in T.render_views(band, gauss, cam_stacks, geom, views, baked, graphs):
+        yield _sum_bands(out["band"], n, geom[0]).clone()

@@ -5,13 +5,16 @@ Reads ``parametric_edges.json`` (lines become cubic control points), samples
 each edge into 32 Gaussians of the given width at opacity 0.95
 (``bezier.curve_gaussians``) and splats every view with the port's render at
 its default channel set (K3 on the card, one launch per frame).  The
-cameras are an orbit (``ring_cameras``) or a NeRF-style
+frames share one render body (``engine/train.py::render_views``): on the
+card it is captured once as a CUDA graph and replayed once per frame, each
+frame's camera picked from device stacks by a counter; on the CPU it runs
+eagerly.  The cameras are an orbit (``ring_cameras``) or a NeRF-style
 ``transforms_video.json``.  Frames land in <out>/frames/ and are stitched
 to <out>/curves.mp4 when ffmpeg is installed.  With ``--n-devices N`` each
 frame is the tile-parallel render (``parallel/sharding.py::
-tile_parallel_render_gaussians``) over the N ranks of the process group
-(``torchrun --nproc-per-node N``, as ``train.py`` runs), and rank 0 writes
-the frames.
+tile_parallel_renders``: each rank's band captured, the sum eager between
+the replays) over the N ranks of the process group (``torchrun
+--nproc-per-node N``, as ``train.py`` runs), and rank 0 writes the frames.
 
     python -m curve_gaussian_tpu_torch.scripts.render_curves --edges <run>/parametric_edges.json
     python -m curve_gaussian_tpu_torch.scripts.render_curves --edges ... --device cpu --size 64
@@ -32,12 +35,13 @@ import torch
 from ..config import PipelineConfig
 from ..data.png import write_png
 from ..data.synthetic import ring_cameras
+from ..engine.train import RenderGraphs, camera_stacks, render_views
 from ..eval.replica import stitch_video
 from ..ops import bezier
 from ..ops.camera import make_camera
 from ..ops.render import render
 from ..parallel import multihost
-from ..parallel.sharding import make_mesh, tile_parallel_render_gaussians
+from ..parallel.sharding import make_mesh, tile_parallel_renders
 
 M_PER = 32  # Gaussians per edge
 OPACITY = 0.95
@@ -101,13 +105,26 @@ def video_cameras(args, device):
     return cams
 
 
+def frame_render(gauss: dict, cam) -> torch.Tensor:
+    """One frame's render [H, W] of the edges' Gaussians, eagerly: what
+    every frame of ``render_curves`` computes."""
+    return render(gauss["xyz"], gauss["scale"], gauss["quat"], gauss["opacity"], cam, bg=0.0,
+                  capacity=CAPACITY)["render"]
+
+
+def frame_u8(img: np.ndarray) -> np.ndarray:
+    """A frame's float render as the uint8 pixels written (and hashed)."""
+    return (np.clip(img, 0, 1) * 255).astype(np.uint8)
+
+
 def render_curves(argv=None, quiet: bool = False) -> dict:
     """Render and write every frame.  Returns the host seconds per frame of
-    the render (to the image on the host) and of the write, the SHA-256 of
-    each frame's uint8 pixels as written, frame 0's float render, the frame
-    directory and whether a video was stitched.  With ``--n-devices`` every
-    rank renders and returns the same; only rank 0 writes (its write
-    seconds are 0 elsewhere)."""
+    the render (to the image on the host; frame 0's includes the capture on
+    the card) and of the write, the SHA-256 of each frame's uint8 pixels as
+    written, frame 0's float render, the frame directory, whether a video
+    was stitched, and the render graphs (released: their captures and
+    replays).  With ``--n-devices`` every rank renders and returns the same;
+    only rank 0 writes (its write seconds are 0 elsewhere)."""
     args = parse_args(argv)
     with multihost.distributed(args.device, args.dist_backend) as dev:
         return _render_frames(args, dev, quiet)
@@ -123,22 +140,27 @@ def _render_frames(args, dev, quiet: bool) -> dict:
     xyz, scale, quat, opa = edge_gaussians(edge_dict, args.width, dev)
     gauss = {"xyz": xyz, "scale": scale, "quat": quat, "opacity": opa}
     cams = video_cameras(args, dev)
+    stacks = camera_stacks(cams, torch.float32, dev)
+    geom = (cams[0].height, cams[0].width, cams[0].tanfovx, cams[0].tanfovy)
+    graphs = RenderGraphs()
+    if mesh is None:
+        frames = (out["render"] for _, out in render_views(
+            lambda g, cam: {"render": frame_render(g, cam)}, gauss, stacks, geom,
+            range(len(cams)), ("render_curves", CAPACITY), graphs))
+    else:
+        frames = tile_parallel_renders(gauss, stacks, geom, pipe, 0.0, mesh.shape,
+                                       range(len(cams)), graphs)
 
     frame_dir = os.path.join(args.out, "frames")
     if rank0:
         os.makedirs(frame_dir, exist_ok=True)
     render_s, write_s, digests, first = [], [], [], None
-    for i, cam in enumerate(cams):
+    for i in range(len(cams)):
         t0 = time.time()
-        with torch.no_grad():
-            if mesh is None:
-                img = render(xyz, scale, quat, opa, cam, bg=0.0, capacity=CAPACITY)["render"]
-            else:
-                img = tile_parallel_render_gaussians(gauss, cam, pipe, 0.0, mesh.shape)
-        img = img.cpu().numpy()
+        img = next(frames).cpu().numpy()
         t1 = time.time()
         first = img if first is None else first
-        u8 = (np.clip(img, 0, 1) * 255).astype(np.uint8)
+        u8 = frame_u8(img)
         if rank0:
             write_png(os.path.join(frame_dir, f"frame_{i:04d}.png"), u8)
         digests.append(hashlib.sha256(u8.tobytes()).hexdigest())
@@ -146,13 +168,14 @@ def _render_frames(args, dev, quiet: bool) -> dict:
         write_s.append(time.time() - t1)
         if not quiet:
             print(f"frame {i + 1}/{len(cams)}", end="\r", flush=True)
+    graphs.release()
     video = os.path.join(args.out, "curves.mp4")
     stitched = rank0 and stitch_video(frame_dir, video)
     if not quiet:
         print()
         print("wrote", video if stitched else f"{len(cams)} frames in {frame_dir} (no ffmpeg)")
     return dict(render_seconds=render_s, write_seconds=write_s, sha256=digests,
-                first_frame=first, frame_dir=frame_dir, video=stitched)
+                first_frame=first, frame_dir=frame_dir, video=stitched, graphs=graphs)
 
 
 if __name__ == "__main__":

@@ -24,7 +24,10 @@ one process:
     ``tests/test_parallel.py``'s row-sharded render) of the port's
     ``eval_render`` and of the JAX ``eval_render(backend="reference")``,
     and ``render_curves --n-devices 2`` within 2e-5 of one process, its
-    frames written by rank 0 alone;
+    frames written by rank 0 alone; ``tile_parallel_renders`` (the body the
+    card captures per band and replays per view, the sum eager between)
+    bitwise equal to ``tile_parallel_render_gaussians`` of each view, and
+    the two-rank frames' SHA-256 those of one process;
 (e) ``dryrun_multichip(2)`` passes every stage;
 (f) ``shard_scans`` as the JAX function, ``initialize_distributed`` a
     no-op for one process, and a mesh of another size than the group
@@ -50,6 +53,7 @@ from curve_gaussian_tpu_torch.config import ModelConfig, OptimizationConfig, Pip
 from curve_gaussian_tpu_torch.data import synthetic as psyn
 from curve_gaussian_tpu_torch.engine import loop as ploop
 from curve_gaussian_tpu_torch.engine import train as ptrain
+from curve_gaussian_tpu_torch.models import curve_state as pcs
 from curve_gaussian_tpu_torch.ops import binning as pbin
 from curve_gaussian_tpu_torch.ops.camera import Camera
 from curve_gaussian_tpu_torch.parallel import dryrun as pdry
@@ -67,6 +71,7 @@ TABLE2 = [[1, 3], [0, 1], [2, 0]]  # (b): K = 3 steps, n_active = 2
 TABLE4 = [[1, 3, 0, 2], [0, 1, 3, 2], [2, 0, 1, 3]]
 N_ACTIVE = 2
 RENDER_HW = (80, 96)  # (d): a ragged height for 2 x 32-row tiles
+RENDER_VIEWS = [1, 0, 1]  # (d): rows of the two render cameras' stacks
 RENDER_TOL = 2e-5
 DRIVER_OPT = dict(iterations=8, densify_from_iter=2, densify_until_iter=4, conn_from_iter=3,
                   densification_interval=2, split_interval=4, merge_interval=4,
@@ -222,13 +227,24 @@ def _rank(rank: int, work: str) -> None:
     writes.on = False
     out["writes"] = writes.paths
     out["curves_frame0"] = res["first_frame"]
+    out["curves_sha"] = res["sha256"]
 
     ts = _port_ts(inp["s0"], torch.float32)
     H, W = RENDER_HW
+    pipe = PipelineConfig(tile_capacity=TILE_K)
     out["tile_render"] = pps.tile_parallel_render(
         ts, tuple(torch.tensor(a, dtype=torch.float32) for a in inp["render_cam"]),
-        (H, W, *inp["render_tan"]), PipelineConfig(tile_capacity=TILE_K), 0.0, mesh.shape,
+        (H, W, *inp["render_tan"]), pipe, 0.0, mesh.shape,
         n_gaussians=ts.params["mask_raw"].shape[1]).numpy()
+    rcams = [Camera(*(torch.tensor(a, dtype=torch.float32) for a in c), H, W, *inp["render_tan"])
+             for c in (inp["render_cam"], inp["render_cam2"])]
+    with torch.no_grad():
+        gauss = pcs.gaussians(pcs.curve_state_of(ts))
+    out["tile_renders"] = [f.numpy() for f in pps.tile_parallel_renders(
+        gauss, ptrain.camera_stacks(rcams, torch.float32, "cpu"), (H, W, *inp["render_tan"]),
+        pipe, 0.0, mesh.shape, RENDER_VIEWS)]
+    out["tile_render_each"] = [pps.tile_parallel_render_gaussians(
+        gauss, rcams[v], pipe, 0.0, mesh.shape).numpy() for v in RENDER_VIEWS]
     out["dryrun"] = pdry.dryrun_multichip(RANKS, "cpu")
     scene, maps, seeds = _driver_scene()
     out["raises"] = {
@@ -320,9 +336,10 @@ def _references(inp, jax_inputs, work):
     ref["jax_eval_render"] = np.array(jtrain.eval_render(
         jts, rcam, JPipe(backend="reference", tile_capacity=TILE_K), jnp.zeros(()),
         n_gaussians=params["mask_raw"].shape[1])["render"])
-    ref["curves_frame0"] = prc.render_curves(
+    one = prc.render_curves(
         ["--edges", os.path.join(work, "edges.json"), "--out", os.path.join(work, "curves_one")]
-        + CURVES_ARGS, quiet=True)["first_frame"]
+        + CURVES_ARGS, quiet=True)
+    ref["curves_frame0"], ref["curves_sha"] = one["first_frame"], one["sha256"]
     ref["driver"] = _driver(os.path.join(work, "driver_one"))
     return ref
 
@@ -341,6 +358,7 @@ def ranks(tmp_path_factory):
         s0 = _numpy_ts(jtrain.init_train_state(jax_state(params, is_bez, alive)))
     H, W = RENDER_HW
     rcam, _ = cam_pair([0.0, -0.3, -1.2], [0, 0, 0], H, W, dtype=np.float32)  # fills both bands
+    rcam2, _ = cam_pair([0.4, -0.2, -1.3], [0, 0, 0], H, W, dtype=np.float32)
     inp = dict(s0=s0, gts=gts, H=gts.shape[1], W=gts.shape[2],
                tan=(float(jcams[0].tanfovx), float(jcams[0].tanfovy)),
                geom=(gts.shape[1], gts.shape[2], float(jcams[0].tanfovx),
@@ -349,6 +367,8 @@ def ranks(tmp_path_factory):
                            (c.world_to_cam, c.full_proj, c.cam_center)) for c in jcams],
                render_cam=tuple(np.asarray(a) for a in
                                 (rcam.world_to_cam, rcam.full_proj, rcam.cam_center)),
+               render_cam2=tuple(np.asarray(a) for a in
+                                 (rcam2.world_to_cam, rcam2.full_proj, rcam2.cam_center)),
                render_tan=(float(rcam.tanfovx), float(rcam.tanfovy)))
     with open(os.path.join(work, "inputs.pkl"), "wb") as f:
         pickle.dump(inp, f)
@@ -507,11 +527,27 @@ def test_tile_parallel_render_ragged(ranks, against):
     assert np.abs(img - ref[against]).max() <= RENDER_TOL
 
 
+def test_tile_parallel_renders_replay_the_band(ranks):
+    """The many-view body equals the one-view render, view by view, on
+    both ranks; view 0 is the state render of (d)."""
+    out, ref, _ = ranks
+    for r in out:
+        assert len(r["tile_renders"]) == len(RENDER_VIEWS)
+        for got, want in zip(r["tile_renders"], r["tile_render_each"]):
+            assert np.array_equal(got, want) and got.shape == RENDER_HW
+        assert np.array_equal(r["tile_renders"][1], r["tile_render"])
+        for a, b in zip(r["tile_renders"], out[0]["tile_renders"]):
+            assert np.array_equal(a, b)
+    assert not np.array_equal(out[0]["tile_renders"][0], out[0]["tile_renders"][1])
+    assert np.abs(out[0]["tile_renders"][1] - ref["eval_render"]).max() <= RENDER_TOL
+
+
 def test_render_curves_over_two_ranks(ranks):
     out, ref, _ = ranks
     f0 = out[0]["curves_frame0"]
     assert np.array_equal(f0, out[1]["curves_frame0"]) and f0.shape == (48, 48)
     assert f0.max() > 0.05 and np.abs(f0 - ref["curves_frame0"]).max() <= RENDER_TOL
+    assert out[0]["curves_sha"] == out[1]["curves_sha"] == ref["curves_sha"]
 
 
 # ---------------------------------------------------------------------------
