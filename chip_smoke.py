@@ -1,11 +1,15 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port of CurveGaussian on one CUDA card.
+"""Drive the PyTorch port of CurveGaussian on one CUDA card, or on N.
 
     python3 chip_smoke.py            # build, check, train; needs one GPU
     python3 chip_smoke.py --profile  # also print torch.profiler tables of the bench step
                                      # (eager and graphed) and of a step of the dataset scene
+    python3 chip_smoke.py --cards N  # phase 13 alone, N = 2 or 4 ranks over NCCL, one card
+                                     # each; fails with fewer than N cards
 
-(``--rank R`` runs one rank of phase 12; the phase starts them itself.)
+(``--rank R`` runs one rank of phase 12, ``--cards N --rank R`` one of phase
+13; the phases start them themselves.)  Phases 1-12 below are the default
+run, on one card.
 
 1. Prints the card (``nvidia-smi`` name and power limit) and the torch,
    CUDA and nvcc versions.
@@ -191,13 +195,45 @@
    e. ``dryrun_multichip(2)`` on the card.
    The ranks' states must be bitwise equal after every chunk (1 to 3 and
    each of the driver's); the phase's seconds are printed.
+13. ``--cards N`` alone: every card's name and power limit, ``nvidia-smi
+   topo -m`` and the NCCL version, then N ranks (this script with
+   ``--cards N --rank R``, ``multihost.run_ranks``), rank r on cuda:r, over
+   NCCL, at the bench configuration (a fresh state, 4 views a step, 4/N a
+   rank):
+   a. the fused step (one captured graph, its SUM and MAX collectives
+      inside) against the staged step (two graphs, the NCCL exchange eager
+      between them): one step of each, the loss within 1e-6 relative and
+      each state array no further than 2x a second staged step's distance
+      plus 1e-6 of its max; then 20 steps of each in turns (staged, fused,
+      fused, staged) on the host clock, the fused form's device time (CUDA
+      events) and the staged form's exchange, each turn's peak memory, the
+      losses within 1e-4 relative; the exchange alone; the bytes a step
+      exchanges;
+   b. on rank 0, the fused step against the one-process 4-view step (graphed
+      and eager) within 1e-6, with the same slack;
+   c. the fused graph's nodes by type: NCCL kernels, no host node;
+   d. each rank's K1, K2, K7 and K8 launches on the device: 4/N per step
+      and warm-up step of each form;
+   e. the driver run of 9 at ``--views-per-step 4 --n-devices N --device
+      cuda:r --dist-backend nccl`` (600 iterations): every capture fused
+      with NCCL kernels, the launches counted through the replays, the
+      fused step's device time, it/s, seconds by phase; rank 0 alone
+      writes;
+   f. ``render_curves --n-devices N`` of the driver's curves (each rank's
+      band and the sum one captured graph with NCCL kernels, K3 once per
+      frame and warm-up) bitwise equal to one process on every frame;
+   g. ``dryrun_multichip(N)`` over NCCL.
+   The ranks' states must be bitwise equal after every chunk.  Then, on
+   cuda:0, K1, K2, K7, K8 (at the bench step) and K3 (at rank 0's band of
+   ``render_curves``' frame 0) against their plain versions; the kernel
+   line gives each rank's launches in e and f.
 
 Any failed check exits non-zero.  The last line is
-{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
+{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}},
+``count`` from ``torch.cuda.device_count()``.
 """
 from __future__ import annotations
 
-import ctypes
 import json
 import os
 import re
@@ -217,6 +253,7 @@ from curve_gaussian_tpu_torch.data import png as PNG
 from curve_gaussian_tpu_torch.data import synthetic
 from curve_gaussian_tpu_torch.engine import optim
 from curve_gaussian_tpu_torch.engine import train as T
+from curve_gaussian_tpu_torch.engine.graph_nodes import graph_nodes, nccl_kernels
 from curve_gaussian_tpu_torch.models import curve_state as cs
 from curve_gaussian_tpu_torch.models import losses as L
 from curve_gaussian_tpu_torch.ops import rasterize_cuda as RC
@@ -398,12 +435,17 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
-def smi_line() -> str:
+def smi_lines() -> list:
+    """Every card's ``nvidia-smi`` name and power limit."""
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout
-    return out.strip().splitlines()[0]
+    return out.strip().splitlines()
+
+
+def smi_line() -> str:
+    return smi_lines()[0]
 
 
 def cuda_ms(fn, iters: int, setup=None) -> float:
@@ -619,68 +661,6 @@ def yardsticks(inputs, bg):
              lambda: TB.tile_blend_fwd(fields, gidx, counts, bg, H, W, False, False, True))
     in_turns("blend_train_bwd against blend_train_bwd_basis",
              lambda: RC.blend_train_bwd(*inputs), lambda: RC.blend_train_bwd_basis(*inputs))
-
-
-# CUgraphNodeType (cuda.h)
-GRAPH_NODE_TYPES = {0: "kernel", 1: "memcpy", 2: "memset", 3: "host", 4: "graph", 5: "empty",
-                    6: "wait_event", 7: "event_record", 8: "ext_semas_signal",
-                    9: "ext_semas_wait", 10: "mem_alloc", 11: "mem_free", 12: "batch_mem_op",
-                    13: "conditional"}
-
-
-class _Memcpy3D(ctypes.Structure):
-    """CUDA_MEMCPY3D (cuda.h): the parameters of a memcpy node."""
-    _fields_ = [(f"{side}{f}", t) for side in ("src", "dst") for f, t in (
-        ("XInBytes", ctypes.c_size_t), ("Y", ctypes.c_size_t), ("Z", ctypes.c_size_t),
-        ("LOD", ctypes.c_size_t), ("MemoryType", ctypes.c_int), ("Host", ctypes.c_void_p),
-        ("Device", ctypes.c_uint64), ("Array", ctypes.c_void_p), ("Reserved", ctypes.c_void_p),
-        ("Pitch", ctypes.c_size_t), ("Height", ctypes.c_size_t))] + [
-        ("WidthInBytes", ctypes.c_size_t), ("Height", ctypes.c_size_t),
-        ("Depth", ctypes.c_size_t)]
-
-
-CU_MEMORYTYPE_DEVICE, CU_MEMORYTYPE_UNIFIED = 2, 4
-CU_POINTER_ATTRIBUTE_MEMORY_TYPE = 2
-
-
-def graph_nodes(graph) -> dict:
-    """{node type: count} of a captured ``torch.cuda.CUDAGraph`` (made with
-    ``keep_graph=True``), read through the driver API (``cuGraphGetNodes``):
-    a count that does not depend on a profiler's tracing.  A memcpy node
-    counts as ``memcpy`` when it copies from device memory and as
-    ``memcpy_from_host`` otherwise (a graph would read that host memory
-    again at every replay)."""
-    cu = ctypes.CDLL("libcuda.so.1")
-    for f in (cu.cuGraphGetNodes, cu.cuGraphNodeGetType, cu.cuGraphMemcpyNodeGetParams,
-              cu.cuPointerGetAttribute):
-        f.restype = ctypes.c_int
-    raw, n = ctypes.c_void_p(graph.raw_cuda_graph()), ctypes.c_size_t(0)
-    if cu.cuGraphGetNodes(raw, None, ctypes.byref(n)) != 0:
-        fail("cuGraphGetNodes failed on the captured graph")
-    nodes = (ctypes.c_void_p * n.value)()
-    if n.value and cu.cuGraphGetNodes(raw, nodes, ctypes.byref(n)) != 0:
-        fail("cuGraphGetNodes failed on the captured graph")
-    out = {}
-    for node in nodes:
-        t = ctypes.c_int(-1)
-        if cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(t)) != 0:
-            fail("cuGraphNodeGetType failed on the captured graph")
-        name = GRAPH_NODE_TYPES.get(t.value, str(t.value))
-        if name == "memcpy":
-            p = _Memcpy3D()
-            if cu.cuGraphMemcpyNodeGetParams(ctypes.c_void_p(node), ctypes.byref(p)) != 0:
-                fail("cuGraphMemcpyNodeGetParams failed on the captured graph")
-            kind = p.srcMemoryType
-            if kind == CU_MEMORYTYPE_UNIFIED:  # the pointer says where it lies
-                v = ctypes.c_uint(0)
-                if cu.cuPointerGetAttribute(ctypes.byref(v), CU_POINTER_ATTRIBUTE_MEMORY_TYPE,
-                                            ctypes.c_uint64(p.srcDevice)) != 0:
-                    fail("cuPointerGetAttribute failed on a memcpy node's source")
-                kind = v.value
-            if kind != CU_MEMORYTYPE_DEVICE:
-                name = "memcpy_from_host"
-        out[name] = out.get(name, 0) + 1
-    return out
 
 
 def device_work(fn):
@@ -2514,6 +2494,400 @@ def rank_main(rank: int) -> None:
     dist.destroy_process_group()
 
 
+CARDS_DIR = os.path.join(DRIVER_DIR, "cards")
+CARDS_TIMEOUT_S = 600  # every rank's whole phase
+CARDS_VIEWS = 4  # views a step, CARDS_VIEWS / N a rank
+CARDS_STEPS = 20
+
+
+def cards_main(n: int) -> None:
+    """``--cards N``: phase 13 alone (the module docstring).  Starts the N
+    ranks (this script with ``--cards N --rank R``), then holds K1, K2, K3,
+    K7 and K8 against their plain versions on cuda:0 at the shapes the
+    ranks gave them; the kernel line carries each rank's launches."""
+    import shutil
+
+    from curve_gaussian_tpu_torch.scripts import render_curves as RV
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this script needs a CUDA card")
+    if n < 2 or CARDS_VIEWS % n:
+        fail(f"--cards takes 2 or 4 (a divisor of {CARDS_VIEWS} views a step), not {n}")
+    have = torch.cuda.device_count()
+    if have < n:
+        fail(f"--cards {n} needs {n} CUDA cards; this machine has {have}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smis = smi_lines()
+    for i, line in enumerate(smis):
+        print(f"card {i}: {line}", flush=True)
+    for cmd in (["nvidia-smi", "topo", "-m"], ["nvidia-smi", "nvlink", "--status"]):
+        try:
+            out = subprocess.run(cmd, capture_output=True, text=True, timeout=60)
+            said = f"exit {out.returncode}):\n{(out.stdout + out.stderr).rstrip()}"
+        except subprocess.TimeoutExpired:
+            said = "no answer in 60 s)"
+        print(f"{' '.join(cmd)} ({said}", flush=True)
+    print("peer access (row can read column): " + "; ".join(
+        f"{i}: " + "".join("-" if i == j else "x" if torch.cuda.can_device_access_peer(i, j)
+                           else "." for j in range(have)) for i in range(have)), flush=True)
+    nvcc_v = subprocess.run([_build.nvcc_path(), "--version"], capture_output=True, text=True)
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} "
+          f"nvcc {nvcc_v.stdout.strip().splitlines()[-1]} nccl {MH.nccl_version()}", flush=True)
+    t0 = time.time()
+    logs = _build.build_all()
+    print(f"built {sorted(logs)} in {time.time() - t0:.1f} s", flush=True)
+
+    shutil.rmtree(CARDS_DIR, ignore_errors=True)
+    os.makedirs(CARDS_DIR)
+    env = dict(os.environ, CGT_NUM_PROCESSES=str(n),
+               CGT_COORDINATOR="file://" + os.path.abspath(os.path.join(CARDS_DIR, "rendezvous")))
+    t0 = time.time()
+    res = MH.run_ranks([[sys.executable, os.path.abspath(__file__), "--cards", str(n), "--rank",
+                         str(r)] for r in range(n)], CARDS_TIMEOUT_S, env=env)
+    for r in res:
+        for line in r.output.splitlines():
+            print(f"[rank {r.rank}] {line}", flush=True)
+    bad = MH.failures(res)
+    if bad:
+        fail(f"{n} ranks over NCCL, one card each:\n{bad}")
+    print(f"{n} cards: phase {time.time() - t0:.1f} s (host clock, the ranks' start "
+          f"included); {smis[0]}", flush=True)
+    ranks = []
+    for r in range(n):
+        with open(os.path.join(CARDS_DIR, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+
+    # -- the kernels of the path against their plain versions, on cuda:0 ---------------
+    dev = torch.device("cuda", 0)
+    H = W = 512
+    cams = synthetic.ring_cameras(CARDS_VIEWS, H, W, device=dev)
+    rng = np.random.default_rng(0)
+    gts = [torch.tensor(rng.uniform(size=(H, W)) ** 4, dtype=torch.float32, device=dev)
+           for _ in range(CARDS_VIEWS)]
+    state = cs.init_state(synthetic.grid_seed_points(15), n_views=CARDS_VIEWS, n_gaussians=12,
+                          device=dev)
+    kernels, _, _ = train_kernels(step_inputs(state, cams[0], gts[0], PipelineConfig()), gts[0],
+                                  "", library=True)
+    a = RV.parse_args(["--edges", "unused", "--device", "cuda:0"])
+    with open(os.path.join(CARDS_DIR, "driver", "parametric_edges.json")) as f:
+        splats = RV.edge_gaussians(json.load(f), a.width, dev)
+    gauss = dict(zip(("xyz", "scale", "quat", "opacity"), splats))
+    with torch.no_grad():
+        fields, b, rows, _ = PS._band_inputs(gauss, RV.video_cameras(a, dev)[0],
+                                             PipelineConfig(tile_capacity=RV.CAPACITY), n, 0)
+    k3, _, _ = k3_entry(f"render_curves frame 0, rank 0's band of {n}", fields.contiguous(), b,
+                        rows, a.size, True, True, True)
+    kernels.append(k3)
+    for k in kernels:
+        by_rank = [r["launches"][k["name"]] for r in ranks]
+        k["launches"], k["launches_by_rank"] = by_rank[0], by_rank
+    print(json.dumps({"kernels": [{k: v for k, v in d.items() if k != "rel_err"}
+                                  for d in kernels]}), flush=True)
+    print(smis[0], flush=True)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}), flush=True)
+
+
+def state_within(label: str, got, refs: dict, e1, e2, tol: float) -> None:
+    """Fails unless every state array of `got` lies within
+    ``GRAPH_STATE_SLACK`` x max |e2 - e1| + `tol` x max |e1| of the same
+    array of each state in `refs` ({name: TrainState}): e1 and e2 are two
+    runs of one step from one state, whose distance is what K2's atomics
+    move; prints the worst arrays."""
+    gl = T._state_leaves(got)
+    l1, l2 = T._state_leaves(e1), T._state_leaves(e2)
+    worst = []
+    for k, e in l1.items():
+        e = e.double()
+        bound = GRAPH_STATE_SLACK * (l2[k].double() - e).abs().max().item() + \
+            tol * e.abs().max().item()
+        for name, ref in refs.items():
+            d = (gl[k].double() - T._state_leaves(ref)[k].double()).abs().max().item()
+            worst.append((d / bound if bound > 0 else (0.0 if d == 0 else np.inf), name, k, d,
+                          bound))
+    worst.sort(key=lambda w: -w[0])
+    print(f"{label}, state, worst (max |difference| over its bound): " + ", ".join(
+        f"{n} {k} {d:.3g}/{b:.3g}" for _, n, k, d, b in worst[:6]), flush=True)
+    if worst[0][0] > 1.0:
+        fail(f"{label}: {worst[0][2]} is further from the {worst[0][1]} step than "
+             f"{GRAPH_STATE_SLACK:g} x a second step's distance plus {tol:g} of max")
+
+
+def cards_rank_main(n: int, rank: int) -> None:
+    """One rank of phase 13 on cuda:`rank`: the group from the environment
+    ``cards_main`` sets, over NCCL."""
+    import torch.distributed as dist
+
+    from curve_gaussian_tpu_torch import train as TR
+    from curve_gaussian_tpu_torch.engine import loop as LOOP
+    from curve_gaussian_tpu_torch.parallel import dryrun as DRY
+    from curve_gaussian_tpu_torch.scripts import render_curves as RV
+
+    t_start = time.time()
+    dev = torch.device("cuda", rank)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    MH.initialize_distributed(process_id=rank, backend="nccl", device=dev)
+    mesh = PS.make_mesh(n, device=dev)
+    if torch.cuda.current_device() != rank or not MH.captures_collectives():
+        fail(f"rank {rank}: current device {torch.cuda.current_device()}, NCCL group "
+             f"capturing its collectives {MH.captures_collectives()}")
+    writes = _Writes(CARDS_DIR)
+    per = CARDS_VIEWS // n
+    print(f"rank {rank} of {mesh.size} on {dev} ({torch.cuda.get_device_name(dev)}), NCCL "
+          f"{MH.nccl_version()}, {per} of {CARDS_VIEWS} views a step", flush=True)
+
+    # -- the bench configuration, as the main path's ---------------------------------
+    H = W = 512
+    n_views, M = CARDS_VIEWS, 12
+    cams = synthetic.ring_cameras(n_views, H, W, device=dev)
+    rng = np.random.default_rng(0)
+    gts = [torch.tensor(rng.uniform(size=(H, W)) ** 4, dtype=torch.float32, device=dev)
+           for _ in range(n_views)]
+    state = cs.init_state(synthetic.grid_seed_points(15), n_views=n_views, n_gaussians=M,
+                          device=dev)
+    ts = T.init_train_state(state)
+    opt_cfg, pipe_cfg = OptimizationConfig(), PipelineConfig()
+    stacks = T.camera_stacks(cams, torch.float32, dev)
+    gt_stack = torch.stack(gts)
+    geom = (H, W, cams[0].tanfovx, cams[0].tanfovy)
+    views = list(range(CARDS_VIEWS))
+    forms = {"fused": T.StepGraphs(PS.batch_step(n)),
+             "staged": T.StepGraphs(PS.batch_step(n), fused=False)}
+    if not forms["fused"].fuses() or forms["staged"].fuses():
+        fail("the NCCL group's step graphs did not pick the fused form")
+    counts = {f: {k: 0 for k in WRAPPERS} for f in forms}
+    steps_run = {f: 0 for f in forms}
+
+    def run(form, table):
+        """One chunk of `form` from `ts`; (state, metrics, host seconds to
+        the end of its device work); the ranks' states bitwise equal."""
+        before = {k: w.launches for k, w in WRAPPERS.items()}
+        torch.cuda.synchronize()
+        dist.barrier()
+        t0 = time.time()
+        out = PS.parallel_train_steps_scan(ts, stacks, gt_stack, 0.0, opt_cfg, pipe_cfg,
+                                           use_mask=False, mesh_shape=mesh.shape, cam_geom=geom,
+                                           rows=[mesh.block(r) for r in table],
+                                           graphs=forms[form])
+        torch.cuda.synchronize()
+        dt = time.time() - t0
+        for k, w in WRAPPERS.items():
+            counts[form][k] += w.launches - before[k]
+        steps_run[form] += len(table)
+        replicated(out[0], f"after a {form} chunk of {len(table)} steps")
+        return out[0], out[1], dt
+
+    # -- a. one fused step against one staged step --------------------------------------
+    f1, mf1, _ = run("fused", [views])
+    s1, ms1, _ = run("staged", [views])
+    s2, _, _ = run("staged", [views])
+    lf, ls = float(mf1["total"][0]), float(ms1["total"][0])
+    print(f"fused step against staged, one step: loss {lf:.8f} vs {ls:.8f} (error over value "
+          f"{abs(lf - ls) / abs(ls):.3g}, tol {GRAPH_STATE_TOL:g})", flush=True)
+    if abs(lf - ls) > GRAPH_STATE_TOL * abs(ls):
+        fail("the fused step's loss disagrees with the staged step's")
+    state_within("fused step against staged", f1, {"staged": s1}, s1, s2, GRAPH_STATE_TOL)
+
+    # -- c. what the fused graph holds ------------------------------------------------------
+    fcap = forms["fused"].captures[0]
+    nodes = graph_nodes(forms["fused"].latest_graph())
+    staged_nodes = [graph_nodes(g) for g in next(iter(forms["staged"]._graphs.values())).graphs]
+    print(f"fused step graph: nodes {nodes}, NCCL kernels {fcap['nccl_kernels']} (capture "
+          f"{fcap['seconds']:.3f} s: warm-up {fcap['warmup_seconds']:.3f}, capture "
+          f"{fcap['capture_seconds']:.3f}, instantiation {fcap['instantiate_seconds']:.3f}); "
+          f"the staged form's local and update graphs {staged_nodes}", flush=True)
+    if nodes.get("host", 0) or nodes.get("memcpy_from_host", 0) or fcap["nccl_kernels"] < 1:
+        fail(f"the fused step graph holds host work or no NCCL kernel: {nodes}, "
+             f"{fcap['nccl_kernels']} NCCL kernels")
+    bufs = next(g.exchanged for g in forms["staged"]._graphs.values())
+    nbytes = sum(b.numel() * b.element_size() for b in bufs)
+    print(f"one step exchanges {nbytes} bytes a rank: SUM of {bufs[0].numel()} and MAX of "
+          f"{bufs[1].numel()} {bufs[0].dtype}", flush=True)
+
+    # -- a. 20 steps of each form in turns ---------------------------------------------------
+    table = [[(i * CARDS_VIEWS + j) % n_views for j in range(CARDS_VIEWS)]
+             for i in range(CARDS_STEPS)]
+    losses = {"fused": [], "staged": []}
+    for form in ("staged", "fused", "fused", "staged"):
+        g = forms[form]
+        ex_s, ex_n, f_s, f_n = g.exchange_seconds, g.exchanges, g.fused_seconds, g.fused_steps
+        torch.cuda.reset_peak_memory_stats()
+        _, m, dt = run(form, table)
+        losses[form].append(m["total"].double().cpu().numpy())
+        dev_note = (f"device {(g.fused_seconds - f_s) / (g.fused_steps - f_n) * 1e3:.3f} ms/step "
+                    "(CUDA events around the replays)" if form == "fused" else
+                    f"exchange {(g.exchange_seconds - ex_s) / (g.exchanges - ex_n) * 1e3:.3f} ms "
+                    "host/step (with the wait for the local graph)")
+        print(f"turn {form}: {CARDS_STEPS} steps of {CARDS_VIEWS} views in {dt:.4f} s, "
+              f"{dt / CARDS_STEPS * 1e3:.3f} ms/step (host clock), {dev_note}; peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB, reserved "
+              f"{torch.cuda.memory_reserved() / 2**30:.3f} GiB", flush=True)
+    err = max(float(np.max(np.abs(f - s) / np.abs(s)))
+              for f in losses["fused"] for s in losses["staged"])
+    print(f"fused against staged, {CARDS_STEPS} steps: largest loss error over value {err:.3g} "
+          f"(tol {GRAPH_CHUNK_TOL:g}); losses finite "
+          f"{all(np.isfinite(v).all() for vs in losses.values() for v in vs)}", flush=True)
+    if not err <= GRAPH_CHUNK_TOL:
+        fail("the fused chunk's losses disagree with the staged chunk's")
+    probe = tuple(b.clone() for b in bufs)
+    torch.cuda.synchronize()
+    dist.barrier()
+    t0 = time.time()
+    for _ in range(CARDS_STEPS):
+        PS._exchange(probe)
+    torch.cuda.synchronize()
+    print(f"the exchange alone, eager over NCCL: "
+          f"{(time.time() - t0) / CARDS_STEPS * 1e3:.3f} ms host each", flush=True)
+
+    # -- d. launches on the device -----------------------------------------------------------
+    for form, g in forms.items():
+        check_step_launches(f"{form} step", counts[form], g, steps_run[form], {}, views=per)
+
+    # -- b. against one process, on rank 0 ---------------------------------------------------
+    if rank == 0:
+        one = T.StepGraphs(PS._local_batch_step)
+        g1, mg = PS.parallel_train_steps_scan(ts, stacks, gt_stack, 0.0, opt_cfg, pipe_cfg,
+                                              use_mask=False, mesh_shape=None, cam_geom=geom,
+                                              rows=[views], graphs=one)
+
+        def eager():
+            return PS.parallel_train_step(ts, tuple(s[views] for s in stacks), gt_stack[views],
+                                          0.0, opt_cfg, pipe_cfg, use_mask=False,
+                                          mesh_shape=None, cam_geom=geom)
+
+        (e1, _), (e2, _) = eager(), eager()
+        lg = float(mg["total"][0])
+        print(f"{n}-rank fused step against the one-process B={CARDS_VIEWS} step: loss {lf:.8f} "
+              f"vs {lg:.8f} (error over value {abs(lf - lg) / abs(lg):.3g}, tol {VIEW_TOL:g})",
+              flush=True)
+        if abs(lf - lg) > VIEW_TOL * abs(lg):
+            fail(f"the {n}-rank step's loss disagrees with the one-process step's")
+        state_within(f"{n}-rank fused step against one process", f1,
+                     {"one-process graphed": g1, "one-process eager": e1}, e1, e2, VIEW_TOL)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        PS.parallel_train_steps_scan(ts, stacks, gt_stack, 0.0, opt_cfg, pipe_cfg,
+                                     use_mask=False, mesh_shape=None, cam_geom=geom, rows=table,
+                                     graphs=one)
+        torch.cuda.synchronize()
+        print(f"one-process B={CARDS_VIEWS} graphed steps on cuda:0 (the other ranks idle): "
+              f"{(time.time() - t0) / CARDS_STEPS * 1e3:.3f} ms/step", flush=True)
+        one.release()
+    for g in forms.values():
+        g.release()
+    dist.barrier()
+
+    # -- e. the driver over the N ranks ---------------------------------------------------
+    a = TR.parse_args(DRIVER_ARGS)
+    run_dir = os.path.join(CARDS_DIR, "driver")
+    scan = LOOP.parallel_train_steps_scan
+    chunks = [0]
+
+    def checked(*args, **kw):
+        out = scan(*args, **kw)
+        replicated(out[0], f"after the driver's chunk {chunks[0]}")
+        chunks[0] += 1
+        return out
+
+    LOOP.parallel_train_steps_scan = checked
+    writes.on = True
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        res, c = run_path(f"{n}-rank driver", lambda: TR.main(
+            DRIVER_ARGS + ["--model-path", run_dir, "--views-per-step", str(CARDS_VIEWS),
+                           "--n-devices", str(n), "--device", str(dev),
+                           "--dist-backend", "nccl"]),
+            TRAIN_KERNELS + ("tile_blend_fwd",),
+            ("tile_blend_bwd", "blend_moment_bwd", "blend_train_bwd_basis"))
+    finally:
+        LOOP.parallel_train_steps_scan = scan
+        writes.on = False
+    dist.barrier()  # rank 0's files are written
+    check_step_launches(f"{n}-rank driver", c, res.graphs, a.iterations,
+                        dict(tile_blend_fwd=a.synthetic_views), views=per,
+                        renders=(res.render_graphs,
+                                 2 * len(a.test_iterations) if rank == 0 else 0))
+    launches = device_launches(c, res.graphs, res.render_graphs)
+    if res.graphs.fused_step_ms is None or not all(
+            cap.get("fused") and cap.get("nccl_kernels", 0) >= 1 for cap in res.graphs.captures):
+        fail(f"the {n}-rank driver ran steps outside the fused graph: "
+             f"{[(cap.get('fused'), cap.get('nccl_kernels')) for cap in res.graphs.captures]}")
+    sec, it = res.seconds, int(res.ts.step)
+    curves = int(res.ts.alive.sum())
+    every = [None] * n
+    dist.all_gather_object(every, curves)
+    print(f"{n}-rank driver: {it} iterations, {it / sec['train']:.3f} it/s, "
+          f"{CARDS_VIEWS * it / sec['train']:.3f} views/s (host clock over train_scene), "
+          f"{chunks[0]} chunks each replicated bitwise; fused step "
+          f"{res.graphs.fused_step_ms:.3f} ms device over {res.graphs.fused_steps} (captures "
+          f"{len(res.graphs.captures)}, NCCL "
+          f"kernels {[cap['nccl_kernels'] for cap in res.graphs.captures]}); peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; final curves on the ranks "
+          f"{every}; host seconds by phase " + ", ".join(
+              f"{k} {v:.3f}" for k, v in sec.items() if k != "train"), flush=True)
+    if it != a.iterations or len(set(every)) != 1:
+        fail(f"the {n}-rank driver did not end at its last iteration with one curve count")
+    if rank == 0:
+        if writes.paths.count("driver/eval.json") != 1:
+            fail(f"rank 0 wrote eval.json {writes.paths.count('driver/eval.json')} times")
+        with open(os.path.join(run_dir, "eval.json")) as fh:
+            ev = json.load(fh)
+        with open(os.path.join(run_dir, "metrics.jsonl")) as fh:
+            totals = [json.loads(line).get("total") for line in fh]
+        totals = [t for t in totals if t is not None]
+        print(f"{n}-rank driver: logged loss first {totals[0]:.5f} last {totals[-1]:.5f}; "
+              f"chamfer {ev['chamfer']:.5f}, F@0.01 {ev['fscore_0.01']:.4f}; rank 0 wrote "
+              f"{len(writes.paths)} files", flush=True)
+        if not (np.isfinite(totals).all() and np.isfinite(list(ev.values())).all()):
+            fail(f"the {n}-rank driver's losses or eval.json are not finite")
+    elif writes.paths:
+        fail(f"rank {rank} wrote {writes.paths}")
+
+    # -- f. render_curves over the N ranks ---------------------------------------------------
+    edges = os.path.join(run_dir, "parametric_edges.json")
+    writes.paths.clear()
+    writes.on = True
+    tp, c = run_path(f"render_curves --n-devices {n}", lambda: RV.render_curves(
+        ["--edges", edges, "--out", os.path.join(CARDS_DIR, "curves"), "--n-devices", str(n),
+         "--device", str(dev), "--dist-backend", "nccl"], quiet=True), ("tile_blend_fwd",))
+    writes.on = False
+    n_frames = len(tp["sha256"])
+    warm = check_render_graphs(f"render_curves --n-devices {n}", tp["graphs"], n_frames)
+    k3_dev = device_launches(c, tp["graphs"])["tile_blend_fwd"]
+    launches["tile_blend_fwd"] = k3_dev
+    nccl = [cap.get("nccl_kernels", 0) for cap in tp["graphs"].captures]
+    if k3_dev != n_frames + warm or bool(writes.paths) != (rank == 0) or min(nccl) < 1:
+        fail(f"render_curves --n-devices {n} launched K3 {k3_dev} times on the device for "
+             f"{n_frames} frames, its captures hold {nccl} NCCL kernels, rank {rank} wrote "
+             f"{len(writes.paths)} files")
+    if rank == 0:
+        one_img = RV.render_curves(["--edges", edges, "--out", os.path.join(CARDS_DIR,
+                                                                          "curves_one"),
+                                    "--device", str(dev)], quiet=True)
+        same = sum(x == y for x, y in zip(tp["sha256"], one_img["sha256"]))
+        print(f"render_curves --n-devices {n} (each rank's band and the sum one captured "
+              f"graph, NCCL kernels {nccl}): {n_frames} frames, "
+              f"{np.mean(tp['render_seconds'][1:]) * 1e3:.3f} ms host a frame after the first "
+              f"against {np.mean(one_img['render_seconds'][1:]) * 1e3:.3f} on one process; "
+              f"frames bitwise equal to one process (SHA-256) {same} of {n_frames}", flush=True)
+        if same != n_frames:
+            fail(f"render_curves over {n} ranks is not bitwise one process's")
+    dist.barrier()
+
+    # -- g. the dry run ----------------------------------------------------------------------
+    line = DRY.dryrun_multichip(n, dev)
+    if rank == 0:
+        print(line, flush=True)
+    with open(os.path.join(CARDS_DIR, f"rank{rank}.json"), "w") as f:
+        json.dump({"launches": launches}, f)
+    dist.barrier()
+    print(f"rank {rank} done in {time.time() - t_start:.1f} s", flush=True)
+    dist.destroy_process_group()
+
+
 def small_check():
     """One step_grads on the card and on the CPU, float32, small scene."""
     H = W = 96
@@ -2567,5 +2941,12 @@ def profile_step(run, steps: int, label: str):
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--rank"]:
         rank_main(int(sys.argv[2]))
+    elif sys.argv[1:2] == ["--cards"]:
+        if len(sys.argv) < 3 or not sys.argv[2].isdigit():
+            fail("--cards takes the number of cards: 2 or 4")
+        if sys.argv[3:4] == ["--rank"]:
+            cards_rank_main(int(sys.argv[2]), int(sys.argv[4]))
+        else:
+            cards_main(int(sys.argv[2]))
     else:
         main()

@@ -20,8 +20,10 @@ it is held against.  The same body (``run_chunk``) takes B views a step
 for ``parallel/sharding.py::parallel_train_steps_scan``: its tables hold
 B stack rows a step, and the step function gets the B views stacked.  A
 step whose ranks exchange sums (``StagedStep``, the B-view step over more
-than one device) runs as two captured graphs with the exchange eager
-between them.
+than one device) is captured whole, its collectives inside the graph, when
+the process group can capture them (NCCL, a card per rank:
+``parallel/multihost.py::captures_collectives``); otherwise (gloo) it runs
+as two captured graphs with the exchange eager between them.
 
 The compiled render: ``eval_renders``, the counterpart of the JAX
 package's jitted ``eval_render`` called once per view, renders many views
@@ -50,7 +52,8 @@ from ..ops import rasterize_cuda, ssim_cuda, tile_blend_cuda
 from ..ops.camera import Camera
 from ..ops.projection import intrinsics
 from ..ops.render import _flavor, render
-from . import optim
+from ..parallel import multihost
+from . import graph_nodes, optim
 
 
 @dataclasses.dataclass
@@ -403,9 +406,11 @@ class StagedStep(NamedTuple):
     (without ``lr_row``) and returns the tensors to exchange, ``exchange``
     reduces them across the ranks in place, and ``update(ts, tensors,
     opt_cfg, (H, W), use_exposure, lr_row)`` returns (new TrainState,
-    metrics).  Called, it runs the three in turn.  On CUDA tensors
-    ``StepGraphs`` captures ``local`` and ``update`` as two graphs and runs
-    ``exchange`` eagerly between their replays."""
+    metrics).  Called, it runs the three in turn: the fused body, which
+    ``StepGraphs`` captures as one graph when the group can capture its
+    collectives.  Otherwise ``StepGraphs`` captures ``local`` and
+    ``update`` as two graphs and runs ``exchange`` eagerly between their
+    replays (the staged form)."""
 
     local: Callable
     exchange: Callable
@@ -446,9 +451,11 @@ class _Graphs:
     ``captures`` records each capture: what the caller put in it, the host
     seconds of its warm-up (to the end of its device work), capture and
     instantiation and their sum, the launches the kernel wrappers counted
-    while it was captured, and its replays.  The wrappers' counters are
-    host counters: they count a captured launch once however often the
-    graph replays it, and the warm-up's launches as eager ones."""
+    while it was captured, and its replays; a capture of collectives also
+    the NCCL kernel nodes its graphs hold (``nccl_kernels``).  The
+    wrappers' counters are host counters: they count a captured launch once
+    however often the graph replays it, and the warm-up's launches as eager
+    ones."""
 
     def __init__(self):
         self.captures: List[dict] = []
@@ -474,7 +481,8 @@ class _Graphs:
                 out[k] = out.get(k, 0) + n * c["replays"]
         return out
 
-    def _capture_stages(self, dev, warm, stages, load, record: dict):
+    def _capture_stages(self, dev, warm, stages, load, record: dict,
+                        collectives: bool = False):
         """Load the buffers (`load`, on the current stream), warm up on a
         side stream that waits for the current one (`warm`: the eager body),
         capture each of `stages` there in turn, and instantiate them;
@@ -483,7 +491,12 @@ class _Graphs:
         fails raises.  ``capture_begin``/``capture_end`` in place of the
         ``torch.cuda.graph`` context, which empties the allocator's cache
         first: after the test renders that cache holds seconds of
-        ``cudaFree``s, and the graph's pool needs none of it."""
+        ``cudaFree``s, and the graph's pool needs none of it.
+
+        With `collectives` the stages hold NCCL collectives: the warm-up's
+        eager ones have formed the communicator, the capture refuses unsafe
+        calls from this thread only (NCCL's watchdog thread polls its events
+        meanwhile), and the graphs must hold NCCL kernels, or this raises."""
         t = [time.time()]
         with torch.cuda.device(dev):
             load()
@@ -500,7 +513,8 @@ class _Graphs:
                 graphs = []
                 for stage in stages:
                     graph = torch.cuda.CUDAGraph(keep_graph=True)
-                    graph.capture_begin(pool=self._pool)
+                    graph.capture_begin(pool=self._pool, capture_error_mode=(
+                        "thread_local" if collectives else "global"))
                     try:
                         result = stage()
                     finally:
@@ -508,6 +522,10 @@ class _Graphs:
                     graphs.append(graph)
                 after = _launch_counts()
                 t.append(time.time())
+                if collectives:
+                    record["nccl_kernels"] = sum(graph_nodes.nccl_kernels(g) for g in graphs)
+                    if not record["nccl_kernels"]:
+                        raise RuntimeError("a capture of collectives holds no NCCL kernel")
                 for graph in graphs:
                     graph.instantiate()
             torch.cuda.current_stream(dev).wait_stream(self._stream)
@@ -525,6 +543,7 @@ class _Graph:
     names: List[str]  # the metric row's
     record: dict
     exchanged: Optional[tuple] = None  # a staged step's: the local graph's outputs
+    fused: bool = False  # a StagedStep captured whole, its collectives inside
 
 
 class StepGraphs(_Graphs):
@@ -541,23 +560,62 @@ class StepGraphs(_Graphs):
     and keeps the records.  ``step`` is the step function the body runs,
     ``train_step`` unless the caller wraps it or gives the view-batched
     step (``parallel/sharding.py::batch_step``, whose chunk is
-    ``parallel_train_steps_scan``).  A ``StagedStep`` (the B-view step of
-    more than one rank) is captured as two graphs, its local work and its
-    update, and its ``exchange`` runs eagerly between their replays; its
-    host seconds (which include the wait for the local graph's device work
-    where the collective copies through host memory) add up in
-    ``exchange_seconds`` over ``exchanges`` calls.
+    ``parallel_train_steps_scan``).
+
+    A ``StagedStep`` (the B-view step of more than one rank) takes one of
+    two forms, chosen by ``fuses``.  Fused (an NCCL group, a card per rank:
+    ``multihost.captures_collectives``), its three stages are one body
+    captured as one graph, the two collectives inside it, replayed through
+    the chunk with nothing on the host between the replays; CUDA events
+    around each chunk's replays add up their device time in
+    ``fused_seconds`` over ``fused_steps``.  Staged (gloo, whose
+    collectives cannot be captured), it is captured as two graphs, its
+    local work and its update, and its ``exchange`` runs eagerly between
+    their replays; the exchanges' host seconds (which include the wait for
+    the local graph's device work where the collective copies through host
+    memory) add up in ``exchange_seconds`` over ``exchanges`` calls.  The
+    form never changes on a failure: a capture that fails raises.
 
     ``captures`` records each capture (``_Graphs``) with its capacities,
     views and flags."""
 
-    def __init__(self, step=None):
+    def __init__(self, step=None, fused: Optional[bool] = None):
+        """`fused` None takes the form ``multihost.captures_collectives``
+        picks for the initialized group; True or False fixes it (to hold the
+        two forms against each other)."""
         super().__init__()
         self.step = step if step is not None else train_step
+        self.fused = fused
         self.exchange_seconds = 0.0
         self.exchanges = 0
+        self._timings: List[tuple] = []  # (start, end event, replays) of each fused chunk
         self._graphs: Dict[tuple, _Graph] = {}
         self._sizes = self._bufs = None
+
+    def fuses(self) -> bool:
+        """Whether a ``StagedStep`` is captured whole (the fused form)."""
+        if not isinstance(self.step, StagedStep):
+            return False
+        return self.fused if self.fused is not None else multihost.captures_collectives()
+
+    @property
+    def fused_steps(self) -> int:
+        return sum(k for _, _, k in self._timings)
+
+    @property
+    def fused_seconds(self) -> float:
+        """Device seconds of the fused graphs' replays (CUDA events around
+        each chunk's replays); waits for the last of them."""
+        total = 0.0
+        for start, end, _ in self._timings:
+            end.synchronize()
+            total += start.elapsed_time(end) / 1e3
+        return total
+
+    @property
+    def fused_step_ms(self) -> Optional[float]:
+        """Device milliseconds a fused step, or None where none ran."""
+        return self.fused_seconds / self.fused_steps * 1e3 if self.fused_steps else None
 
     def exchange(self, bufs) -> None:
         """The staged step's exchange, timed on the host clock."""
@@ -570,7 +628,7 @@ class StepGraphs(_Graphs):
                    opacity_frozen: bool) -> List[str]:
         """One step of the chunk eagerly, through the same bodies (and the
         same stages) as its graphs."""
-        if not isinstance(self.step, StagedStep):
+        if not isinstance(self.step, StagedStep) or self.fuses():
             return _step_body(b, self.step, args, stepno, count, opacity_frozen)
         bufs = _stage_local(b, self.step, args, stepno, count, opacity_frozen)
         self.exchange(bufs)
@@ -601,7 +659,8 @@ class StepGraphs(_Graphs):
             self._bufs = _Buffers(ts, stacks, max(rows, MIN_CHUNK), views)
         return self._bufs
 
-    def _capture(self, key: tuple, warm, stages, load, record: dict) -> _Graph:
+    def _capture(self, key: tuple, warm, stages, load, record: dict,
+                 fused: bool = False) -> _Graph:
         """``_capture_stages`` with ``WARMUP_STEPS`` eager steps (`warm`) for
         the warm-up; the last of `stages` returns the metric names."""
         def warm_steps():
@@ -609,8 +668,8 @@ class StepGraphs(_Graphs):
                 warm()
 
         graphs, names = self._capture_stages(self._bufs.counter.device, warm_steps, stages,
-                                             load, record)
-        self._graphs[key] = g = _Graph(graphs, names, record)
+                                             load, record, collectives=fused)
+        self._graphs[key] = g = _Graph(graphs, names, record, fused=fused)
         return g
 
 
@@ -723,8 +782,9 @@ def run_chunk(ts: TrainState, cam_arrays, gts: torch.Tensor, bg, opt_cfg: Optimi
         if g is None:
             step0, count0 = ts.step, ts.opt.count
             step = graphs.step
+            fused = graphs.fuses()
             held = {}
-            if isinstance(step, StagedStep):
+            if isinstance(step, StagedStep) and not fused:
                 def local():
                     held["bufs"] = _stage_local(b, step, args, step0, count0, frozen)
 
@@ -737,14 +797,20 @@ def run_chunk(ts: TrainState, cam_arrays, gts: torch.Tensor, bg, opt_cfg: Optimi
                 lambda: b.load(ts, stacks, tables, n_act),
                 dict(capacity=ts.alive.shape[0], tile_capacity=pipe_cfg.tile_capacity,
                      big_capacity=pipe_cfg.big_capacity, views=views, use_mask=use_mask,
-                     conn_on=conn_on, use_exposure=use_exposure))
+                     conn_on=conn_on, use_exposure=use_exposure, fused=fused), fused)
             g.exchanged = held.get("bufs")
         b.load(ts, stacks, tables, n_act)
+        if g.fused:
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
         for _ in range(k):
             g.graphs[0].replay()
             if g.exchanged is not None:
                 graphs.exchange(g.exchanged)
                 g.graphs[1].replay()
+        if g.fused:
+            end.record()
+            graphs._timings.append((start, end, k))
         g.record["replays"] += k
         names = g.names
 
@@ -906,7 +972,8 @@ class RenderGraphs(_Graphs):
 
 
 def render_views(fn, inputs: Dict[str, torch.Tensor], stacks, geom, views, baked: tuple,
-                 graphs: Optional[RenderGraphs] = None, stacked: bool = False):
+                 graphs: Optional[RenderGraphs] = None, stacked: bool = False,
+                 collectives: bool = False):
     """Render the stack rows `views` one at a time, the counterpart of a
     jitted render called once per view; yields (buffers, fn's dict) after
     each view, in order.
@@ -926,7 +993,10 @@ def render_views(fn, inputs: Dict[str, torch.Tensor], stacks, geom, views, baked
     None) and replayed once per view: the host copies the inputs, stacks
     and rows in once, then does nothing but replay.  The dict yielded is
     the graph's own output, rewritten by the next replay.  A capture that
-    fails raises.  On CPU tensors the same body runs eagerly."""
+    fails raises.  With `collectives` fn runs NCCL collectives, which the
+    capture takes in (``_Graphs._capture_stages``): every rank of the group
+    must render the same views in the same order.  On CPU tensors the same
+    body runs eagerly."""
     views = list(views)
     n, V = len(views), stacks[0].shape[0]
     if n < 1:
@@ -951,7 +1021,7 @@ def render_views(fn, inputs: Dict[str, torch.Tensor], stacks, geom, views, baked
         record = dict(baked=baked, views=n, height=geom[0], width=geom[1])
         (graph,), out = graphs._capture_stages(
             dev, lambda: _render_view(b, fn, geom), [lambda: _render_view(b, fn, geom)],
-            lambda: b.load(inputs, stacks, views), record)
+            lambda: b.load(inputs, stacks, views), record, collectives)
         r = graphs._held[key] = _Render(b, graph, out, record)
     r.bufs.load(inputs, stacks, views)
     for _ in views:

@@ -3,6 +3,7 @@
 driver's cycle on a tiny problem over the N ranks of a process group.
 
     python -m curve_gaussian_tpu_torch.parallel.dryrun --n 2 --backend gloo --device cpu
+    python -m curve_gaussian_tpu_torch.parallel.dryrun --n 4 --backend nccl --device cuda
     python -m curve_gaussian_tpu_torch.parallel.dryrun --n 2 --backend gloo --device cuda:0
 
 Run as above, the script starts the N ranks itself (``multihost.run_ranks``,
@@ -12,8 +13,12 @@ Each rank runs ``dryrun_multichip(N)``: one step, a chunk, the surgery of
 ``densify_until_iter``, extraction and repacking at a smaller capacity and
 one more chunk, a checkpoint round trip (bitwise), one step from the
 restored state and the tile-parallel render; rank 0 prints one line naming
-the stages.  ``--device cuda`` puts rank r on ``cuda:r``; a named device
-holds every rank (``gloo`` then, which NCCL would refuse).
+the stages.  ``--backend nccl --device cuda`` puts rank r on ``cuda:r``,
+one card per rank, and the chunks and the render run through the captured
+graphs with their collectives inside (``multihost.captures_collectives``);
+it raises with fewer cards than ranks.  A named device holds every rank,
+with ``gloo`` (which NCCL would refuse): its graphs run the collectives
+eagerly between their replays.
 """
 from __future__ import annotations
 
@@ -30,7 +35,7 @@ import torch.distributed as dist
 from ..config import OptimizationConfig, PipelineConfig
 from ..data import synthetic
 from ..engine import checkpoint as ckpt_mod
-from ..engine.train import _state_leaves, init_train_state
+from ..engine.train import _state_leaves, camera_stacks, init_train_state
 from ..models import curve_state as cs
 from ..models import surgery
 from . import multihost
@@ -119,11 +124,18 @@ def dryrun_multichip(n_devices: int, device="cuda") -> str:
     if mesh.size > 1 and not replicated(ts4):
         raise RuntimeError("the ranks' states differ")
 
+    # the render through its captured graph (on the card), against the eager one
     c0 = cams[0]
     img = ps.tile_parallel_render(ts4, (c0.world_to_cam, c0.full_proj, c0.cam_center), geom,
                                   pipe_cfg, 0.0, mesh.shape, n_gaussians=8)
+    with torch.no_grad():
+        gauss = cs.gaussians(cs.curve_state_of(ts4))
+    (replayed,) = ps.tile_parallel_renders(gauss, camera_stacks([c0], torch.float32, mesh.device),
+                                           geom, pipe_cfg, 0.0, mesh.shape, [0])
     if tuple(img.shape) != (c0.height, c0.width) or not bool(torch.isfinite(img).all()):
         raise RuntimeError(f"tile-parallel render: shape {tuple(img.shape)}")
+    if not torch.equal(replayed, img):
+        raise RuntimeError("tile-parallel render: the graphed render differs from the eager one")
     return (f"dryrun_multichip({n_devices}): loss={total:.5f} stages OK: step, scan-chunk, "
             "surgery, capacity-rebucket, checkpoint-roundtrip, tile-parallel-render")
 

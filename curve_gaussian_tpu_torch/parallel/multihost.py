@@ -13,9 +13,17 @@ The group is described by ``CGT_NUM_PROCESSES``, ``CGT_COORDINATOR``
 and ``CGT_PROCESS_ID``, or by torchrun's ``WORLD_SIZE``, ``RANK``,
 ``MASTER_ADDR`` and ``MASTER_PORT``.  The backend is ``nccl`` for CUDA
 devices and ``gloo`` for the CPU unless the caller names one; a backend
-that cannot start raises, and no other is tried.  NCCL refuses two ranks on
-one card, so ranks that share a card take ``gloo``.  Every collective and
-the rendezvous time out after ``TIMEOUT_S``.
+that cannot start raises, and no other is tried.  NCCL takes one card per
+rank: rank r of a host runs on ``cuda:LOCAL_RANK``, made the current device
+before NCCL starts, and a group that asks NCCL for more ranks on a host
+than it has cards raises.  Ranks that share a card (and the CPU) take
+``gloo``.  Every collective and the rendezvous time out after
+``TIMEOUT_S``.
+
+``captures_collectives`` says which form a multi-rank step and a
+tile-parallel render take on the card: with NCCL, one CUDA graph with the
+collectives captured inside it; with gloo, whose collectives cannot be
+captured, graphs with the collectives run eagerly between their replays.
 
 ``run_ranks`` starts the ranks of a group on this machine as processes and
 waits for them with a deadline; a rank that fails or outlives it ends them
@@ -87,11 +95,53 @@ def initialize_distributed(coordinator_address: Optional[str] = None,
                            "(host:port or an init_method URL) or launch with torchrun")
     if backend is None:
         backend = "nccl" if torch.device(device).type == "cuda" else "gloo"
+    kw = {}
+    if backend == "nccl":  # one card per rank, current before NCCL starts
+        _check_nccl_cards(_env_int("LOCAL_WORLD_SIZE", default=num))
+        dev = torch.device(device)
+        if dev.type != "cuda" or dev.index is None:
+            dev = torch.device("cuda", _env_int("LOCAL_RANK", default=rank))
+        torch.cuda.set_device(dev)
+        kw["device_id"] = dev  # the communicator forms now, not at the first collective
     dist.init_process_group(backend,
                             init_method=addr if "://" in addr else f"tcp://{addr}",
                             world_size=num, rank=rank,
-                            timeout=datetime.timedelta(seconds=timeout_s))
+                            timeout=datetime.timedelta(seconds=timeout_s), **kw)
     return rank
+
+
+def local_ranks() -> int:
+    """The initialized group's ranks on this host: torchrun's
+    ``LOCAL_WORLD_SIZE``, else every rank (this package's launchers start a
+    group on one host)."""
+    return _env_int("LOCAL_WORLD_SIZE", default=group_size())
+
+
+def _check_nccl_cards(ranks: int) -> None:
+    cards = torch.cuda.device_count()
+    if ranks > cards:
+        raise RuntimeError(
+            f"NCCL takes one card per rank: {ranks} ranks on this host and {cards} CUDA "
+            "card(s); launch at most one rank per card, or take the gloo backend for ranks "
+            "that share a card")
+
+
+def captures_collectives() -> bool:
+    """Whether a multi-rank step and a tile-parallel render capture their
+    collectives inside their CUDA graphs: true when the initialized group
+    has more than one rank and is NCCL's, each rank on a card of its own;
+    false for gloo (its collectives cannot be captured) and without a
+    group.  Raises for an NCCL group with more ranks on this host than
+    cards."""
+    if group_size() == 1 or dist.get_backend() != "nccl":
+        return False
+    _check_nccl_cards(local_ranks())
+    return True
+
+
+def nccl_version() -> str:
+    """The version of the NCCL that PyTorch runs, as ``major.minor.patch``."""
+    return ".".join(str(v) for v in torch.cuda.nccl.version())
 
 
 def shard_scans(scans: Sequence[str], process_id: int, num_processes: int) -> List[str]:
@@ -152,8 +202,9 @@ def global_mesh(axis: str = "data", device="cuda") -> Mesh:
 
 def rank_device(device="cuda") -> torch.device:
     """This rank's device for an entry point's ``--device``: a bare
-    ``cuda`` is ``cuda:LOCAL_RANK`` when there is more than one process (a
-    named device holds every rank; that is how one card holds two)."""
+    ``cuda`` is ``cuda:LOCAL_RANK`` when there is more than one process.  A
+    named device holds every rank: that is how ranks of a gloo group share
+    one card (NCCL refuses two ranks on one card)."""
     dev = resolve_device(device)
     if dev.type == "cuda" and dev.index is None and world_size() > 1:
         dev = torch.device("cuda", _env_int("LOCAL_RANK", "CGT_PROCESS_ID", "RANK", default=0))

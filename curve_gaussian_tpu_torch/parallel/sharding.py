@@ -30,20 +30,25 @@ its collectives there.
 
 On CUDA tensors ``parallel_train_steps_scan`` captures the step as CUDA
 graphs per shape key and replays them through the chunk
-(``engine/train.py::StepGraphs``): the whole B-view step as one graph at
-one device; at more, a graph of the local sums and a graph of the update,
-with the collectives run eagerly between their replays (a gloo collective
-cannot be captured, and NCCL, which can, refuses two ranks on one card).
-On CPU tensors the same bodies run eagerly.
+(``engine/train.py::StepGraphs``).  At one device the whole B-view step is
+one graph.  At more, over NCCL with a card per rank
+(``multihost.captures_collectives``), the whole step is one graph too, the
+two collectives captured inside it between the local sums and the update:
+the counterpart of the JAX package's one compiled data-parallel chunk.
+Over gloo (ranks that share a card), whose collectives cannot be captured,
+it is a graph of the local sums and a graph of the update, with the
+collectives run eagerly between their replays.  On CPU tensors the same
+bodies run eagerly.
 
 ``tile_parallel_render`` renders one view with its tile rows split across
 the ranks: each bins and blends (K3) only its band of rows, and the bands
 are summed into the full image on every rank.  ``tile_parallel_renders``,
 the counterpart of the JAX ``render_tp`` jit of ``render_curves
 --n-devices``, renders many views of one Gaussian set so: on CUDA tensors
-each rank's band (everything before the sum) is one captured CUDA graph
-(``engine/train.py::render_views``) replayed once per view, and the sum
-runs eagerly between the replays.
+each rank's band is one captured CUDA graph per key
+(``engine/train.py::render_views``) replayed once per view, the sum
+captured inside it over NCCL and run eagerly between the replays over
+gloo.
 """
 from __future__ import annotations
 
@@ -63,7 +68,7 @@ from ..ops.rasterize_cuda import stack_fields
 from ..ops.rasterize_ref import TILE_H
 from ..ops.render import main_axis_allmap
 from ..ops.tile_blend_cuda import tile_blend_fwd
-from .multihost import Mesh, check_ranks, group_mesh, group_size
+from .multihost import Mesh, captures_collectives, check_ranks, group_mesh, group_size
 
 
 def make_mesh(n_devices: Optional[int] = None, axis: str = "data", device="cuda") -> Mesh:
@@ -193,7 +198,9 @@ def _rank_sums(ts: TrainState, cams: Camera, gts: torch.Tensor, bg,
 
 
 def _exchange(bufs) -> None:
-    """The step's two collectives over the default group, in place."""
+    """The step's two collectives over the default group, in place: SUM,
+    then MAX.  Synchronous on the current stream, so that a capture of the
+    fused step takes them in."""
     dist.all_reduce(bufs[0], op=dist.ReduceOp.SUM)
     dist.all_reduce(bufs[1], op=dist.ReduceOp.MAX)
 
@@ -222,7 +229,10 @@ def _reduced_update(ts: TrainState, bufs, opt_cfg: OptimizationConfig, size,
 
 def batch_step(n_ranks: int):
     """The B-view step function of a mesh of `n_ranks`: ``_local_batch_step``
-    at one, the staged step (local sums, exchange, update) at more."""
+    at one; at more, a ``StagedStep`` (local sums, exchange, update), which
+    ``StepGraphs`` captures whole over NCCL (the fused form) and as two
+    graphs with the exchange eager between them over gloo (the staged
+    form)."""
     if n_ranks == 1:
         return _local_batch_step
     return StagedStep(local=_rank_sums, exchange=_exchange, update=_reduced_update)
@@ -355,18 +365,17 @@ def _sum_bands(img: torch.Tensor, n: int, H: int) -> torch.Tensor:
     return img[:H]
 
 
-def _band_image(gauss: dict, cam: Camera, pipe_cfg: PipelineConfig, bg, n: int,
-                rank: int) -> torch.Tensor:
-    """Rank `rank`'s band of the view in a zeroed image of N bands [N rows,
-    W]: the view preprocessed with the full camera, the means shifted by the
-    band's first row, its ``rows = ceil(H / (32 N)) * 32`` rows binned at
-    ``pipe_cfg.tile_capacity`` and blended with K3 at (geo, invd, ones) =
-    (T, T, T).  A band sorts its tiles with the whole image's packed key
-    (its depth resolution), so that near-equal depths blend in the
-    single-device render's order: the JAX function keys by the band's tile
-    count, and the reordered near-ties move the early stop of dense
-    pixels.  No host number is read from the device, and none is copied to
-    it, so a band can be captured."""
+def _band_inputs(gauss: dict, cam: Camera, pipe_cfg: PipelineConfig, n: int, rank: int):
+    """K3's inputs for rank `rank`'s band of the view over `n` ranks: (fields
+    at (geo, invd, ones) = (T, T, T), binning, the band's rows, its first
+    row).  The view is preprocessed with the full camera, the means shifted
+    by the band's first row, and its ``rows = ceil(H / (32 N)) * 32`` rows
+    binned at ``pipe_cfg.tile_capacity``.  A band sorts its tiles with the
+    whole image's packed key (its depth resolution), so that near-equal
+    depths blend in the single-device render's order: the JAX function keys
+    by the band's tile count, and the reordered near-ties move the early
+    stop of dense pixels.  No host number is read from the device, and none
+    is copied to it, so a band can be captured."""
     H, W = cam.height, cam.width
     rows = -(-H // (TILE_H * n)) * TILE_H
     xyz, quat, opacity = gauss["xyz"], gauss["quat"], gauss["opacity"]
@@ -381,7 +390,16 @@ def _band_image(gauss: dict, cam: Camera, pipe_cfg: PipelineConfig, bg, n: int,
                             key_tiles=nty * ntx)
     fields = stack_fields(local, torch.ones_like(opacity), allmap, geo=True, invd=True,
                           ones=True)
-    dt, dev = pre.mean2d.dtype, pre.mean2d.device
+    return fields, binning, rows, r0
+
+
+def _band_image(gauss: dict, cam: Camera, pipe_cfg: PipelineConfig, bg, n: int,
+                rank: int) -> torch.Tensor:
+    """Rank `rank`'s band of the view (``_band_inputs`` blended by K3) in a
+    zeroed image of N bands [N rows, W]."""
+    fields, binning, rows, r0 = _band_inputs(gauss, cam, pipe_cfg, n, rank)
+    W = cam.width
+    dt, dev = fields.dtype, fields.device
     bg_t = (bg.to(device=dev, dtype=dt).reshape(1) if torch.is_tensor(bg)
             else torch.full((1,), float(bg), dtype=dt, device=dev))
     band = tile_blend_fwd(fields, binning.gather_idx, binning.counts, bg_t, rows, W, True,
@@ -399,15 +417,20 @@ def tile_parallel_renders(gauss: dict, cam_stacks, geom, pipe_cfg: PipelineConfi
     geometry `geom` (H, W, tanfovx, tanfovy), the counterpart of the JAX
     ``render_tp`` jit; yields each view's [H, W] image in order, the same on
     every rank.  Each rank's band runs through ``render_views``: on CUDA
-    tensors one captured graph of `graphs` per key, replayed once per view,
-    with the SUM across the ranks eager between the replays (a gloo
-    collective cannot be captured); on CPU tensors eagerly."""
+    tensors one captured graph of `graphs` per key, replayed once per view.
+    Over NCCL (``multihost.captures_collectives``) the SUM across the ranks
+    is captured in that graph; over gloo, whose collectives cannot be
+    captured, it runs eagerly between the replays.  On CPU tensors
+    eagerly."""
     n, rank = _mesh_ranks(mesh_shape)
     bg = float(bg)
+    fused = n > 1 and captures_collectives()
 
     def band(g, cam):
-        return {"band": _band_image(g, cam, pipe_cfg, bg, n, rank)}
+        img = _band_image(g, cam, pipe_cfg, bg, n, rank)
+        return {"band": _sum_bands(img, n, geom[0]) if fused else img}
 
-    baked = ("tile_parallel", n, rank, pipe_cfg.tile_capacity, bg)
-    for _, out in T.render_views(band, gauss, cam_stacks, geom, views, baked, graphs):
-        yield _sum_bands(out["band"], n, geom[0]).clone()
+    baked = ("tile_parallel", n, rank, pipe_cfg.tile_capacity, bg, fused)
+    for _, out in T.render_views(band, gauss, cam_stacks, geom, views, baked, graphs,
+                                 collectives=fused):
+        yield (out["band"] if fused else _sum_bands(out["band"], n, geom[0])).clone()

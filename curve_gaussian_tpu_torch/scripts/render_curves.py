@@ -12,9 +12,10 @@ eagerly.  The cameras are an orbit (``ring_cameras``) or a NeRF-style
 ``transforms_video.json``.  Frames land in <out>/frames/ and are stitched
 to <out>/curves.mp4 when ffmpeg is installed.  With ``--n-devices N`` each
 frame is the tile-parallel render (``parallel/sharding.py::
-tile_parallel_renders``: each rank's band captured, the sum eager between
-the replays) over the N ranks of the process group (``torchrun
---nproc-per-node N``, as ``train.py`` runs), and rank 0 writes the frames.
+tile_parallel_renders``: each rank's band captured, with the sum inside
+the graph over NCCL and eager between the replays over gloo) over the N
+ranks of the process group (``torchrun --nproc-per-node N``, as
+``train.py`` runs), and rank 0 writes the frames.
 
     python -m curve_gaussian_tpu_torch.scripts.render_curves --edges <run>/parametric_edges.json
     python -m curve_gaussian_tpu_torch.scripts.render_curves --edges ... --device cpu --size 64
@@ -63,7 +64,9 @@ def parse_args(argv=None):
     p.add_argument("--device", default="cuda", help="torch device (default cuda)")
     p.add_argument("--dist-backend", default=None, choices=[None, "nccl", "gloo"],
                    help="torch.distributed backend with more than one process (default: "
-                        "nccl on CUDA, gloo on the CPU)")
+                        "nccl on CUDA, gloo on the CPU); nccl needs one card per rank and "
+                        "captures the collectives in the CUDA graphs, gloo is for ranks "
+                        "that share a card (or the CPU)")
     return p.parse_args(argv)
 
 

@@ -21,8 +21,11 @@ Under ``torchrun --nproc-per-node N`` (or the ``CGT_NUM_PROCESSES``,
 ``CGT_COORDINATOR``, ``CGT_PROCESS_ID`` variables) each process is a rank of
 one process group and ``--n-devices N`` splits each step's views over the
 ranks.  Each rank runs on ``cuda:LOCAL_RANK`` unless ``--device`` names a
-device, which then holds every rank (two ranks on one card need
-``--dist-backend gloo``: NCCL refuses them).  Only rank 0 writes files.
+device, which then holds every rank.  NCCL, the default on CUDA, takes one
+card per rank and captures each step's collectives inside its CUDA graph;
+ranks that share a card need ``--dist-backend gloo`` (NCCL refuses them),
+whose collectives run eagerly between two graphs a step.  Only rank 0
+writes files.
 """
 from __future__ import annotations
 
@@ -78,7 +81,9 @@ def parse_args(argv=None):
                         "split each step's views; more than the processes launched raises")
     p.add_argument("--dist-backend", default=None, choices=[None, "nccl", "gloo"],
                    help="torch.distributed backend with more than one process (default: "
-                        "nccl on CUDA, gloo on the CPU)")
+                        "nccl on CUDA, gloo on the CPU); nccl needs one card per rank and "
+                        "captures the collectives in the CUDA graphs, gloo is for ranks "
+                        "that share a card (or the CPU)")
     p.add_argument("--synthetic", action="store_true",
                    help="train on a generated synthetic curve scene")
     p.add_argument("--synthetic-seed", type=int, default=0)

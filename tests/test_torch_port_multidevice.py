@@ -14,7 +14,8 @@ one process:
 (b) against the port's own one-process B-view step: B = 2 over 2 ranks
     bitwise in float32 (a sum of two terms commutes), B = 4 within
     ``F64_TOL`` in float64, and a chunk of K = 3 steps with ``n_active`` =
-    2 both ways;
+    2 both ways; the fused step body (what the card captures as one graph
+    over NCCL) bitwise equal to the staged one over that chunk;
 (c) ``train_scene(n_devices=2, views_per_step=2)`` across surgery: the
     ranks' final states bitwise equal, the run equal to the one-process
     B = 2 run (view tables, curve counts after every event, logged
@@ -152,11 +153,16 @@ def _steps(inp, mesh):
         # exposure), B = 4 from per-step arrays (the JAX function's form)
         cams, gts = _cams(inp, torch.float32), torch.tensor(inp["gts"], dtype=torch.float32)
         rows = [mesh.block(r) for r in TABLE2]
-        ts, m = pps.parallel_train_steps_scan(
-            _port_ts(inp["s0"], torch.float32), pps.camera_batch_arrays(cams), gts, 0.0,
-            OptimizationConfig(), PipelineConfig(tile_capacity=TILE_K), mesh_shape=mesh.shape,
-            cam_geom=inp["geom"], n_active=N_ACTIVE, view_indices=rows, rows=rows, **kw)
-        out["chunk_B2"] = (_leaves(ts), _metrics(m))
+        # gloo picks the staged form; the fused body (what the card captures over NCCL)
+        # runs eagerly here with fused=True
+        for name, fused in (("chunk_B2", None), ("chunk_B2_fused", True)):
+            ts, m = pps.parallel_train_steps_scan(
+                _port_ts(inp["s0"], torch.float32), pps.camera_batch_arrays(cams), gts, 0.0,
+                OptimizationConfig(), PipelineConfig(tile_capacity=TILE_K),
+                mesh_shape=mesh.shape, cam_geom=inp["geom"], n_active=N_ACTIVE,
+                view_indices=rows, rows=rows,
+                graphs=ptrain.StepGraphs(pps.batch_step(RANKS), fused=fused), **kw)
+            out[name] = (_leaves(ts), _metrics(m))
         cams, gts = _cams(inp, torch.float64), torch.tensor(inp["gts"], dtype=torch.float64)
         vi = torch.tensor([mesh.block(r) for r in TABLE4])
         ts, m = pps.parallel_train_steps_scan(
@@ -460,6 +466,15 @@ def test_two_ranks_match_one_process(ranks, case):
     if case.startswith("chunk"):
         leaves, metrics = out[0][case]
         assert leaves["step"] == N_ACTIVE and all(v.shape == (3,) for v in metrics.values())
+
+
+def test_fused_body_equals_staged(ranks):
+    """(b): the fused step body (local sums, exchange and update as one
+    function) against the staged one over the chunk of K = 3 steps with
+    n_active = 2, bitwise on both ranks."""
+    out, _, _ = ranks
+    for r in out:
+        _assert_equal(r["chunk_B2_fused"], r["chunk_B2"])
 
 
 # ---------------------------------------------------------------------------
