@@ -1,9 +1,11 @@
 // Tile blend for Hopper (sm_90a): the training forward and moment backward
 // (K1, K2), the forward of every channel set (K3), the per-slot backward of
-// every field (K4), and the moment backward of the training channel set
-// written per slot (K5) or through a tile-local basis (K6b).  Plain C
-// interface, loaded with ctypes by curve_gaussian_tpu_torch/ops/
-// rasterize_cuda.py (K1, K2, K6b) and tile_blend_cuda.py (K3, K4, K5).
+// every field (K4), the moment backward of the training channel set written
+// per slot (K5, K2's kernel) or through a tile-local basis (K6b), and the
+// fixed-order slot -> Gaussian reduction of every backward's slot rows.
+// Plain C interface, loaded with ctypes by curve_gaussian_tpu_torch/ops/
+// rasterize_cuda.py (K1, K2, K6b, the reduction) and tile_blend_cuda.py
+// (K3, K4, K5).
 //
 // Replaces the Pallas kernels of curve_gaussian_tpu/ops/rasterize_pallas.py:
 //   K1  _make_fwd_train_paired (and its unpaired odd-width form
@@ -11,20 +13,20 @@
 //       the training channel set, here blend_train_fwd_kernel
 //   K2  _make_bwd_moment_rmw_paired (and the unpaired
 //       _make_bwd_moment_rmw_kernel): six moments per (Gaussian, tile)
-//       reduced into a [P1, 8] accumulator, here blend_train_bwd_kernel<F, F>
+//       reduced into a [P1, 8] accumulator, here blend_train_bwd_kernel<F>
+//       into slot rows [T, K, 8], then slot_reduce_kernel
 //   K3  _make_fwd_kernel(geo, invd, ones, indirect): compositing of the
 //       colour channel (ones or a per-splat colour), the inverse depth and
 //       the four allmap channels
 //   K4  _make_bwd_kernel(geo, invd, ones, indirect): the gradient of every
-//       field of every instance slot, added into a [T, K, NF] table
-//   K5  _make_bwd_moment_kernel(indirect=True): K2's six moments added per
-//       slot into a [T, K, 8] table, here blend_train_bwd_kernel<T, F>
+//       field of every instance slot, written into a [T, K, NF] table
+//   K5  _make_bwd_moment_kernel(indirect=True): K2's six moments per slot
+//       into a [T, K, 8] table: K2's kernel, blend_train_bwd_kernel<F>
 //   K6b _make_bwd_moment_rmw_basis_kernel (USE_BASIS_BWD): K2's six moments
-//       through six raw tile-local sums of D' per slot
-//       (blend_train_bwd_kernel<T, T>) and a binomial recombination per
-//       (instance, tile) (basis_recombine_kernel)
-// The slot -> Gaussian reduction of K4's and K5's tables is an index_add_
-// outside the kernels, as the JAX package leaves it to an XLA scatter-add.
+//       through six raw tile-local sums of D' per slot and a binomial
+//       recombination per (instance, tile), blend_train_bwd_kernel<T>
+// The slot -> Gaussian reduction, which the JAX package leaves to an XLA
+// scatter-add, is slot_reduce_kernel: it replaces no Pallas kernel.
 // The TPU layout is not copied: no tile pairing, no (8,128) register tiles,
 // no tiled outputs, no sub-group pipelining, no parking buffers or one-hot
 // MXU combiners, no [T, K, NF] payload table (the fields are read through
@@ -39,17 +41,24 @@
 // shared memory from fields[P1, NF] through gather_idx, one row per
 // thread, as float4 loads, and a block's loop ends at the first chunk
 // boundary where all its pixels are done (__syncthreads_or).  The kernels
-// are templated on the channel set or the moments' destination, so every
-// loop over channels unrolls and every choice folds at compile time.
+// are templated on the channel set or the moments' basis, so every loop
+// over channels unrolls and every choice folds at compile time.
 //
 // What bounds them: one expf per evaluated (instance, pixel) pair and each
 // pixel's serial chain, so instruction latency and throughput, not bytes
-// (a tile's fields are a few KB).  The backward kernels land one atomicAdd
-// per nonzero value of each (instance, quarter) that some pixel reached:
-// K2 into the Gaussian's row, K4 and K5 into the slot's row, K6b into the
-// slot's row of its raw sums and then once per (instance, tile) into the
-// Gaussian's row.  Up to four quarter blocks add into one row, so the last
-// bits of every backward's sums vary from run to run.
+// (a tile's fields are a few KB).
+//
+// Every sum is taken in a fixed order, so the same inputs give the same
+// bits on every launch, as the TPU kernels' in-order grid does (the JAX
+// backward accumulates into an output slab that its grid revisits in order
+// on one core).  No float is added atomically.  A backward kernel sums a
+// value of an instance over its pixels in three fixed steps: over a warp's
+// 32 pixels by a shuffle tree (warp_sum), over the block's eight warps in
+// warp order (Partials), and over the tile's four quarter blocks in quarter
+// order, by the block that finishes last (last_quarter: each quarter
+// writes its rows to a scratch, an integer ticket per tile elects the
+// last).  slot_reduce_kernel then sums each Gaussian's slot rows in (tile,
+// slot) order, read from the binning's table of its slots.
 //
 // Built with -fmad=false so that the arithmetic rounds like the plain
 // PyTorch versions' separate elementwise operations; expf (not __expf).
@@ -128,10 +137,12 @@ __device__ __forceinline__ float power_of(float ca, float cb, float cc, float dx
 //   list is walked by four SMs with more warps each.  K1 needs no step
 //   across blocks.  The moment backward reduces a visited instance's six
 //   moments across the warp only when some lane contributed (9 shuffles:
-//   the sums transpose across the lanes), adds them into the block's
-//   shared row of the instance, and one thread per instance that some warp
-//   hit lands one atomicAdd per nonzero moment: atomics grow with the
-//   quarters an instance reaches, not four times.
+//   the sums transpose across the lanes) and writes them into the warp's
+//   shared row of the instance; at the end of a chunk one thread per
+//   instance sums the rows of the warps that hit it in warp order, and the
+//   tile's last quarter block sums the four quarters' rows in order.  Its
+//   chunks stage 128 instances, not 256, so that the eight warps' rows of a
+//   chunk fit in static shared memory beside the staged fields.
 //
 // What bounds them now: they evaluate 14% of the live pairs and run 4-6
 // times faster than the first design, yet stay ~40 times above the bytes
@@ -144,8 +155,13 @@ constexpr int CULL_NT = CULL_SUB * CULL_SUB;  // threads per block, one pixel ea
 constexpr int CULL_WW = 8;  // a warp's rectangle: CULL_WW columns, CULL_WH rows
 constexpr int CULL_WH = 32 / CULL_WW;
 constexpr int CULL_CHUNK = CULL_NT;  // instances staged per chunk, one per thread
+constexpr int NWARP = CULL_NT / 32;
 static_assert((CULL_SUB / CULL_WW) * (CULL_SUB / CULL_WH) * 32 == CULL_NT,
               "the warps' rectangles tile the quarter");
+
+// Instances a backward kernel stages per chunk with NV values per instance:
+// its warps' rows (Partials) take NWARP x chunk x NV floats of shared memory.
+__host__ __device__ constexpr int bwd_chunk(int nv) { return nv <= 8 ? 128 : 64; }
 
 constexpr float BOX_GROW = 1.001f;  // relative growth of the half-widths
 constexpr float BOX_PX = 1.0f;      // and absolute, in pixels
@@ -179,21 +195,23 @@ __device__ __forceinline__ void support_box(float mx, float my, float ca, float 
   }
 }
 
-// A chunk of a tile's list in shared memory: the six fields and the box.
+// A chunk of CH entries of a tile's list in shared memory: the six fields
+// and the box.
+template <int CH = CULL_CHUNK>
 struct Staged {
-  float mx[CULL_CHUNK], my[CULL_CHUNK], ca[CULL_CHUNK], cb[CULL_CHUNK], cc[CULL_CHUNK],
-      op[CULL_CHUNK];
-  float x0[CULL_CHUNK], x1[CULL_CHUNK], y0[CULL_CHUNK], y1[CULL_CHUNK];
+  static constexpr int N = CH;
+  float mx[CH], my[CH], ca[CH], cb[CH], cc[CH], op[CH];
+  float x0[CH], x1[CH], y0[CH], y1[CH];
 };
 
-// Stages list entry base + threadIdx.x when it is below n, from field rows
-// of NF floats; returns its Gaussian.
-template <int NF = 8>
-__device__ __forceinline__ int stage(Staged& s, const float* __restrict__ fields,
+// Stages list entry base + threadIdx.x when the thread is below the chunk
+// and the entry below n, from field rows of NF floats; returns its Gaussian.
+template <int NF = 8, int CH>
+__device__ __forceinline__ int stage(Staged<CH>& s, const float* __restrict__ fields,
                                      const int* __restrict__ ids, int base, int n) {
   const int i = threadIdx.x;
   const int j = base + i;
-  if (j >= n) return -1;
+  if (i >= CH || j >= n) return -1;
   const int id = ids[j];
   const float4* row = reinterpret_cast<const float4*>(fields) + (size_t)id * (NF / 4);
   const float4 a = row[0];
@@ -232,8 +250,8 @@ __device__ __forceinline__ Pixels pixels_of(int ntx) {
 // Calls visit(i) for each staged instance i < cnt whose box meets the
 // warp's rectangle, in list order, while some lane's pixel is live (visit
 // updates act).
-template <class Visit>
-__device__ __forceinline__ void walk(const Staged& s, int cnt, const Pixels& p, const bool& act,
+template <class S, class Visit>
+__device__ __forceinline__ void walk(const S& s, int cnt, const Pixels& p, const bool& act,
                                      Visit visit) {
   const int lane = threadIdx.x & 31;
   for (int g = 0; g < cnt; g += 32) {
@@ -302,7 +320,7 @@ blend_train_fwd_kernel(const float* __restrict__ fields, const int* __restrict__
                        const int* __restrict__ counts, const float* __restrict__ bg,
                        float* __restrict__ col, float* __restrict__ finT, int H, int W, int ntx,
                        int K) {
-  __shared__ Staged s;
+  __shared__ Staged<> s;
   const Pixels p = pixels_of(ntx);
   const float px = (float)p.gx, py = (float)p.gy;
   float T = 1.0f;
@@ -338,36 +356,143 @@ blend_train_fwd_kernel(const float* __restrict__ fields, const int* __restrict__
   }
 }
 
-// The moment backward of the training channel set: K2, K5 and K6b.  One
-// front-to-back pass carries T and the prefix pr += gc w, which gives
+// The fixed-order sums of the backward kernels.  A value of an instance
+// (one of NV per instance) is summed over a tile's pixels in three steps,
+// each in an order that no scheduling changes:
+// 1. over a warp's 32 pixels, by warp_sum6 / warp_sum (a shuffle tree);
+// 2. over the block's eight warps: each warp that hit the instance writes
+//    its sums into its own row of Partials, and at the end of the chunk one
+//    thread per instance adds the rows of the warps that hit it in warp
+//    order (end_chunk), into the quarter's column of a scratch
+//    qrows[T, 4, NV, K] (slot-minor, so that a warp's stores and loads of
+//    it are contiguous);
+// 3. over the tile's four quarter blocks: the block that finishes last,
+//    elected by an integer ticket per tile (last_quarter), adds the four
+//    quarters' rows in quarter order and writes the slot's row.
+// A quarter block that stops early writes zeros into its rows past the
+// chunk where it stopped (zero_rest), so every row below counts[tile] of
+// every quarter is written before the ticket.
+template <int NV, int CH>
+struct Partials {
+  float v[NWARP][CH][NV];
+  unsigned hit[CH];  // bit w: warp w wrote its row of the instance
+};
+
+// Before a chunk's walk (and its barrier): no warp has hit the instance yet.
+template <int NV, int CH>
+__device__ __forceinline__ void begin_chunk(Partials<NV, CH>& pt, int cnt) {
+  if (threadIdx.x < cnt) pt.hit[threadIdx.x] = 0u;
+}
+
+// In a warp's visit of instance i: lane l holds the warp's sum of value
+// l / spread (warp_sum's layout); the lanes l % spread == 0 write them.
+template <int NV, int CH>
+__device__ __forceinline__ void warp_row(Partials<NV, CH>& pt, int i, float r, int spread) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  if (lane % spread == 0 && lane / spread < NV) pt.v[warp][i][lane / spread] = r;
+  if (lane == 0) atomicOr(&pt.hit[i], 1u << warp);  // an integer OR: any order gives the same bits
+}
+
+// After a chunk's walk and a barrier: one thread per staged instance sums
+// the warps' rows in warp order into the quarter's row of the scratch.
+template <int NV, int CH>
+__device__ __forceinline__ void end_chunk(const Partials<NV, CH>& pt, float* __restrict__ qrows,
+                                          int tile, int K, int base, int cnt) {
+  const int i = threadIdx.x;
+  if (i >= cnt) return;
+  const unsigned h = pt.hit[i];
+  float* q = qrows + ((size_t)tile * 4 + (blockIdx.x & 3)) * NV * K + base + i;
+#pragma unroll
+  for (int c = 0; c < NV; ++c) {
+    float v = 0.0f;
+#pragma unroll
+    for (int w = 0; w < NWARP; ++w) {
+      if (h >> w & 1u) v = v + pt.v[w][i][c];
+    }
+    q[(size_t)c * K] = v;
+  }
+}
+
+// Zeros in the quarter's rows of list entries [from, n), which the block
+// did not reach.
+template <int NV>
+__device__ __forceinline__ void zero_rest(float* __restrict__ qrows, int tile, int K, int from,
+                                          int n) {
+  float* q = qrows + ((size_t)tile * 4 + (blockIdx.x & 3)) * NV * K;
+  for (int j = from + threadIdx.x; j < n; j += CULL_NT) {
+#pragma unroll
+    for (int c = 0; c < NV; ++c) q[(size_t)c * K + j] = 0.0f;
+  }
+}
+
+// Called by every thread of a quarter block once its rows are written:
+// true in the tile's last block to get here, which then reads the other
+// quarters' rows (their stores fenced before the ticket, its loads after).
+// tickets[T] is zeroed by the caller.
+__device__ __forceinline__ bool last_quarter(int* __restrict__ tickets, int tile) {
+  __shared__ bool s_last;
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) s_last = atomicAdd(tickets + tile, 1) == 3;
+  __syncthreads();
+  if (s_last) __threadfence();
+  return s_last;
+}
+
+// In the last quarter block: the sum of list entry j's NV values over the
+// four quarters, in quarter order (loads through L2: other SMs wrote them).
+template <int NV>
+__device__ __forceinline__ void quarter_sum(const float* __restrict__ qrows, int tile, int K,
+                                            int j, float (&v)[NV]) {
+  const float* q = qrows + (size_t)tile * 4 * NV * K + j;
+  const size_t quarter = (size_t)NV * K;
+#pragma unroll
+  for (int c = 0; c < NV; ++c) {
+    const float* qc = q + (size_t)c * K;
+    v[c] = ((__ldcg(qc) + __ldcg(qc + quarter)) + __ldcg(qc + 2 * quarter)) +
+           __ldcg(qc + 3 * quarter);
+  }
+}
+
+// The moment backward of the training channel set: K2 and K5 (<false>) and
+// K6b (<true>).  One front-to-back pass carries T and the prefix
+// pr += gc w, which gives
 // g_alpha = gc Ti + (base_inv + pr) / (1 - alpha), base_inv = -gtt finT - gc col,
 // and D' = g_alpha G.  Each instance's six moments (D', D'wx, D'wy, D'wx^2,
-// D'wx wy, D'wy^2) are summed over the pixels a quarter block covers and
-// added into a row of out:
-// - K2 (<SLOT = false>): wx, wy = dx, dy; the Gaussian's row of
-//   out = acc[P1, 8];
-// - K5 (<SLOT = true>): the same moments into the slot's row
-//   tile * K + base + i of out = mom[T, K, 8];
-// - K6b (<SLOT, BASIS = true>): wx, wy = the pixel's tile-local
-//   coordinates x' = x - 32 tx, y' = y - 32 ty (small integers, exact in
-//   float32, weights below 31^2 = 961), so the slot's row of out =
-//   sums[T, K, 8] gets the raw sums S0, Sx, Sy, Sxx, Sxy, Syy, which
-//   basis_recombine_kernel turns into K2's moments.
-// The caller zeroes out.
-template <bool SLOT, bool BASIS>
+// D'wx wy, D'wy^2) are summed over the tile's pixels in the fixed order
+// above into the slot's row tile * K + j of rows[T, K, 8] (columns 6-7 and
+// the rows past counts[tile] zero):
+// - K2 and K5: wx, wy = dx, dy, K2's moments;
+// - K6b: wx, wy = the pixel's tile-local coordinates x' = x - 32 tx,
+//   y' = y - 32 ty (small integers, exact in float32, weights below
+//   31^2 = 961), so the four quarters sum to the raw sums S0, Sx, Sy, Sxx,
+//   Sxy, Syy, which the last quarter block recombines around the
+//   instance's local centre (cx, cy) = mean - tile origin, since
+//   dx = cx - x' and dy = cy - y':
+//     M0 = S0, M1 = cx S0 - Sx, M2 = cy S0 - Sy,
+//     M3 = cx (cx S0 - 2 Sx) + Sxx, M4 = cx cy S0 - cx Sy - cy Sx + Sxy,
+//     M5 = cy (cy S0 - 2 Sy) + Syy.
+//   The recombination cancels terms up to ~31^2 times its result in
+//   float32, so it runs once per (instance, tile) on the whole tile's sums,
+//   as the plain version does, and not per quarter block; in global
+//   coordinates the weights would reach 511^2 and it would cancel the
+//   gradient away.  The TPU kernel's lane basis and sublane combiner
+//   matrices (two MXU dots) are layout: a thread here knows its pixel's
+//   (x', y').
+// qrows[T, 4, 6, K] is scratch, tickets[T] zeroed by the caller.
+template <bool BASIS>
 __global__ void __launch_bounds__(CULL_NT)
 blend_train_bwd_kernel(const float* __restrict__ fields, const int* __restrict__ gidx,
                        const int* __restrict__ counts, const float* __restrict__ col,
                        const float* __restrict__ finT, const float* __restrict__ gc,
-                       const float* __restrict__ gtt, float* __restrict__ out, int H, int W,
+                       const float* __restrict__ gtt, float* __restrict__ qrows,
+                       int* __restrict__ tickets, float* __restrict__ rows, int H, int W,
                        int ntx, int K) {
-  static_assert(SLOT || !BASIS, "K6b's raw sums go per slot");
-  __shared__ Staged s;
-  __shared__ int s_id[CULL_CHUNK];
-  __shared__ bool s_hit[CULL_CHUNK];
-  __shared__ float s_mom[CULL_CHUNK][6];
+  constexpr int CH = bwd_chunk(6);
+  __shared__ Staged<CH> s;
+  __shared__ Partials<6, CH> pt;
   const Pixels p = pixels_of(ntx);
-  const int lane = threadIdx.x & 31;
   const float px = (float)p.gx, py = (float)p.gy;
   const float lx = (float)(p.gx % TILE), ly = (float)(p.gy % TILE);  // BASIS: x', y'
   float T = 1.0f, pr = 0.0f, gcv = 0.0f, binv = 0.0f;
@@ -380,16 +505,12 @@ blend_train_bwd_kernel(const float* __restrict__ fields, const int* __restrict__
 
   const int n = counts[p.tile];
   const int* ids = gidx + (size_t)p.tile * K;
-  for (int base = 0; base < n; base += CULL_CHUNK) {
+  int base = 0;
+  for (; base < n; base += CH) {
     if (!__syncthreads_or(act)) break;  // also the barrier before restaging
-    const int cnt = min(CULL_CHUNK, n - base);
-    const int id = stage(s, fields, ids, base, n);
-    if (threadIdx.x < cnt) {
-      if (!SLOT) s_id[threadIdx.x] = id;
-      s_hit[threadIdx.x] = false;
-#pragma unroll
-      for (int q = 0; q < 6; ++q) s_mom[threadIdx.x][q] = 0.0f;
-    }
+    const int cnt = min(CH, n - base);
+    stage(s, fields, ids, base, n);
+    begin_chunk(pt, cnt);
     __syncthreads();
     walk(s, cnt, p, act, [&](int i) {
       const float dx = s.mx[i] - px;
@@ -426,66 +547,76 @@ blend_train_bwd_kernel(const float* __restrict__ fields, const int* __restrict__
           }
         }
       }
-      if (__any_sync(0xffffffffu, hit)) {
-        const float v = warp_sum6(m);
-        if (lane < 24 && (lane & 3) == 0) atomicAdd(&s_mom[i][lane >> 2], v);
-        if (lane == 0) s_hit[i] = true;
-      }
+      if (__any_sync(0xffffffffu, hit)) warp_row(pt, i, warp_sum6(m), 4);
     });
     __syncthreads();
-    if (threadIdx.x < cnt && s_hit[threadIdx.x]) {
-      float* row = SLOT ? out + 8 * ((size_t)p.tile * K + base + threadIdx.x)
-                        : out + 8 * (size_t)s_id[threadIdx.x];
-#pragma unroll
-      for (int q = 0; q < 6; ++q) {
-        const float v = s_mom[threadIdx.x][q];
-        if (v != 0.0f) atomicAdd(row + q, v);
+    end_chunk(pt, qrows, p.tile, K, base, cnt);
+  }
+  zero_rest<6>(qrows, p.tile, K, base, n);
+  if (!last_quarter(tickets, p.tile)) return;
+
+  const float tx0 = (float)((p.tile % ntx) * TILE), ty0 = (float)((p.tile / ntx) * TILE);
+  for (int j = threadIdx.x; j < K; j += CULL_NT) {
+    float M[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+    if (j < n) {
+      quarter_sum(qrows, p.tile, K, j, M);
+      if (BASIS) {
+        const float S[6] = {M[0], M[1], M[2], M[3], M[4], M[5]};
+        const int id = ids[j];
+        const float cx = fields[8 * (size_t)id] - tx0;
+        const float cy = fields[8 * (size_t)id + 1] - ty0;
+        M[1] = cx * S[0] - S[1];
+        M[2] = cy * S[0] - S[2];
+        M[3] = cx * (cx * S[0] - 2.0f * S[1]) + S[3];
+        M[4] = cx * cy * S[0] - cx * S[2] - cy * S[1] + S[4];
+        M[5] = cy * (cy * S[0] - 2.0f * S[2]) + S[5];
       }
     }
+    float4* row = reinterpret_cast<float4*>(rows) + 2 * ((size_t)p.tile * K + j);
+    row[0] = make_float4(M[0], M[1], M[2], M[3]);
+    row[1] = make_float4(M[4], M[5], 0.0f, 0.0f);
   }
 }
 
-// K6b's second pass, one thread per listed slot (tile, j < counts[tile]):
-// the slot's raw sums recombined around the instance's local centre
-// (cx, cy) = mean - tile origin, since dx = cx - x' and dy = cy - y':
-//   M0 = S0, M1 = cx S0 - Sx, M2 = cy S0 - Sy,
-//   M3 = cx (cx S0 - 2 Sx) + Sxx, M4 = cx cy S0 - cx Sy - cy Sx + Sxy,
-//   M5 = cy (cy S0 - 2 Sy) + Syy,
-// each nonzero M added into the Gaussian's row of acc[P1, 8].  The
-// recombination cancels terms up to ~31^2 times its result in float32, so
-// it runs once per (instance, tile) on the whole tile's sums, as the plain
-// version does, and not per quarter block; in global coordinates the
-// weights would reach 511^2 and it would cancel the gradient away.  The
-// TPU kernel's lane basis and sublane combiner matrices (two MXU dots) are
-// layout: a thread here knows its pixel's (x', y').
-constexpr int RECOMB_NT = 256;
+// The slot -> Gaussian reduction of every backward's slot rows
+// rows[T * K, NF] (K2, K5 and K6b's moments, K4's field gradients), one
+// thread per Gaussian row of out[P1, NF]: Gaussian p < P adds the rows
+// slots[r, p] >= 0 for r = 0, 1, ..., R - 1, which the binning lists in
+// (tile, slot) order (a Gaussian holds at most one slot of a tile); rows
+// P .. P1 - 1 are zeros.  It replaces the index_add_ (an XLA scatter-add in
+// the JAX package) whose atomics add in no fixed order.  Bound by bytes:
+// the slot rows, the table and out, each touched once, at a few adds per
+// float; the rows a Gaussian reads are scattered, 32 or 64 bytes each.
+constexpr int REDUCE_NT = 256;
 
-__global__ void __launch_bounds__(RECOMB_NT)
-basis_recombine_kernel(const float* __restrict__ fields, const int* __restrict__ gidx,
-                       const int* __restrict__ counts, const float* __restrict__ sums,
-                       float* __restrict__ acc, int ntx, int K, int nslot) {
-  const int r = blockIdx.x * RECOMB_NT + threadIdx.x;  // the slot's row, tile * K + j
-  if (r >= nslot) return;
-  const int tile = r / K;
-  if (r - tile * K >= counts[tile]) return;
-  const float4* row = reinterpret_cast<const float4*>(sums) + 2 * (size_t)r;
-  const float4 a = row[0];
-  const float4 b = row[1];
-  const float S[6] = {a.x, a.y, a.z, a.w, b.x, b.y};
-  const int id = gidx[r];
-  const float cx = fields[8 * (size_t)id] - (float)((tile % ntx) * TILE);
-  const float cy = fields[8 * (size_t)id + 1] - (float)((tile / ntx) * TILE);
-  const float M[6] = {
-      S[0],
-      cx * S[0] - S[1],
-      cy * S[0] - S[2],
-      cx * (cx * S[0] - 2.0f * S[1]) + S[3],
-      cx * cy * S[0] - cx * S[2] - cy * S[1] + S[4],
-      cy * (cy * S[0] - 2.0f * S[2]) + S[5],
-  };
+template <int NF>
+__global__ void __launch_bounds__(REDUCE_NT)
+slot_reduce_kernel(const float* __restrict__ rows, const int* __restrict__ slots,
+                   float* __restrict__ out, int R, int P, int P1) {
+  const int g = blockIdx.x * REDUCE_NT + threadIdx.x;
+  if (g >= P1) return;
+  float acc[NF];
 #pragma unroll
-  for (int q = 0; q < 6; ++q) {
-    if (M[q] != 0.0f) atomicAdd(acc + 8 * (size_t)id + q, M[q]);
+  for (int c = 0; c < NF; ++c) acc[c] = 0.0f;
+  if (g < P) {
+    for (int r = 0; r < R; ++r) {
+      const int sl = slots[(size_t)r * P + g];
+      if (sl < 0) continue;
+      const float4* row = reinterpret_cast<const float4*>(rows) + (size_t)sl * (NF / 4);
+#pragma unroll
+      for (int k = 0; k < NF / 4; ++k) {
+        const float4 a = row[k];
+        acc[4 * k] = acc[4 * k] + a.x;
+        acc[4 * k + 1] = acc[4 * k + 1] + a.y;
+        acc[4 * k + 2] = acc[4 * k + 2] + a.z;
+        acc[4 * k + 3] = acc[4 * k + 3] + a.w;
+      }
+    }
+  }
+  float4* o = reinterpret_cast<float4*>(out) + (size_t)g * (NF / 4);
+#pragma unroll
+  for (int k = 0; k < NF / 4; ++k) {
+    o[k] = make_float4(acc[4 * k], acc[4 * k + 1], acc[4 * k + 2], acc[4 * k + 3]);
   }
 }
 
@@ -516,16 +647,16 @@ basis_recombine_kernel(const float* __restrict__ fields, const int* __restrict__
 // it stands), and d power = g_alpha opa G gives the conic and mean terms.
 // The derivative of alpha ignores the 0.99 clamp (d alpha / d opa = G).
 // A visited instance's NFIELD gradients are summed over the warp only when
-// some lane contributed (warp_sum), added into the block's shared row of
-// the instance, and one thread per instance that some warp hit adds each
-// nonzero value into its slot's row of dpay: up to four blocks (a tile's
-// quarters) add into one slot, so its float32 sum is taken in an order
-// that varies from run to run.
+// some lane contributed (warp_sum), then over the block's warps and the
+// tile's quarters in the fixed order of K2 (Partials, last_quarter) into
+// its slot's row of dpay.  Its chunks stage bwd_chunk(NFIELD) instances:
+// 128 up to eight gradients, 64 above, so that the warps' rows fit in
+// static shared memory.
 
 // Stages the channel fields of Gaussian id (none when id < 0) into
 // s_ch[a][threadIdx.x].
-template <class C>
-__device__ __forceinline__ void stage_channels(float (*s_ch)[CULL_CHUNK],
+template <class C, int CH>
+__device__ __forceinline__ void stage_channels(float (*s_ch)[CH],
                                                const float* __restrict__ fields, int id) {
   if (id < 0) return;
   const float* row = fields + (size_t)id * C::NF + 6;
@@ -542,7 +673,7 @@ tile_blend_fwd_kernel(const float* __restrict__ fields, const int* __restrict__ 
                       int H, int W, int ntx, int K) {
   using C = Chan<GEO, INVD, ONES>;
   constexpr int NA = C::NFIELD - 6;  // accumulated channels (ones colour derives from T)
-  __shared__ Staged s;
+  __shared__ Staged<> s;
   __shared__ float s_ch[C::NACC][CULL_CHUNK];
   const Pixels p = pixels_of(ntx);
   const float px = (float)p.gx, py = (float)p.gy;
@@ -555,7 +686,7 @@ tile_blend_fwd_kernel(const float* __restrict__ fields, const int* __restrict__ 
   const int* ids = gidx + (size_t)p.tile * K;
   for (int base = 0; base < n; base += CULL_CHUNK) {
     if (!__syncthreads_or(act)) break;  // also the barrier before restaging
-    stage_channels<C>(s_ch, fields, stage<C::NF>(s, fields, ids, base, n));
+    stage_channels<C, CULL_CHUNK>(s_ch, fields, stage<C::NF>(s, fields, ids, base, n));
     __syncthreads();
     walk(s, min(CULL_CHUNK, n - base), p, act, [&](int i) {
       if (!act) return;
@@ -613,18 +744,18 @@ tile_blend_bwd_kernel(const float* __restrict__ fields, const int* __restrict__ 
                       const float* __restrict__ invd, const float* __restrict__ finT,
                       const float* __restrict__ am, const float* __restrict__ gcol,
                       const float* __restrict__ ginvd, const float* __restrict__ gfin,
-                      const float* __restrict__ gam, float* __restrict__ dpay,
+                      const float* __restrict__ gam, float* __restrict__ qrows,
+                      int* __restrict__ tickets, float* __restrict__ dpay,
                       int H, int W, int ntx, int K) {
   using C = Chan<GEO, INVD, ONES>;
   constexpr int NCH = C::NCH;
   constexpr int NG = C::NFIELD;  // gradients per slot: the six geometry fields + channel fields
   constexpr int SPREAD = 32 / sum_pad(NG);  // lanes per value of warp_sum<NG>
-  __shared__ Staged s;
-  __shared__ float s_ch[C::NACC][CULL_CHUNK];
-  __shared__ bool s_hit[CULL_CHUNK];
-  __shared__ float s_g[CULL_CHUNK][NG];
+  constexpr int CH = bwd_chunk(NG);
+  __shared__ Staged<CH> s;
+  __shared__ float s_ch[C::NACC][CH];
+  __shared__ Partials<NG, CH> pt;
   const Pixels p = pixels_of(ntx);
-  const int lane = threadIdx.x & 31;
   const float px = (float)p.gx, py = (float)p.gy;
   float T = 1.0f, gt = 0.0f, ot = 0.0f, A[NCH], gch[NCH], och[NCH];
 #pragma unroll
@@ -652,16 +783,12 @@ tile_blend_bwd_kernel(const float* __restrict__ fields, const int* __restrict__ 
 
   const int n = counts[p.tile];
   const int* ids = gidx + (size_t)p.tile * K;
-  float* rows = dpay + (size_t)p.tile * K * C::NF;
-  for (int base = 0; base < n; base += CULL_CHUNK) {
+  int base = 0;
+  for (; base < n; base += CH) {
     if (!__syncthreads_or(act)) break;  // also the barrier before restaging
-    const int cnt = min(CULL_CHUNK, n - base);
-    stage_channels<C>(s_ch, fields, stage<C::NF>(s, fields, ids, base, n));
-    if (threadIdx.x < cnt) {
-      s_hit[threadIdx.x] = false;
-#pragma unroll
-      for (int q = 0; q < NG; ++q) s_g[threadIdx.x][q] = 0.0f;
-    }
+    const int cnt = min(CH, n - base);
+    stage_channels<C, CH>(s_ch, fields, stage<C::NF>(s, fields, ids, base, n));
+    begin_chunk(pt, cnt);
     __syncthreads();
     walk(s, cnt, p, act, [&](int i) {
       float v[NG];
@@ -704,20 +831,25 @@ tile_blend_bwd_kernel(const float* __restrict__ fields, const int* __restrict__ 
           }
         }
       }
-      if (__any_sync(0xffffffffu, hit)) {
-        const float r = warp_sum(v);
-        if (lane % SPREAD == 0 && lane / SPREAD < NG) atomicAdd(&s_g[i][lane / SPREAD], r);
-        if (lane == 0) s_hit[i] = true;
-      }
+      if (__any_sync(0xffffffffu, hit)) warp_row(pt, i, warp_sum(v), SPREAD);
     });
     __syncthreads();
-    if (threadIdx.x < cnt && s_hit[threadIdx.x]) {
-      float* row = rows + (size_t)(base + threadIdx.x) * C::NF;
+    end_chunk(pt, qrows, p.tile, K, base, cnt);
+  }
+  zero_rest<NG>(qrows, p.tile, K, base, n);
+  if (!last_quarter(tickets, p.tile)) return;
+
+  for (int j = threadIdx.x; j < K; j += CULL_NT) {
+    float g[NG];
 #pragma unroll
-      for (int q = 0; q < NG; ++q) {
-        const float g = s_g[threadIdx.x][q];
-        if (g != 0.0f) atomicAdd(row + q, g);
-      }
+    for (int q = 0; q < NG; ++q) g[q] = 0.0f;
+    if (j < n) quarter_sum(qrows, p.tile, K, j, g);
+    float4* row = reinterpret_cast<float4*>(dpay + ((size_t)p.tile * K + j) * C::NF);
+#pragma unroll
+    for (int k = 0; k < C::NF / 4; ++k) {
+      row[k] = make_float4(4 * k < NG ? g[4 * k] : 0.0f, 4 * k + 1 < NG ? g[4 * k + 1] : 0.0f,
+                           4 * k + 2 < NG ? g[4 * k + 2] : 0.0f,
+                           4 * k + 3 < NG ? g[4 * k + 3] : 0.0f);
     }
   }
 }
@@ -735,10 +867,12 @@ void launch_fwd(const float* fields, const int* gidx, const int* counts, const f
 template <bool GEO, bool INVD, bool ONES>
 void launch_bwd(const float* fields, const int* gidx, const int* counts, const float* col,
                 const float* invd, const float* finT, const float* am, const float* gcol,
-                const float* ginvd, const float* gfin, const float* gam, float* dpay, int H,
-                int W, int nty, int ntx, int K, cudaStream_t stream) {
+                const float* ginvd, const float* gfin, const float* gam, float* qrows,
+                int* tickets, float* dpay, int H, int W, int nty, int ntx, int K,
+                cudaStream_t stream) {
   tile_blend_bwd_kernel<GEO, INVD, ONES><<<4 * nty * ntx, CULL_NT, 0, stream>>>(
-      fields, gidx, counts, col, invd, finT, am, gcol, ginvd, gfin, gam, dpay, H, W, ntx, K);
+      fields, gidx, counts, col, invd, finT, am, gcol, ginvd, gfin, gam, qrows, tickets, dpay,
+      H, W, ntx, K);
 }
 
 using fwd_fn = decltype(&launch_fwd<false, false, false>);
@@ -761,18 +895,6 @@ inline int channel_set(int geo, int invd, int ones) {
   return (geo ? 4 : 0) + (invd ? 2 : 0) + (ones ? 1 : 0);
 }
 
-// K2 (into acc per Gaussian), K5 (per slot) or K6b's first pass (raw sums
-// per slot)
-template <bool SLOT, bool BASIS>
-int launch_moment(const void* fields, const void* gidx, const void* counts, const void* col,
-                  const void* finT, const void* gc, const void* gtt, void* out, int H, int W,
-                  int nty, int ntx, int K, void* stream) {
-  blend_train_bwd_kernel<SLOT, BASIS><<<4 * nty * ntx, CULL_NT, 0, (cudaStream_t)stream>>>(
-      (const float*)fields, (const int*)gidx, (const int*)counts, (const float*)col,
-      (const float*)finT, (const float*)gc, (const float*)gtt, (float*)out, H, W, ntx, K);
-  return (int)cudaGetLastError();
-}
-
 }  // namespace
 
 extern "C" {
@@ -789,28 +911,17 @@ int blend_train_fwd(const void* fields, const void* gidx, const void* counts, co
   return (int)cudaGetLastError();
 }
 
-// K2: moments added into acc[P1, 8], which the caller zeroes
+// K2 and K5 (basis = 0) or K6b (basis = 1): the moments per slot in
+// rows[T, K, 8]; qrows[T, 4, 6, K] is scratch, tickets[T] zeroed
 int blend_train_bwd(const void* fields, const void* gidx, const void* counts, const void* col,
-                    const void* finT, const void* gc, const void* gtt, void* acc, int H, int W,
-                    int nty, int ntx, int K, void* stream) {
-  return launch_moment<false, false>(fields, gidx, counts, col, finT, gc, gtt, acc, H, W, nty,
-                                     ntx, K, stream);
-}
-
-// K6b: K2's moments through the tile-local basis, added into acc[P1, 8];
-// the caller zeroes acc and sums[T, K, 8], the raw sums per slot
-int blend_train_bwd_basis(const void* fields, const void* gidx, const void* counts,
-                          const void* col, const void* finT, const void* gc, const void* gtt,
-                          void* sums, void* acc, int H, int W, int nty, int ntx, int K,
-                          void* stream) {
-  const int code = launch_moment<true, true>(fields, gidx, counts, col, finT, gc, gtt, sums, H,
-                                             W, nty, ntx, K, stream);
-  const int nslot = nty * ntx * K;
-  if (code != 0 || nslot == 0) return code;
-  basis_recombine_kernel<<<(nslot + RECOMB_NT - 1) / RECOMB_NT, RECOMB_NT, 0,
-                           (cudaStream_t)stream>>>((const float*)fields, (const int*)gidx,
-                                                   (const int*)counts, (const float*)sums,
-                                                   (float*)acc, ntx, K, nslot);
+                    const void* finT, const void* gc, const void* gtt, void* qrows,
+                    void* tickets, void* rows, int H, int W, int nty, int ntx, int K, int basis,
+                    void* stream) {
+  auto kernel = basis ? blend_train_bwd_kernel<true> : blend_train_bwd_kernel<false>;
+  kernel<<<4 * nty * ntx, CULL_NT, 0, (cudaStream_t)stream>>>(
+      (const float*)fields, (const int*)gidx, (const int*)counts, (const float*)col,
+      (const float*)finT, (const float*)gc, (const float*)gtt, (float*)qrows, (int*)tickets,
+      (float*)rows, H, W, ntx, K);
   return (int)cudaGetLastError();
 }
 
@@ -824,25 +935,30 @@ int tile_blend_fwd(const void* fields, const void* gidx, const void* counts, con
   return (int)cudaGetLastError();
 }
 
-// K4: per-slot rows of dpay[T, K, NF]; the caller zeroes the table
+// K4: per-slot rows of dpay[T, K, NF]; qrows[T, 4, NFIELD, K] is scratch,
+// tickets[T] zeroed
 int tile_blend_bwd(const void* fields, const void* gidx, const void* counts, const void* col,
                    const void* invd, const void* finT, const void* am, const void* gcol,
-                   const void* ginvd, const void* gfin, const void* gam, void* dpay, int H, int W,
-                   int nty, int ntx, int K, int geo, int invd_on, int ones, void* stream) {
+                   const void* ginvd, const void* gfin, const void* gam, void* qrows,
+                   void* tickets, void* dpay, int H, int W, int nty, int ntx, int K, int geo,
+                   int invd_on, int ones, void* stream) {
   BWD[channel_set(geo, invd_on, ones)](
       (const float*)fields, (const int*)gidx, (const int*)counts, (const float*)col,
       (const float*)invd, (const float*)finT, (const float*)am, (const float*)gcol,
-      (const float*)ginvd, (const float*)gfin, (const float*)gam, (float*)dpay, H, W, nty, ntx,
-      K, (cudaStream_t)stream);
+      (const float*)ginvd, (const float*)gfin, (const float*)gam, (float*)qrows, (int*)tickets,
+      (float*)dpay, H, W, nty, ntx, K, (cudaStream_t)stream);
   return (int)cudaGetLastError();
 }
 
-// K5: per-slot rows of mom[T, K, 8]; the caller zeroes the table
-int blend_moment_bwd(const void* fields, const void* gidx, const void* counts, const void* col,
-                     const void* finT, const void* gc, const void* gtt, void* mom, int H, int W,
-                     int nty, int ntx, int K, void* stream) {
-  return launch_moment<true, false>(fields, gidx, counts, col, finT, gc, gtt, mom, H, W, nty,
-                                    ntx, K, stream);
+// The slot -> Gaussian reduction: out[P1, nf] (nf = 8 or 16) from
+// rows[*, nf] through slots[R, P]
+int slot_reduce(const void* rows, const void* slots, void* out, int nf, int R, int P, int P1,
+                void* stream) {
+  if (P1 == 0) return 0;
+  auto kernel = nf == 16 ? slot_reduce_kernel<16> : slot_reduce_kernel<8>;
+  kernel<<<(P1 + REDUCE_NT - 1) / REDUCE_NT, REDUCE_NT, 0, (cudaStream_t)stream>>>(
+      (const float*)rows, (const int*)slots, (float*)out, R, P, P1);
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

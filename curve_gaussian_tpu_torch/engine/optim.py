@@ -97,7 +97,14 @@ def adam_update(
     ``bias`` (the bias corrections, from the count when None) may be 0-dim
     tensors on the parameters' device."""
     count = state.count + 1
-    c1, c2 = bias_corrections(count) if bias is None else bias
+    if bias is None:
+        # 0-dim tensors filled on the device, as a step graph reads them from
+        # its table: on the card a division by a host scalar multiplies by
+        # its reciprocal, which rounds otherwise than the division
+        p0 = next(iter(params.values()))
+        bias = tuple(torch.full((), c, dtype=p0.dtype, device=p0.device)
+                     for c in bias_corrections(count))
+    c1, c2 = bias
     new_p, new_mu, new_nu = {}, {}, {}
     for k in params:
         if k not in grads:

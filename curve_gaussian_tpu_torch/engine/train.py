@@ -255,7 +255,8 @@ def train_steps(
 # the kernel wrappers, whose host counters count their launches
 KERNEL_WRAPPERS = (
     rasterize_cuda.blend_train_fwd, rasterize_cuda.blend_train_bwd,
-    rasterize_cuda.blend_train_bwd_basis, tile_blend_cuda.tile_blend_fwd,
+    rasterize_cuda.blend_train_bwd_basis, rasterize_cuda.reduce_slots,
+    tile_blend_cuda.tile_blend_fwd,
     tile_blend_cuda.tile_blend_bwd, tile_blend_cuda.blend_moment_bwd,
     ssim_cuda.ssim_fwd, ssim_cuda.ssim_bwd,
 )

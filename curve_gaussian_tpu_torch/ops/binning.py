@@ -14,6 +14,16 @@ The ``sort`` method of ``curve_gaussian_tpu/ops/binning.py``:
   4. tile ranges by ``torch.searchsorted``; the [T, K] table keeps each
      tile's K nearest instances, with sentinel P in empty slots.
 
+Beside the table it lists, when asked (``slots=True``, for a render whose
+backward will run), each Gaussian's slots (``Binning.slots``), the order in
+which the backward's slot -> Gaussian reduction adds them.  A
+Gaussian's pairs are emitted in its rect's row-major order, which is
+ascending tile order, so the pairs' places in the sort give every
+Gaussian its slots in (tile, slot) order with no further sort: the sorted
+position of each pair is its tile's start plus its slot, and one scatter by
+the sort's permutation (no two writes to one place) puts it back at the
+pair.  The JAX package has no such table: its reduction is XLA's.
+
 The ``pairs`` method (``_bin_pairs``) is the JAX package's independent
 round-1 construction, kept as the oracle of the ``sort`` method.
 
@@ -24,7 +34,7 @@ Binning is integer work and carries no gradient.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -49,6 +59,10 @@ class Binning(NamedTuple):
     peak: torch.Tensor  # [] int32 max per-tile candidate count before the K clamp
     big_count: torch.Tensor  # [] int32 Gaussians past the tier-1 rect
     big_overflow: torch.Tensor  # [] int32 slots dropped because the big tier was full
+    # [R, P] int32: Gaussian p's slot rows tile * K + j in (tile, slot) order
+    # down column p, -1 where a rect slot of it holds no listed instance;
+    # None unless ``bin_gaussians(..., slots=True)``
+    slots: Optional[torch.Tensor]
 
 
 class _Rect(NamedTuple):
@@ -151,12 +165,15 @@ def bin_gaussians(
     big_capacity: int = 1024,
     packed: bool | None = None,
     key_tiles: int | None = None,
+    slots: bool = False,
 ) -> Binning:
     """The per-tile lists of `pre` on a `height` x `width` image.
     ``key_tiles`` (default: this image's tile count) sets the tile bits of
     the packed sort key, and so its depth resolution: a band of a larger
     image passes the whole image's count, so that its tiles keep the
-    image's order among near-equal depths."""
+    image's order among near-equal depths.  ``slots`` builds the table of
+    each Gaussian's slots that a blend backward reduces through; a render
+    without gradients leaves it out (``Binning.slots`` None)."""
     if method not in ("sort", "pairs"):
         raise ValueError(f"binning method {method!r} is not 'sort' or 'pairs'")
     if packed is None:
@@ -164,7 +181,7 @@ def bin_gaussians(
     pre = Preprocessed(*(t.detach() for t in pre))
     nty, ntx = tile_grid(height, width)
     if method == "pairs":
-        return _bin_pairs(pre, nty, ntx, capacity, max_rect)
+        return _bin_pairs(pre, nty, ntx, capacity, max_rect, slots)
     T = nty * ntx
     K = capacity
     P = pre.mean2d.shape[0]
@@ -236,6 +253,23 @@ def bin_gaussians(
     win = sv_ext[(starts[:T, None] + kk[None, :]).long()]
     gather_idx = torch.where(slot_valid, win, torch.full_like(win, P))
 
+    # each pair's slot row tile * K + j (j its place in its tile's list), -1
+    # for a non-candidate (tile T) or past K, put back at the pair, then per
+    # Gaussian: its tier-1 rect slots, then its big-tier ones (pos in the
+    # big tier; -1 for none or past big_capacity, the extra last column)
+    slot_table = None
+    if slots:
+        j = torch.arange(st.numel(), dtype=i32, device=dev) - starts[st.long()]
+        sorted_slot = torch.where((st < T) & (j < K), st * K + j, torch.full_like(j, -1))
+        pair_slot = torch.empty_like(sorted_slot)
+        pair_slot[order] = sorted_slot
+        n1 = tiles1.numel()
+        slot1 = pair_slot[:n1].reshape(tiles1.shape)
+        slot2 = torch.cat([pair_slot[n1:].reshape(tiles2.shape),
+                           torch.full((tiles2.shape[0], 1), -1, dtype=i32, device=dev)], dim=1)
+        col2 = torch.where(big & (pos < big_capacity), pos, torch.full_like(pos, big_capacity))
+        slot_table = torch.cat([slot1, slot2[:, col2.long()]]).contiguous()
+
     zero = torch.zeros_like(area_c)
     rect_overflow = torch.where(pre.valid, rect.area - area_c, zero).sum()
     big_overflow = torch.where(big & (pos >= big_capacity), area_c - tier1_rect, zero).sum()
@@ -248,10 +282,12 @@ def bin_gaussians(
         peak=raw.max().to(i32),
         big_count=big_count,
         big_overflow=big_overflow.to(i32),
+        slots=slot_table,
     )
 
 
-def _bin_pairs(pre: Preprocessed, nty: int, ntx: int, K: int, max_rect: int) -> Binning:
+def _bin_pairs(pre: Preprocessed, nty: int, ntx: int, K: int, max_rect: int,
+               slots: bool) -> Binning:
     """The ``pairs`` method: a depth argsort, every Gaussian's max_rect rect
     slots as candidate pairs, a dense [T, P] prefix count that ranks each
     pair within its tile, and a scatter into the [T, K] table.  O(T P)
@@ -280,11 +316,15 @@ def _bin_pairs(pre: Preprocessed, nty: int, ntx: int, K: int, max_rect: int) -> 
     flat = torch.cat([prefix.reshape(-1), torch.zeros(P, dtype=i32, device=dev)])  # row T: zeros
     slot = flat[tiles * P + p_cols] - 1
 
-    target = torch.where(ok & (slot < K) & (slot >= 0), tiles * K + slot,
-                         torch.full_like(tiles, T * K))
+    listed = ok & (slot < K) & (slot >= 0)
+    target = torch.where(listed, tiles * K + slot, torch.full_like(tiles, T * K))
     gather_flat = torch.full((T * K + 1,), P, dtype=i32, device=dev)  # last slot: the drop
     gather_flat[target.reshape(-1)] = order.to(i32)[:, None].expand(P, max_rect).reshape(-1)
     gather_idx = gather_flat[: T * K].reshape(T, K)
+    slot_table = None
+    if slots:  # each Gaussian's rect slots in rect order (ascending tiles), unsorted
+        slot_table = torch.empty((max_rect, P), dtype=i32, device=dev)
+        slot_table[:, order] = torch.where(listed, target, torch.full_like(target, -1)).T.to(i32)
 
     counts = torch.clamp(total, max=K)
     slot_valid = torch.arange(K, dtype=i32, device=dev)[None, :] < counts[:, None]
@@ -298,4 +338,5 @@ def _bin_pairs(pre: Preprocessed, nty: int, ntx: int, K: int, max_rect: int) -> 
         peak=total.max().to(i32),
         big_count=z,
         big_overflow=z,
+        slots=slot_table,
     )

@@ -35,9 +35,17 @@ throughput, not memory (a tile's fields are a few KB), and the longest tile
 lists.  See ``csrc/tile_blend.cu`` for what the design does about it: K1,
 K2 and K6b split each tile over four blocks, and each warp skips the
 instances whose ``support_box`` misses its pixel rectangle, which keeps
-every result exact.  K2 and K6b (both of its passes) reduce with
-``atomicAdd``, so the order of the float32 sums, and the last bits of the
-gradients, vary from run to run.
+every result exact.
+
+Every sum of the backward is taken in a fixed order, so the same inputs
+give the same bits on every launch, as the JAX package's backward does on
+its in-order TPU grid.  K2 and K6b write each instance slot's moments into
+a [T, K, 8] table of slot rows (K2's kernel is K5's), summed over a tile's
+pixels in warp, warp-index and quarter order; ``reduce_slots`` (the
+slot -> Gaussian reduction kernel) then adds each Gaussian's slot rows in
+(tile, slot) order, which the binning lists in ``Binning.slots``.  The
+plain versions reduce with ``index_add_``, which adds in that same order on
+the CPU.
 
 Every wrapper takes the plain PyTorch version for CPU tensors only; for a
 CUDA tensor it launches the kernel or raises.  The TPU layout of the JAX
@@ -263,8 +271,30 @@ def moment_rows_basis_plain(fields, gidx, counts, col, finT, gc, gtt):
 
 
 def _reduce_rows(fields, gidx, mom):
-    """Slot rows [T, K, 8] -> the per-Gaussian accumulator [P1, 8]."""
-    return torch.zeros_like(fields).index_add_(0, gidx.reshape(-1).long(), mom.reshape(-1, NF))
+    """Slot rows [T, K, NF] -> per-Gaussian rows [P1, NF] with ``index_add_``
+    (on the CPU it adds the slots in (tile, slot) order)."""
+    nf = mom.shape[-1]
+    return fields.new_zeros((fields.shape[0], nf)).index_add_(0, gidx.reshape(-1).long(),
+                                                              mom.reshape(-1, nf))
+
+
+def reduce_slots_plain(rows, slots, P1: int):
+    """Plain PyTorch slot -> Gaussian reduction: out[P1, NF] from the slot
+    rows [T, K, NF] (or [T * K, NF]) through the binning's ``slots`` [R, P]
+    (each Gaussian's slot rows tile * K + j in (tile, slot) order, -1 for
+    none), in the kernel's order: Gaussian p adds rows slots[0, p],
+    slots[1, p], ... to zero."""
+    nf = rows.shape[-1]
+    flat = rows.reshape(-1, nf)
+    R, P = slots.shape
+    out = rows.new_zeros((P1, nf))
+    acc = out[:P]
+    for r in range(R):
+        s = slots[r].long()
+        take = (s >= 0)[:, None]
+        acc = torch.where(take, acc + flat[s.clamp(min=0)], acc)
+    out[:P] = acc
+    return out
 
 
 def blend_train_bwd_plain(fields, gidx, counts, col, finT, gc, gtt):
@@ -300,14 +330,13 @@ def moments_to_dfields(M: torch.Tensor, fields: torch.Tensor) -> torch.Tensor:
 
 def _lib():
     """The blend kernels' library, ``csrc/tile_blend.cu``, with the argument
-    types of all six entry points (K1, K2, K6b here; K3, K4, K5 in
-    ``tile_blend_cuda``)."""
+    types of all five entry points (K1, the K2/K5/K6b moments and the
+    reduction here; K3, K4 in ``tile_blend_cuda``)."""
     lib = _build.load("tile_blend")
     if not getattr(lib, "_typed", False):
-        for name, nptr, nint in (("blend_train_fwd", 6, 5), ("blend_train_bwd", 8, 5),
-                                 ("blend_train_bwd_basis", 9, 5),
-                                 ("tile_blend_fwd", 8, 8), ("tile_blend_bwd", 12, 8),
-                                 ("blend_moment_bwd", 8, 5)):
+        for name, nptr, nint in (("blend_train_fwd", 6, 5), ("blend_train_bwd", 10, 6),
+                                 ("tile_blend_fwd", 8, 8), ("tile_blend_bwd", 14, 8),
+                                 ("slot_reduce", 3, 4)):
             fn = getattr(lib, name)
             fn.argtypes = [_VP] * nptr + [_I] * nint + [_VP]
             fn.restype = _I
@@ -361,79 +390,135 @@ def blend_train_fwd(fields, gidx, counts, bg, H: int, W: int):
     return col, finT
 
 
-def _moment_launch(name, fields, gidx, counts, col, finT, gc, gtt, sums: bool = False):
-    """Launch the accumulating moment kernel `name` (K2, or K6b with
-    ``sums``, its zeroed [T, K, 8] scratch of raw sums per slot): [P1, 8]."""
+def bwd_scratch(gidx, nv: int):
+    """The scratch of a backward kernel's fixed-order sums: each quarter
+    block's sums [T, 4, nv, K] (every slot a tile lists is written before it
+    is read) and the zeroed tickets [T] int32, one per tile."""
+    T, K = gidx.shape
+    qrows = torch.empty((T, 4, nv, K), dtype=torch.float32, device=gidx.device)
+    return qrows, torch.zeros((T,), dtype=torch.int32, device=gidx.device)
+
+
+def moment_rows(fields, gidx, counts, col, finT, gc, gtt, basis: bool = False):
+    """K2's kernel (K5's; K6b's with ``basis``): the moments per slot
+    [T, K, 8], every row written (zeros past a tile's count); the plain
+    versions for CPU tensors.  Its callers count its launches."""
+    if not fields.is_cuda:
+        plain = moment_rows_basis_plain if basis else moment_rows_plain
+        return plain(fields, gidx, counts, col, finT, gc, gtt)
     H, W = col.shape
     _check_tables(fields, gidx, counts, H, W)
+    if fields.data_ptr() % 16:
+        raise ValueError("fields must start on a 16-byte boundary (the kernels read float4)")
     for arg, t in (("col", col), ("finT", finT), ("gc", gc), ("gtt", gtt)):
         _check_image(arg, t, H, W, fields.device)
-    args = [fields, gidx, counts, col, finT, gc, gtt]
-    if sums:
-        args.append(torch.zeros(gidx.shape + (NF,), dtype=torch.float32, device=fields.device))
-    acc = torch.zeros_like(fields)  # the kernels add into it
-    args.append(acc)
+    qrows, tickets = bwd_scratch(gidx, 6)
+    rows = torch.empty(gidx.shape + (NF,), dtype=torch.float32, device=fields.device)
     lib = _lib()
     nty, ntx = tile_grid(H, W)
-    code = getattr(lib, name)(
-        *(t.data_ptr() for t in args), H, W, nty, ntx, gidx.shape[1],
+    code = lib.blend_train_bwd(
+        *(t.data_ptr() for t in (fields, gidx, counts, col, finT, gc, gtt, qrows, tickets, rows)),
+        H, W, nty, ntx, gidx.shape[1], int(basis),
         torch.cuda.current_stream(fields.device).cuda_stream,
     )
-    _build.check(lib, code, name)
-    return acc
+    _build.check(lib, code, "blend_train_bwd")
+    return rows
 
 
-def blend_train_bwd(fields, gidx, counts, col, finT, gc, gtt):
+def reduce_slots(rows, slots, P1: int):
+    """The slot -> Gaussian reduction: per-Gaussian rows [P1, NF] (NF = 8 or
+    16) from the slot rows [T, K, NF] of a backward kernel, each Gaussian's
+    rows added in (tile, slot) order through ``slots`` [R, P] int32
+    (``Binning.slots``); rows P .. P1 - 1 are zeros."""
+    if not rows.is_cuda:
+        return reduce_slots_plain(rows, slots, P1)
+    if slots is None:
+        raise ValueError("the slot -> Gaussian reduction on the card needs the binning's "
+                         "slots table (Binning.slots)")
+    nf = rows.shape[-1]
+    if rows.dtype != torch.float32 or nf not in (8, 16) or not rows.is_contiguous():
+        raise ValueError(f"rows must be contiguous float32 [..., 8 or 16], got {rows.dtype} "
+                         f"{tuple(rows.shape)}")
+    R, P = slots.shape
+    if (slots.dtype != torch.int32 or slots.device != rows.device or not slots.is_contiguous()
+            or P > P1):
+        raise ValueError(f"slots must be a contiguous int32 [R, P <= {P1}] tensor on "
+                         f"{rows.device}, got {slots.dtype} {tuple(slots.shape)}")
+    out = torch.empty((P1, nf), dtype=torch.float32, device=rows.device)
+    lib = _lib()
+    code = lib.slot_reduce(rows.data_ptr(), slots.data_ptr(), out.data_ptr(), nf, R, P, P1,
+                           torch.cuda.current_stream(rows.device).cuda_stream)
+    _build.check(lib, code, "slot_reduce")
+    reduce_slots.launches += 1
+    return out
+
+
+def blend_train_bwd(fields, gidx, counts, col, finT, gc, gtt, slots):
     """K2: moment accumulator [P1, 8] from the forward's col/finT and the
-    cotangents gc (colour) and gtt (final T), all [H, W]."""
+    cotangents gc (colour) and gtt (final T), all [H, W]: the moments per
+    slot, then ``reduce_slots`` through the binning's ``slots`` (the plain
+    version on the CPU does not read them)."""
     if not fields.is_cuda:
         return blend_train_bwd_plain(fields, gidx, counts, col, finT, gc, gtt)
-    acc = _moment_launch("blend_train_bwd", fields, gidx, counts, col, finT, gc, gtt)
+    rows = moment_rows(fields, gidx, counts, col, finT, gc, gtt)
     blend_train_bwd.launches += 1
-    return acc
+    return reduce_slots(rows, slots, fields.shape[0])
 
 
-def blend_train_bwd_basis(fields, gidx, counts, col, finT, gc, gtt):
+def blend_train_bwd_basis(fields, gidx, counts, col, finT, gc, gtt, slots):
     """K6b: K2's moment accumulator [P1, 8] through six tile-local raw sums
     per instance and their recombination (the ``basis`` flavor of the
     training backward); same arguments as ``blend_train_bwd``."""
     if not fields.is_cuda:
         return blend_train_bwd_basis_plain(fields, gidx, counts, col, finT, gc, gtt)
-    acc = _moment_launch("blend_train_bwd_basis", fields, gidx, counts, col, finT, gc, gtt,
-                         sums=True)
+    rows = moment_rows(fields, gidx, counts, col, finT, gc, gtt, basis=True)
     blend_train_bwd_basis.launches += 1
-    return acc
+    return reduce_slots(rows, slots, fields.shape[0])
 
 
 blend_train_fwd.launches = 0
 blend_train_bwd.launches = 0
 blend_train_bwd_basis.launches = 0
+reduce_slots.launches = 0
+
+
+def check_slots(fields, slots) -> None:
+    """A differentiable blend's backward reduces through the binning's
+    slots table: raises at the call, not in the backward, when the fields
+    need a gradient and the table was not built."""
+    if slots is None and fields.requires_grad and torch.is_grad_enabled():
+        raise ValueError("a blend whose fields need a gradient needs the binning's slots table "
+                         "(bin_gaussians(..., slots=True))")
 
 
 class BlendTrain(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, fields, gather_idx, counts, bg, H: int, W: int, basis: bool):
+    def forward(ctx, fields, gather_idx, counts, slots, bg, H: int, W: int, basis: bool):
         col, finT = blend_train_fwd(fields, gather_idx, counts, bg, H, W)
-        ctx.save_for_backward(fields, gather_idx, counts, col, finT)
+        ctx.save_for_backward(fields, gather_idx, counts, slots, col, finT)
         ctx.bg_shape = bg.shape
         ctx.basis = basis
         return col, finT
 
     @staticmethod
     def backward(ctx, gc, gtt):
-        fields, gidx, counts, col, finT = ctx.saved_tensors
+        fields, gidx, counts, slots, col, finT = ctx.saved_tensors
         gc = gc.contiguous()
-        bwd = blend_train_bwd_basis if ctx.basis else blend_train_bwd
-        acc = bwd(fields, gidx, counts, col, finT, gc, gtt.contiguous())
-        dfields = moments_to_dfields(acc, fields)
+        dfields = None
+        if ctx.needs_input_grad[0]:
+            bwd = blend_train_bwd_basis if ctx.basis else blend_train_bwd
+            acc = bwd(fields, gidx, counts, col, finT, gc, gtt.contiguous(), slots)
+            dfields = moments_to_dfields(acc, fields)
         dbg = (gc * finT).sum().reshape(ctx.bg_shape)
-        return dfields, None, None, dbg, None, None, None
+        return dfields, None, None, None, dbg, None, None, None
 
 
-def blend_train(fields, gather_idx, counts, bg, H: int, W: int, basis: bool = False):
+def blend_train(fields, gather_idx, counts, slots, bg, H: int, W: int, basis: bool = False):
     """Differentiable training blend: (col, finT), each [H, W].
 
-    fields [P1, 8] from ``stack_fields(pre)``; gather_idx [T, K] int32 and
-    counts [T] int32 from the binning; bg [1].  Gradients flow to fields
+    fields [P1, 8] from ``stack_fields(pre)``; gather_idx [T, K] int32,
+    counts [T] int32 and slots [R, P] int32 from the binning (``None`` only
+    when the fields need no gradient); bg [1].  Gradients flow to fields
     (columns 0-5) and bg, through K2, or K6b with ``basis``."""
-    return BlendTrain.apply(fields, gather_idx, counts, bg, H, W, basis)
+    check_slots(fields, slots)
+    return BlendTrain.apply(fields, gather_idx, counts, slots, bg, H, W, basis)

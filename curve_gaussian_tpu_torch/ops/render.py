@@ -112,13 +112,17 @@ def render(
         bg_t = bg.to(device=dev, dtype=dt).reshape(1)
     else:  # filled on the device: a host copy would synchronise the stream
         bg_t = torch.full((1,), float(bg), dtype=dt, device=dev)
-    binning = bin_gaussians(pre, H, W, capacity=capacity, big_capacity=big_capacity)
+    # the slots table is read only by a backward: a render without
+    # gradients (an eval render, a frame) does not build it
+    grad = torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in (*pre, color))
+    binning = bin_gaussians(pre, H, W, capacity=capacity, big_capacity=big_capacity, slots=grad)
     train_cfg = not render_geo and not compute_invdepth and color_ones
     flavor = _flavor() if backend == "pallas" else ""  # the oracle has no flavors
 
     if backend == "pallas" and train_cfg and flavor in ("", "train", "basis"):
-        img, finT = blend_train(stack_fields(pre), binning.gather_idx, binning.counts, bg_t, H, W,
-                                basis=flavor == "basis")
+        img, finT = blend_train(stack_fields(pre), binning.gather_idx, binning.counts,
+                                binning.slots, bg_t, H, W, basis=flavor == "basis")
         invd = img.new_zeros((H, W))
         am = img.new_zeros((4, H, W))
     else:
@@ -140,8 +144,9 @@ def render(
                     "CGT_BLEND_FLAVOR=basis has a backward only for the training channel "
                     "set (render_geo=False, compute_invdepth=False, ones colour)")
             img, invd, finT, am = tile_blend(
-                fields, binning.gather_idx, binning.counts, bg_t, H, W, render_geo,
-                compute_invdepth, color_ones, moment_bwd=train_cfg and flavor == "indirect",
+                fields, binning.gather_idx, binning.counts, binning.slots, bg_t, H, W,
+                render_geo, compute_invdepth, color_ones,
+                moment_bwd=train_cfg and flavor == "indirect",
             )
 
     if exposure is not None:

@@ -21,16 +21,17 @@ and the gradients of all fields of each instance slot, reduced over the
 tile's pixels, land in a [T, K, NF] table.
 
 K5 ``blend_moment_bwd`` replaces ``_make_bwd_moment_kernel(indirect=True)``:
-K2's pass (the same kernel template), its moments added per slot into
-[T, K, 8], which ``moments_to_dfields`` maps to field gradients after the
-slot -> Gaussian reduction.
+K2's kernel, its moments per slot in [T, K, 8], which ``moments_to_dfields``
+maps to field gradients after the slot -> Gaussian reduction.
 
-The reduction of K4's and K5's tables to Gaussians is ``index_add_``
-outside the kernels, as the JAX package does it in XLA.  K4 and K5 split a
-tile over four blocks that add into its slots' rows with ``atomicAdd``, so
-the last float32 bits of their rows vary from run to run.  The derivative
-of alpha ignores the 0.99 clamp (d alpha / d opa = G), so every backward
-here is the hand-derived formula, never autograd through the clamp.
+K4 and K5 sum each slot's row over the tile's pixels in a fixed order
+(warp, warp index, quarter block), and the reduction of their tables to
+Gaussians is the ``reduce_slots`` kernel through the binning's ``slots``
+(each Gaussian's slots in (tile, slot) order), where the JAX package leaves
+a scatter-add to XLA: the same inputs give the same bits on every launch.
+The plain versions reduce with ``index_add_``.  The derivative of alpha
+ignores the 0.99 clamp (d alpha / d opa = G), so every backward here is
+the hand-derived formula, never autograd through the clamp.
 
 Every wrapper takes the plain PyTorch version for CPU tensors only; for a
 CUDA tensor it launches the kernel or raises.  See ``csrc/tile_blend.cu`` for
@@ -44,16 +45,20 @@ from .. import _build
 from .binning import tile_grid
 from .rasterize_cuda import (
     _check_bg,
-    _check_image,
     _check_tables,
     _composite_step,
     _from_tiles,
     _lib,
     _pixels,
+    _reduce_rows,
     _to_tiles,
+    bwd_scratch,
+    check_slots,
     field_layout,
+    moment_rows,
     moment_rows_plain,
     moments_to_dfields,
+    reduce_slots,
 )
 
 
@@ -189,7 +194,7 @@ def tile_blend_bwd(fields, gidx, counts, outs, cots, geo: bool, invd: bool, ones
     if not fields.is_cuda:
         return tile_blend_bwd_plain(fields, gidx, counts, outs, cots, geo, invd, ones)
     H, W = outs[0].shape
-    _, nf = field_layout(geo, invd, ones)
+    L, nf = field_layout(geo, invd, ones)
     nty, ntx = _check_fields(fields, gidx, counts, H, W, nf)
     for name, t in zip(("col", "invd", "finT", "am", "g col", "g invd", "g finT", "g am"),
                        outs + cots):
@@ -198,12 +203,14 @@ def tile_blend_bwd(fields, gidx, counts, outs, cots, geo: bool, invd: bool, ones
                 or not t.is_contiguous():
             raise ValueError(f"{name} must be a contiguous float32 {list(shape)} tensor on "
                              f"{fields.device}")
-    dpay = torch.zeros(gidx.shape + (nf,), dtype=torch.float32, device=fields.device)
+    qrows, tickets = bwd_scratch(gidx, len(L))  # one row value per field of the set
+    dpay = torch.empty(gidx.shape + (nf,), dtype=torch.float32, device=fields.device)
     lib = _lib()
     code = lib.tile_blend_bwd(
         fields.data_ptr(), gidx.data_ptr(), counts.data_ptr(),
-        *(t.data_ptr() for t in outs + cots), dpay.data_ptr(),
-        H, W, nty, ntx, gidx.shape[1], int(geo), int(invd), int(ones), _stream(fields),
+        *(t.data_ptr() for t in outs + cots), qrows.data_ptr(), tickets.data_ptr(),
+        dpay.data_ptr(), H, W, nty, ntx, gidx.shape[1], int(geo), int(invd), int(ones),
+        _stream(fields),
     )
     _build.check(lib, code, "tile_blend_bwd")
     tile_blend_bwd.launches += 1
@@ -216,18 +223,7 @@ def blend_moment_bwd(fields, gidx, counts, col, finT, gc, gtt):
     [H, W]; slots a tile never reached read zero."""
     if not fields.is_cuda:
         return blend_moment_bwd_plain(fields, gidx, counts, col, finT, gc, gtt)
-    H, W = col.shape
-    nty, ntx = _check_fields(fields, gidx, counts, H, W, 8)
-    for name, t in (("col", col), ("finT", finT), ("gc", gc), ("gtt", gtt)):
-        _check_image(name, t, H, W, fields.device)
-    mom = torch.zeros(gidx.shape + (8,), dtype=torch.float32, device=fields.device)
-    lib = _lib()
-    code = lib.blend_moment_bwd(
-        fields.data_ptr(), gidx.data_ptr(), counts.data_ptr(), col.data_ptr(), finT.data_ptr(),
-        gc.data_ptr(), gtt.data_ptr(), mom.data_ptr(), H, W, nty, ntx, gidx.shape[1],
-        _stream(fields),
-    )
-    _build.check(lib, code, "blend_moment_bwd")
+    mom = moment_rows(fields, gidx, counts, col, finT, gc, gtt)
     blend_moment_bwd.launches += 1
     return mom
 
@@ -237,41 +233,52 @@ tile_blend_bwd.launches = 0
 blend_moment_bwd.launches = 0
 
 
+def _to_gaussians(fields, gidx, rows, slots):
+    """Slot rows [T, K, NF] -> per-Gaussian rows [P1, NF]: ``reduce_slots``
+    on the card, ``index_add_`` (the plain versions') on the CPU."""
+    if rows.is_cuda:
+        return reduce_slots(rows, slots, fields.shape[0])
+    return _reduce_rows(fields, gidx, rows)
+
+
 class TileBlend(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, fields, gather_idx, counts, bg, H: int, W: int, geo: bool, invd: bool,
-                ones: bool, moment_bwd: bool):
+    def forward(ctx, fields, gather_idx, counts, slots, bg, H: int, W: int, geo: bool,
+                invd: bool, ones: bool, moment_bwd: bool):
         outs = tile_blend_fwd(fields, gather_idx, counts, bg, H, W, geo, invd, ones)
-        ctx.save_for_backward(fields, gather_idx, counts, *outs)
+        ctx.save_for_backward(fields, gather_idx, counts, slots, *outs)
         ctx.cfg = (geo, invd, ones, moment_bwd)
         ctx.bg_shape = bg.shape
         return outs
 
     @staticmethod
     def backward(ctx, gc, gd, gtt, gam):
-        fields, gidx, counts, *outs = ctx.saved_tensors
+        fields, gidx, counts, slots, *outs = ctx.saved_tensors
         geo, invd, ones, moment_bwd = ctx.cfg
         cots = tuple(g.contiguous() for g in (gc, gd, gtt, gam))
-        rows = gidx.reshape(-1).long()
-        if moment_bwd and ones and not geo and not invd:
-            mom = blend_moment_bwd(fields, gidx, counts, outs[0], outs[2], cots[0], cots[2])
-            M = torch.zeros_like(fields).index_add_(0, rows, mom.reshape(-1, 8))
-            dfields = moments_to_dfields(M, fields)
-        else:
-            dpay = tile_blend_bwd(fields, gidx, counts, tuple(outs), cots, geo, invd, ones)
-            dfields = torch.zeros_like(fields).index_add_(0, rows, dpay.reshape(rows.numel(), -1))
+        dfields = None
+        if ctx.needs_input_grad[0]:
+            if moment_bwd and ones and not geo and not invd:
+                mom = blend_moment_bwd(fields, gidx, counts, outs[0], outs[2], cots[0], cots[2])
+                dfields = moments_to_dfields(_to_gaussians(fields, gidx, mom, slots), fields)
+            else:
+                dpay = tile_blend_bwd(fields, gidx, counts, tuple(outs), cots, geo, invd, ones)
+                dfields = _to_gaussians(fields, gidx, dpay, slots)
         dbg = (cots[0] * outs[2]).sum().reshape(ctx.bg_shape)
-        return dfields, None, None, dbg, None, None, None, None, None, None
+        return dfields, None, None, None, dbg, None, None, None, None, None, None
 
 
-def tile_blend(fields, gather_idx, counts, bg, H: int, W: int, geo: bool, invd: bool,
+def tile_blend(fields, gather_idx, counts, slots, bg, H: int, W: int, geo: bool, invd: bool,
                ones: bool, moment_bwd: bool = False):
     """Differentiable full-channel blend: (col, invd, finT) [H, W] and am
     [4, H, W].
 
     fields [P1, NF] from ``stack_fields`` with the same (geo, invd, ones);
-    gather_idx [T, K] int32 and counts [T] int32 from the binning; bg [1].
-    The backward is K4, or K5 when ``moment_bwd`` is set and the channel
-    set is the training one (ones colour, no geo, no invd).  Gradients flow
-    to fields and bg."""
-    return TileBlend.apply(fields, gather_idx, counts, bg, H, W, geo, invd, ones, moment_bwd)
+    gather_idx [T, K] int32, counts [T] int32 and slots [R, P] int32 from
+    the binning (``None`` only when the fields need no gradient); bg [1].
+    The backward is K4, or K5 when ``moment_bwd`` is set and the channel set
+    is the training one (ones colour, no geo, no invd).  Gradients flow to
+    fields and bg."""
+    check_slots(fields, slots)
+    return TileBlend.apply(fields, gather_idx, counts, slots, bg, H, W, geo, invd, ones,
+                           moment_bwd)

@@ -24,6 +24,7 @@ from curve_gaussian_tpu.ops import rasterize_pallas as jrp
 from curve_gaussian_tpu_torch.ops import rasterize_cuda as prc
 from curve_gaussian_tpu_torch.ops.render import render as prender
 from test_torch_port_blend import _case, _jax_blend, _scene
+from test_torch_port_cull_cases import slots_table
 from test_torch_port_geometry import assert_close, cam_pair, exact_sort, jax_x64, tt
 
 
@@ -46,8 +47,9 @@ def _inputs(H, W, dtype):
 def test_basis_plain_equals_moment_plain_float64(H, W):
     args = _inputs(H, W, np.float64)
     fields = args[0]
-    d_basis = prc.moments_to_dfields(prc.blend_train_bwd_basis(*args), fields)
-    d_k2 = prc.moments_to_dfields(prc.blend_train_bwd(*args), fields)
+    slots = torch.from_numpy(slots_table(args[1], args[2], fields.shape[0]))
+    d_basis = prc.moments_to_dfields(prc.blend_train_bwd_basis(*args, slots), fields)
+    d_k2 = prc.moments_to_dfields(prc.blend_train_bwd(*args, slots), fields)
     assert_close(d_basis, d_k2.numpy(), 1e-9, "basis against K2")
     assert float(d_k2.abs().max()) > 0
     assert prc.blend_train_bwd_basis.launches == 0
@@ -62,8 +64,9 @@ def test_basis_against_jax_basis_kernel(monkeypatch, dtype, tol):
     _, _, jd, jdbg = _jax_blend(jb, jfields, gc, gtt, H, W)
     fields = prc.stack_fields(ppre).detach().requires_grad_(True)
     bg = torch.zeros(1, dtype=fields.dtype, requires_grad=True)
-    col, fin = prc.blend_train(fields, tt(jb.gather_idx, torch.int32), tt(jb.counts, torch.int32),
-                               bg, H, W, basis=True)
+    gidx, counts = tt(jb.gather_idx, torch.int32), tt(jb.counts, torch.int32)
+    slots = torch.from_numpy(slots_table(gidx, counts, fields.shape[0]))
+    col, fin = prc.blend_train(fields, gidx, counts, slots, bg, H, W, basis=True)
     torch.autograd.backward((col, fin), (tt(gc, None), tt(gtt, None)))
     assert_close(fields.grad, jd, tol, "d fields")
     assert_close(bg.grad, jdbg, tol, "d bg")

@@ -21,9 +21,11 @@ from curve_gaussian_tpu.ops import projection as jproj
 from curve_gaussian_tpu.ops import rasterize_pallas as jrp
 from curve_gaussian_tpu.ops.render import render as jrender
 
+from curve_gaussian_tpu_torch.ops import binning as pbin
 from curve_gaussian_tpu_torch.ops import projection as pproj
 from curve_gaussian_tpu_torch.ops import rasterize_cuda as prc
 from curve_gaussian_tpu_torch.ops.render import render as prender
+from test_torch_port_cull_cases import slots_table
 from test_torch_port_geometry import assert_close, cam_pair, exact_sort, jax_x64, tt
 
 # per-tile capacity: 136 is a multiple of 8 but not of 16, so the JAX
@@ -121,7 +123,8 @@ def test_blend_train_fwd_bwd(H, W, dtype):
     bg = torch.zeros(1, dtype=fields.dtype, requires_grad=True)
     gidx = tt(jb.gather_idx, torch.int32)
     counts = tt(jb.counts, torch.int32)
-    pcol, pfin = prc.blend_train(fields, gidx, counts, bg, H, W)
+    slots = torch.from_numpy(slots_table(gidx, counts, fields.shape[0]))
+    pcol, pfin = prc.blend_train(fields, gidx, counts, slots, bg, H, W)
     torch.autograd.backward((pcol, pfin), (tt(gc, None), tt(gtt, None)))
     f64 = dtype == np.float64
     assert_close(pcol, col, F64_TOL if f64 else F32_TOL_FWD, "col")
@@ -129,6 +132,25 @@ def test_blend_train_fwd_bwd(H, W, dtype):
     assert_close(fields.grad, dfields, F64_TOL if f64 else F32_TOL_BWD, "dfields")
     assert_close(bg.grad, dbg, F64_TOL if f64 else F32_TOL_BWD, "dbg")
     assert prc.blend_train_fwd.launches == 0 and prc.blend_train_bwd.launches == 0
+
+
+@pytest.mark.parametrize("H,W", [(64, 64), (64, 96)])
+def test_fixed_order_backward_layout(H, W):
+    """K2 as the card runs it, through plain versions: the moments per slot
+    (``moment_rows_plain``, K2's slot rows), then the slot -> Gaussian
+    reduction in the order of the port's own binning (``Binning.slots``),
+    against the JAX kernel's backward in float64 (summation order only)."""
+    ppre, jb, jfields, gc, gtt, (_, _, dfields, _) = _reference(H, W, np.float64)
+    fields = prc.stack_fields(ppre)
+    b = pbin.bin_gaussians(ppre, H, W, capacity=K, big_capacity=64, slots=True)
+    gidx, counts = tt(jb.gather_idx, torch.int32), tt(jb.counts, torch.int32)
+    assert torch.equal(b.gather_idx, gidx) and torch.equal(b.counts, counts)
+    col, finT = prc.blend_train_fwd_plain(fields, gidx, counts,
+                                          torch.zeros(1, dtype=torch.float64), H, W)
+    rows = prc.moment_rows_plain(fields, gidx, counts, col, finT, tt(gc), tt(gtt))
+    acc = prc.reduce_slots(rows, b.slots, fields.shape[0])
+    assert_close(prc.moments_to_dfields(acc, fields), dfields, F64_TOL, "dfields")
+    assert prc.reduce_slots.launches == 0
 
 
 def test_plain_backward_ignores_alpha_clamp():

@@ -106,3 +106,23 @@ def packed_family(family, device):
             gidx[t, 0] = b.to(torch.int32)
             counts[t] = 1
     return H, W, fields.to(device), gidx.to(device), counts.to(device)
+
+
+def slots_table(gidx, counts, P: int) -> np.ndarray:
+    """[R, P] int32 from a [T, K] table, built in numpy: column p lists the
+    slot rows tile * K + j (j < counts[tile]) that hold Gaussian p, in
+    ascending (tile, slot) order, then -1; R is the most any Gaussian holds
+    (at least 1).  The layout of ``Binning.slots``, without its rect order's
+    gaps, for tables made by hand."""
+    g = np.asarray(gidx.cpu() if torch.is_tensor(gidx) else gidx)
+    c = np.asarray(counts.cpu() if torch.is_tensor(counts) else counts)
+    T, K = g.shape
+    lists = [[] for _ in range(P)]
+    for t in range(T):
+        for j in range(int(c[t])):
+            if g[t, j] < P:
+                lists[g[t, j]].append(t * K + j)
+    out = np.full((max([1] + [len(v) for v in lists]), P), -1, dtype=np.int32)
+    for p, v in enumerate(lists):
+        out[: len(v), p] = v
+    return out

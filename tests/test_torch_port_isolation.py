@@ -1,10 +1,11 @@
 """The port stands alone: no module of ``curve_gaussian_tpu_torch`` (nor
 ``chip_smoke.py``) imports JAX, the JAX package, PIL or matplotlib, entry points run on the
 card unless the caller asks for the CPU, and the kernel wrappers launch
-nothing for CPU tensors.  The last three tests need a CUDA card: they hold
+nothing for CPU tensors.  The last four tests need a CUDA card: they hold
 every kernel against its plain version there, K7/K8 at shapes ragged
-against their tiles, and the cull of K1-K6b over the conics that stress its
-box (``pytest --noconftest -m cuda tests/test_torch_port_isolation.py``)."""
+against their tiles, the cull of K1-K6b over the conics that stress its
+box, and the backward kernels bitwise equal from launch to launch
+(``pytest --noconftest -m cuda tests/test_torch_port_isolation.py``)."""
 import ast
 import os
 import pkgutil
@@ -31,7 +32,7 @@ from curve_gaussian_tpu_torch.parallel import dryrun, multihost, sharding
 from curve_gaussian_tpu_torch.scripts import run_batch_abc
 from curve_gaussian_tpu_torch.scripts.make_ref_scale_scene import make_ref_scale_scene
 from curve_gaussian_tpu_torch.scripts.render_curves import render_curves
-from test_torch_port_cull_cases import FAMILIES, packed_family
+from test_torch_port_cull_cases import FAMILIES, packed_family, slots_table
 
 ROOT = Path(__file__).resolve().parent.parent
 PKG = ROOT / "curve_gaussian_tpu_torch"
@@ -139,7 +140,7 @@ def test_basis_wrapper_raises_without_its_kernel(monkeypatch):
     n = prc.blend_train_bwd_basis.launches
     with pytest.raises(RuntimeError, match="cannot build tile_blend"):
         prc.blend_train_bwd_basis(fields.as_subclass(_ClaimsCuda), gidx, counts, col, finT, gc,
-                                  gtt)
+                                  gtt, _slots(fields, gidx, counts))
     assert prc.blend_train_bwd_basis.launches == n
 
 
@@ -165,6 +166,12 @@ def _small_blend_inputs(device):
     gtt = torch.randn(H, W, generator=g)
     to = lambda t: t.to(device).contiguous()  # noqa: E731
     return H, W, to(fields), to(gidx), to(counts), to(torch.zeros(1)), to(gc), to(gtt)
+
+
+def _slots(fields, gidx, counts):
+    """The slot -> Gaussian order of a table made by hand (``slots_table``),
+    on the table's device."""
+    return torch.from_numpy(slots_table(gidx, counts, fields.shape[0])).to(gidx.device)
 
 
 def _channel_fields(fields, geo, invd, ones):
@@ -195,8 +202,9 @@ def test_wrappers_launch_nothing_on_cpu():
     before = [w.launches for w in wrappers]
     H, W, fields, gidx, counts, bg, gc, gtt = _small_blend_inputs("cpu")
     col, finT = prc.blend_train_fwd(fields, gidx, counts, bg, H, W)
-    prc.blend_train_bwd(fields, gidx, counts, col, finT, gc, gtt)
-    prc.blend_train_bwd_basis(fields, gidx, counts, col, finT, gc, gtt)
+    slots = _slots(fields, gidx, counts)
+    prc.blend_train_bwd(fields, gidx, counts, col, finT, gc, gtt, slots)
+    prc.blend_train_bwd_basis(fields, gidx, counts, col, finT, gc, gtt, slots)
     psc.ssim_fwd(col, gc)
     psc.ssim_bwd(col, gc, torch.ones(()))
     for geo, invd, ones in CHANNEL_SETS:
@@ -222,7 +230,8 @@ def test_kernels_match_plain_on_card():
     # same operations on every pair that passes the gate, so bitwise
     col3, _, fin3, _ = ptb.tile_blend_fwd(fields, gidx, counts, bg, H, W, False, False, True)
     assert torch.equal(col, col3) and torch.equal(finT, fin3)
-    acc = prc.blend_train_bwd(fields, gidx, counts, col, finT, gc, gtt)
+    slots = _slots(fields, gidx, counts)
+    acc = prc.blend_train_bwd(fields, gidx, counts, col, finT, gc, gtt, slots)
     acc_p = prc.blend_train_bwd_plain(fields, gidx, counts, col, finT, gc, gtt)
     torch.testing.assert_close(acc, acc_p, atol=1e-4 * float(acc_p.abs().max()), rtol=0)
     v, v_p = psc.ssim_fwd(col, gc), psc.ssim_fwd_plain(col, gc)
@@ -246,18 +255,17 @@ def test_kernels_match_plain_on_card():
         dpay_p = ptb.tile_blend_bwd_plain(f, gidx, counts, outs, cots, geo, invd, ones)
         torch.testing.assert_close(dpay, dpay_p, atol=1e-4 * float(dpay_p.abs().max()), rtol=0)
         assert (ptb.tile_blend_fwd.launches, ptb.tile_blend_bwd.launches) == (n3 + 1, n4 + 1)
-    # K5: up to four quarter blocks add into a slot's row, so two runs
-    # differ only in the order of the float32 sums
+    # K5: its sums run in a fixed order, so two runs are bitwise equal
     n5 = ptb.blend_moment_bwd.launches
     mom = ptb.blend_moment_bwd(fields, gidx, counts, col, finT, gc, gtt)
     mom_again = ptb.blend_moment_bwd(fields, gidx, counts, col, finT, gc, gtt)
     assert ptb.blend_moment_bwd.launches == n5 + 2
     mom_p = ptb.blend_moment_bwd_plain(fields, gidx, counts, col, finT, gc, gtt)
     torch.testing.assert_close(mom, mom_p, atol=1e-4 * float(mom_p.abs().max()), rtol=0)
-    torch.testing.assert_close(mom_again, mom, atol=1e-6 * float(mom.abs().max()), rtol=0)
+    assert torch.equal(mom_again, mom)
     # K6b: against its plain version, and (the same function) against K2
     n6 = prc.blend_train_bwd_basis.launches
-    acc6 = prc.blend_train_bwd_basis(fields, gidx, counts, col, finT, gc, gtt)
+    acc6 = prc.blend_train_bwd_basis(fields, gidx, counts, col, finT, gc, gtt, slots)
     acc6_p = prc.blend_train_bwd_basis_plain(fields, gidx, counts, col, finT, gc, gtt)
     assert prc.blend_train_bwd_basis.launches == n6 + 1
     d6, d6_p, d2 = (prc.moments_to_dfields(a, fields) for a in (acc6, acc6_p, acc))
@@ -306,13 +314,14 @@ def _cull_family_exact(family, device):
     g = torch.Generator().manual_seed(3)
     gc = (1.0 + torch.rand((H, W), generator=g)).to(device)
     gtt = torch.zeros_like(gc)
-    acc = prc.blend_train_bwd(fields, gidx, counts, col, finT, gc, gtt)
+    slots = _slots(fields, gidx, counts)
+    acc = prc.blend_train_bwd(fields, gidx, counts, col, finT, gc, gtt, slots)
     acc_p = prc.blend_train_bwd_plain(fields, gidx, counts, col, finT, gc, gtt)
     assert _moments_within_mass(acc, acc_p) == 0, family
     mom = ptb.blend_moment_bwd(fields, gidx, counts, col, finT, gc, gtt)
     mom_p = ptb.blend_moment_bwd_plain(fields, gidx, counts, col, finT, gc, gtt)
     assert _moments_within_mass(mom, mom_p) == 0, family
-    acc6 = prc.blend_train_bwd_basis(fields, gidx, counts, col, finT, gc, gtt)
+    acc6 = prc.blend_train_bwd_basis(fields, gidx, counts, col, finT, gc, gtt, slots)
     acc6_p = prc.blend_train_bwd_basis_plain(fields, gidx, counts, col, finT, gc, gtt)
     d6, d6_p, d2 = (prc.moments_to_dfields(a, fields) for a in (acc6, acc6_p, acc))
     torch.testing.assert_close(d6, d6_p, atol=1e-4 * float(d6_p.abs().max()), rtol=0,
@@ -336,6 +345,50 @@ def test_cull_exact_on_adversarial_conics():
         assert _cull_family_exact(family, "cuda") > 0, family  # some instance contributes
     n = len(FAMILIES)
     assert [w.launches for w in wrappers] == [b + k * n for b, k in zip(before, (1, 2, 1, 1))]
+
+
+@pytest.mark.cuda
+def test_backward_kernels_repeat_bitwise():
+    """Every sum of the backward runs in a fixed order (no float atomics):
+    three launches of K2, K5, K6b, K4 at each channel set and the slot ->
+    Gaussian reduction on the same inputs are bitwise equal, on a scene of
+    several instances per tile and on the cull family whose instances reach
+    all four quarters of their tiles."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU form")
+    H, W, fields, gidx, counts, bg, gc, gtt = _small_blend_inputs("cuda")
+    scenes = [(H, W, fields, gidx, counts, gc, gtt)]
+    Hf, Wf, ff, gf, cf = packed_family("wide", "cuda")
+    g = torch.Generator().manual_seed(3)
+    scenes.append((Hf, Wf, ff, gf, cf, torch.randn((Hf, Wf), generator=g).cuda(),
+                   torch.randn((Hf, Wf), generator=g).cuda()))
+    for H, W, fields, gidx, counts, gc, gtt in scenes:
+        bg = torch.zeros(1, device="cuda")
+        col, finT = prc.blend_train_fwd(fields, gidx, counts, bg, H, W)
+        slots = _slots(fields, gidx, counts)
+        args = (fields, gidx, counts, col, finT, gc, gtt)
+        runs = {
+            "K2": lambda: prc.blend_train_bwd(*args, slots),
+            "K5": lambda: ptb.blend_moment_bwd(*args),
+            "K6b": lambda: prc.blend_train_bwd_basis(*args, slots),
+        }
+        for geo, invd, ones in CHANNEL_SETS:
+            f = _channel_fields(fields, geo, invd, ones)
+            outs = ptb.tile_blend_fwd(f, gidx, counts, bg, H, W, geo, invd, ones)
+            cots = _cotangents(H, W, "cuda")
+            runs[f"K4 {(geo, invd, ones)}"] = (
+                lambda f=f, outs=outs, cots=cots, s=(geo, invd, ones):
+                ptb.tile_blend_bwd(f, gidx, counts, outs, cots, *s))
+        for name, run in runs.items():
+            first, *again = (run() for _ in range(3))
+            torch.cuda.synchronize()
+            assert float(first.abs().max()) > 0, name
+            assert all(torch.equal(first, a) for a in again), name
+        rows = ptb.blend_moment_bwd(*args)
+        first, *again = (prc.reduce_slots(rows, slots, fields.shape[0]) for _ in range(3))
+        assert all(torch.equal(first, a) for a in again), "reduce_slots"
+        torch.testing.assert_close(first, prc.reduce_slots_plain(rows, slots, fields.shape[0]),
+                                   atol=1e-6 * float(first.abs().max()), rtol=0)
 
 
 # ragged against K7/K8's 32x32 tiles, and some below the 11-tap window

@@ -36,6 +36,7 @@ from curve_gaussian_tpu_torch.ops import projection as pproj
 from curve_gaussian_tpu_torch.ops import rasterize_cuda as prc
 from curve_gaussian_tpu_torch.ops import tile_blend_cuda as ptb
 from test_torch_port_blend import _scene
+from test_torch_port_cull_cases import slots_table
 from test_torch_port_geometry import assert_close, cam_pair, exact_sort, jax_x64, tt
 
 H, W, P = 70, 90, 180
@@ -132,7 +133,8 @@ def _port_blend(fields, jb, bg, cots, geo, invd, ones, moment_bwd=False):
     fields = tt(fields, None).requires_grad_(True)
     bg = tt(bg, None).requires_grad_(True)
     gidx, counts = tt(jb.gather_idx, torch.int32), tt(jb.counts, torch.int32)
-    outs = ptb.tile_blend(fields, gidx, counts, bg, H, W, geo, invd, ones, moment_bwd)
+    slots = torch.from_numpy(slots_table(gidx, counts, fields.shape[0]))
+    outs = ptb.tile_blend(fields, gidx, counts, slots, bg, H, W, geo, invd, ones, moment_bwd)
     dfields, dbg = torch.autograd.grad(outs, (fields, bg), [tt(c, None) for c in cots])
     return outs, dfields, dbg
 
