@@ -43,6 +43,14 @@ What ``train_scene`` does, and how the port does it:
   port raises where the JAX driver would quietly run fewer devices.  Only
   rank 0 writes (the log, test renders, artifacts, checkpoints, the
   extracted curves) and prints.
+- **Profile.** With ``profile_dir`` the second chunk runs with device
+  spans (``engine/spans.py``: device milliseconds a step by module, on
+  every rank) and rank 0 profiles it and the loop's work after it:
+  ``trace.json`` shows the host ranges ``chunk.*`` (``run_chunk``) and
+  ``loop.readback``, ``loop.capacity``, ``loop.surgery.<op>``,
+  ``loop.test_renders``, ``loop.save``; ``spans.json`` holds the spans
+  and the chunk's stamps on the trace's clock.  ``TrainResult.span_ms``
+  carries the spans, and each surgery event its host seconds by op.
 - **Left out as TPU/XLA machinery:** the ``Prewarmer`` and ``engine/warm.py``
   (ahead-of-time compiles), the persistent compile cache, the
   ``device_put`` commits of the state, the padding of every chunk to one
@@ -75,6 +83,7 @@ from ..ops.camera import Camera
 from ..parallel.multihost import check_ranks, group_size
 from ..parallel.sharding import batch_step, make_mesh, parallel_train_steps_scan
 from . import checkpoint as ckpt_mod
+from . import spans
 from .train import (RenderGraphs, StepGraphs, TrainState, camera_stacks, eval_renders,
                     init_train_state, train_step, train_steps_scan)
 
@@ -204,7 +213,8 @@ class TrainResult:
     model_path: str
     pipe_cfg: Optional[PipelineConfig] = None  # final (the capacities may change)
     # what the driver did, in order: surgery (iteration, operations, curves,
-    # capacity, host seconds) and tile/big capacity changes
+    # capacity, host seconds, host seconds by operation) and tile/big
+    # capacity changes
     events: List[dict] = dataclasses.field(default_factory=list)
     # host seconds by phase: steps (with their per-chunk metric reads),
     # capture (the step graphs' warm-up, capture and instantiation),
@@ -216,6 +226,9 @@ class TrainResult:
     graphs: Optional[StepGraphs] = None
     # the test renders' graphs: their captures and replays (released too)
     render_graphs: Optional[RenderGraphs] = None
+    # device milliseconds a step by span (engine/spans.py) over the chunks
+    # that ran with device spans (the profiled chunk of ``profile_dir``)
+    span_ms: Optional[Dict[str, float]] = None
 
 
 def _chunk_metrics(ms: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
@@ -350,15 +363,19 @@ def train_scene(
                 view_stack = list(range(len(cameras)))
             idxs.append(view_stack.pop(rng.randrange(len(view_stack))))
         t_chunk = time.time()
-        # profile the second chunk (the first one pays the kernel builds)
+        # profile the second chunk (the first one pays the kernel builds) with
+        # its device spans, on every rank (a capture of collectives takes them all)
         prof = None
-        if profile_dir is not None and rank0 and iteration > first_iter and not profiled:
-            from torch.profiler import ProfilerActivity, profile
-
-            acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if dev.type == "cuda" else [])
-            prof = profile(activities=acts)
-            prof.__enter__()
+        if profile_dir is not None and iteration > first_iter and not profiled:
             profiled = True
+            graphs.spans = True
+            if rank0:
+                from torch.profiler import ProfilerActivity, profile
+
+                acts = [ProfilerActivity.CPU] + (
+                    [ProfilerActivity.CUDA] if dev.type == "cuda" else [])
+                prof = profile(activities=acts)
+                prof.__enter__()
         capture_s = graphs.capture_seconds
         if parallel:
             # this rank's columns of the chunk's [k, B] view table
@@ -376,69 +393,67 @@ def train_scene(
                 view_indices=idxs if use_exp else None, use_exposure=use_exp, rows=idxs,
                 graphs=graphs,
             )
-        metrics = _chunk_metrics(mt)  # the chunk's one host sync
-        if prof is not None:
-            prof.__exit__(None, None, None)
-            os.makedirs(profile_dir, exist_ok=True)
-            prof.export_chrome_trace(os.path.join(profile_dir, "trace.json"))
-            if not quiet:
-                print(f"profiler trace -> {profile_dir}", flush=True)
+        with spans.host("loop.readback"):
+            metrics = _chunk_metrics(mt)  # the chunk's one host sync
+        graphs.spans = False
         capture_s = graphs.capture_seconds - capture_s
         seconds["capture"] += capture_s
         seconds["steps"] += time.time() - t_chunk - capture_s
 
-        ov = int(metrics["overflow"].sum())
-        tol = pipe_cfg.overflow_tolerance * float(metrics["n_visible"].sum())
-        peak_window.append(int(metrics["tile_peak"].max()))
-        if "big_peak" in metrics:  # the B-view step has none (nor has the JAX one)
-            bigpeak_window.append(int(metrics["big_peak"].max()))
-        if 0 < ov <= tol:
-            k_floor = max(k_floor, pipe_cfg.tile_capacity)
-            print(
-                f"[{iteration + k:6d}] binning dropped {ov} tile candidates "
-                f"(within tolerance {tol:.0f}; occluded tail, not growing)",
-                flush=True,
-            )
-        elif ov > 0:
-            print(
-                f"[{iteration + k:6d}] WARNING: binning dropped {ov} tile "
-                f"candidates this chunk (tile_capacity {pipe_cfg.tile_capacity}"
-                f", policy {pipe_cfg.overflow_policy})",
-                flush=True,
-            )
-            if pipe_cfg.overflow_policy == "raise":
-                raise RuntimeError(
-                    f"tile binning overflow ({ov} candidates dropped at "
-                    f"tile_capacity={pipe_cfg.tile_capacity}); raise "
-                    "--tile-capacity or use overflow_policy='grow'"
-                )
-            if (pipe_cfg.overflow_policy == "grow"
-                    and pipe_cfg.tile_capacity < pipe_cfg.max_tile_capacity):
-                old = pipe_cfg.tile_capacity
-                pipe_cfg = dataclasses.replace(
-                    pipe_cfg, tile_capacity=min(old * 2, pipe_cfg.max_tile_capacity))
+        with spans.host("loop.capacity"):
+            ov = int(metrics["overflow"].sum())
+            tol = pipe_cfg.overflow_tolerance * float(metrics["n_visible"].sum())
+            peak_window.append(int(metrics["tile_peak"].max()))
+            if "big_peak" in metrics:  # the B-view step has none (nor has the JAX one)
+                bigpeak_window.append(int(metrics["big_peak"].max()))
+            if 0 < ov <= tol:
                 k_floor = max(k_floor, pipe_cfg.tile_capacity)
-                cap_event(iteration + k, "tile_capacity", old, pipe_cfg.tile_capacity, "grow")
-                print(f"[{iteration + k:6d}] growing tile_capacity -> "
-                      f"{pipe_cfg.tile_capacity} (from the next chunk)", flush=True)
-        # the big-rect tier grows on its own overflow count, so that the
-        # right capacity grows
-        bov = int(metrics["big_overflow"].sum())
-        if bov > 0:
-            print(
-                f"[{iteration + k:6d}] WARNING: big-rect tier dropped {bov} "
-                f"candidate slots (big_capacity {pipe_cfg.big_capacity})",
-                flush=True,
-            )
-            if (pipe_cfg.overflow_policy == "grow"
-                    and pipe_cfg.big_capacity < pipe_cfg.max_big_capacity):
-                old = pipe_cfg.big_capacity
-                pipe_cfg = dataclasses.replace(
-                    pipe_cfg, big_capacity=min(old * 2, pipe_cfg.max_big_capacity))
-                b_floor = max(b_floor, pipe_cfg.big_capacity)
-                cap_event(iteration + k, "big_capacity", old, pipe_cfg.big_capacity, "grow")
-                print(f"[{iteration + k:6d}] growing big_capacity -> "
-                      f"{pipe_cfg.big_capacity} (from the next chunk)", flush=True)
+                print(
+                    f"[{iteration + k:6d}] binning dropped {ov} tile candidates "
+                    f"(within tolerance {tol:.0f}; occluded tail, not growing)",
+                    flush=True,
+                )
+            elif ov > 0:
+                print(
+                    f"[{iteration + k:6d}] WARNING: binning dropped {ov} tile "
+                    f"candidates this chunk (tile_capacity {pipe_cfg.tile_capacity}"
+                    f", policy {pipe_cfg.overflow_policy})",
+                    flush=True,
+                )
+                if pipe_cfg.overflow_policy == "raise":
+                    raise RuntimeError(
+                        f"tile binning overflow ({ov} candidates dropped at "
+                        f"tile_capacity={pipe_cfg.tile_capacity}); raise "
+                        "--tile-capacity or use overflow_policy='grow'"
+                    )
+                if (pipe_cfg.overflow_policy == "grow"
+                        and pipe_cfg.tile_capacity < pipe_cfg.max_tile_capacity):
+                    old = pipe_cfg.tile_capacity
+                    pipe_cfg = dataclasses.replace(
+                        pipe_cfg, tile_capacity=min(old * 2, pipe_cfg.max_tile_capacity))
+                    k_floor = max(k_floor, pipe_cfg.tile_capacity)
+                    cap_event(iteration + k, "tile_capacity", old, pipe_cfg.tile_capacity,
+                              "grow")
+                    print(f"[{iteration + k:6d}] growing tile_capacity -> "
+                          f"{pipe_cfg.tile_capacity} (from the next chunk)", flush=True)
+            # the big-rect tier grows on its own overflow count, so that the
+            # right capacity grows
+            bov = int(metrics["big_overflow"].sum())
+            if bov > 0:
+                print(
+                    f"[{iteration + k:6d}] WARNING: big-rect tier dropped {bov} "
+                    f"candidate slots (big_capacity {pipe_cfg.big_capacity})",
+                    flush=True,
+                )
+                if (pipe_cfg.overflow_policy == "grow"
+                        and pipe_cfg.big_capacity < pipe_cfg.max_big_capacity):
+                    old = pipe_cfg.big_capacity
+                    pipe_cfg = dataclasses.replace(
+                        pipe_cfg, big_capacity=min(old * 2, pipe_cfg.max_big_capacity))
+                    b_floor = max(b_floor, pipe_cfg.big_capacity)
+                    cap_event(iteration + k, "big_capacity", old, pipe_cfg.big_capacity, "grow")
+                    print(f"[{iteration + k:6d}] growing big_capacity -> "
+                          f"{pipe_cfg.big_capacity} (from the next chunk)", flush=True)
         # per-iteration wall time (the reference's iter_time scalar)
         metrics["iter_time"] = np.full(k, (time.time() - t_chunk) / k, np.float32)
         for j in range(k):
@@ -452,72 +467,87 @@ def train_scene(
         ops = surgery.fired_ops(iteration, opt_cfg)
         if ops:
             t0 = time.time()
-            ts = surgery.apply_schedule(ts, iteration, opt_cfg)
+            op_s: Dict[str, float] = {}
+            ts = surgery.apply_schedule(
+                ts, iteration, opt_cfg,
+                span=lambda op: spans.host(f"loop.surgery.{op}", op_s, op))
             n_alive, cap = int(ts.alive.sum()), ts.alive.shape[0]
             dt_s = time.time() - t0
             seconds["surgery"] += dt_s
             events_log.append(dict(iter=iteration, kind="surgery", ops=ops, curves=n_alive,
-                                   capacity=cap, seconds=dt_s))
+                                   capacity=cap, seconds=dt_s, op_seconds=op_s))
             if not quiet:
                 print(f"[{iteration:6d}] surgery -> {n_alive} curves (capacity {cap})",
                       flush=True)
 
         # adaptive tile capacity: shrink the K and big-tier tables toward
         # the observed peaks (2x headroom, power of two, hysteresis)
-        if peak_window and iteration < opt_cfg.iterations:
-            want = want_tile_capacity(max(peak_window[-3:]), pipe_cfg.tile_capacity, k_floor)
-            want_b = pipe_cfg.big_capacity
-            if bigpeak_window:
-                want_b = want_tile_capacity(max(bigpeak_window[-3:]), pipe_cfg.big_capacity,
-                                            b_floor)
-            if want < pipe_cfg.tile_capacity or want_b < pipe_cfg.big_capacity:
-                pk = max(peak_window[-3:])
-                if want < pipe_cfg.tile_capacity:
-                    cap_event(iteration, "tile_capacity", pipe_cfg.tile_capacity, want, "shrink")
-                if want_b < pipe_cfg.big_capacity:
-                    cap_event(iteration, "big_capacity", pipe_cfg.big_capacity, want_b, "shrink")
-                pipe_cfg = dataclasses.replace(pipe_cfg, tile_capacity=want, big_capacity=want_b)
-                peak_window.clear()
-                bigpeak_window.clear()
-                if not quiet:
-                    print(f"[{iteration:6d}] shrinking tile_capacity -> {want} / "
-                          f"big_capacity -> {want_b} (observed peaks {pk})", flush=True)
+        with spans.host("loop.capacity"):
+            if peak_window and iteration < opt_cfg.iterations:
+                want = want_tile_capacity(max(peak_window[-3:]), pipe_cfg.tile_capacity,
+                                          k_floor)
+                want_b = pipe_cfg.big_capacity
+                if bigpeak_window:
+                    want_b = want_tile_capacity(max(bigpeak_window[-3:]),
+                                                pipe_cfg.big_capacity, b_floor)
+                if want < pipe_cfg.tile_capacity or want_b < pipe_cfg.big_capacity:
+                    pk = max(peak_window[-3:])
+                    if want < pipe_cfg.tile_capacity:
+                        cap_event(iteration, "tile_capacity", pipe_cfg.tile_capacity, want,
+                                  "shrink")
+                    if want_b < pipe_cfg.big_capacity:
+                        cap_event(iteration, "big_capacity", pipe_cfg.big_capacity, want_b,
+                                  "shrink")
+                    pipe_cfg = dataclasses.replace(pipe_cfg, tile_capacity=want,
+                                                   big_capacity=want_b)
+                    peak_window.clear()
+                    bigpeak_window.clear()
+                    if not quiet:
+                        print(f"[{iteration:6d}] shrinking tile_capacity -> {want} / "
+                              f"big_capacity -> {want_b} (observed peaks {pk})", flush=True)
 
         if iteration in test_iterations and test_cameras and rank0:
-            t0 = time.time()
-            l1s, psnrs = [], []
-            # each geometry's views in one call; its stack reaches the host in one copy
-            imgs, maps = [None] * len(test_cameras), {}
-            for idx, stacks, geom in test_groups:
-                stack, full = eval_renders(
-                    ts, stacks, geom, pipe_cfg, bg, range(len(idx)), use_mask=use_mask,
-                    mask_threshold=opt_cfg.mask_threshold, graphs=render_graphs,
-                    full=[j for j, ti in enumerate(idx) if dump_images and ti < 5])
-                host = stack.cpu().numpy()
-                for j, ti in enumerate(idx):
-                    imgs[ti] = host[j]
-                    if j in full:
-                        maps[ti] = full[j]
-            for ti, (img, tg) in enumerate(zip(imgs, test_gts)):
-                l1s.append(float(np.abs(img - tg).mean()))
-                psnrs.append(-10.0 * np.log10(float(np.mean((img - tg) ** 2)) + 1e-12))
-                if ti in maps:
-                    save_debug_images(maps[ti], tg, model_path, iteration, ti)
-            seconds["test_renders"] += time.time() - t0
+            with spans.host("loop.test_renders", seconds, "test_renders"):
+                l1s, psnrs = [], []
+                # each geometry's views in one call; its stack reaches the host in one copy
+                imgs, maps = [None] * len(test_cameras), {}
+                for idx, stacks, geom in test_groups:
+                    stack, full = eval_renders(
+                        ts, stacks, geom, pipe_cfg, bg, range(len(idx)), use_mask=use_mask,
+                        mask_threshold=opt_cfg.mask_threshold, graphs=render_graphs,
+                        full=[j for j, ti in enumerate(idx) if dump_images and ti < 5])
+                    host = stack.cpu().numpy()
+                    for j, ti in enumerate(idx):
+                        imgs[ti] = host[j]
+                        if j in full:
+                            maps[ti] = full[j]
+                for ti, (img, tg) in enumerate(zip(imgs, test_gts)):
+                    l1s.append(float(np.abs(img - tg).mean()))
+                    psnrs.append(-10.0 * np.log10(float(np.mean((img - tg) ** 2)) + 1e-12))
+                    if ti in maps:
+                        save_debug_images(maps[ti], tg, model_path, iteration, ti)
             logger.log(iteration, {"test_l1": np.mean(l1s), "test_psnr": np.mean(psnrs)})
             if not quiet:
                 print(f"[{iteration:6d}] test L1 {np.mean(l1s):.5f} "
                       f"PSNR {np.mean(psnrs):.2f}", flush=True)
 
-        t0 = time.time()
-        if iteration in save_iterations and rank0:
-            save_model_artifacts(ts, model_path, iteration)
-        if iteration in checkpoint_iterations and rank0:
-            ckpt_mod.save_checkpoint(os.path.join(model_path, f"chkpnt{iteration}.npz"), ts)
-        seconds["saves"] += time.time() - t0
+        with spans.host("loop.save", seconds, "saves"):
+            if iteration in save_iterations and rank0:
+                save_model_artifacts(ts, model_path, iteration)
+            if iteration in checkpoint_iterations and rank0:
+                ckpt_mod.save_checkpoint(os.path.join(model_path, f"chkpnt{iteration}.npz"), ts)
+        if prof is not None:  # the profile ends with the chunk's iteration of this loop
+            prof.__exit__(None, None, None)
+            os.makedirs(profile_dir, exist_ok=True)
+            trace = os.path.join(profile_dir, "trace.json")
+            prof.export_chrome_trace(trace)
+            write_spans(graphs, trace, os.path.join(profile_dir, "spans.json"))
+            if not quiet:
+                print(f"profiler trace -> {profile_dir}", flush=True)
 
     graphs.release()
     render_graphs.release()
+    span_ms = graphs.span_ms() or None
     wall = time.time() - t_start
     done = int(ts.step) - first_iter
     if not quiet and done:
@@ -529,6 +559,9 @@ def train_scene(
         elif graphs.exchanges:
             print(f"staged multi-rank steps: exchange {graphs.exchange_seconds:.3f} s host over "
                   f"{graphs.exchanges}", flush=True)
+        if span_ms:
+            print("device spans: " + ", ".join(f"{k} {v:.3f}" for k, v in span_ms.items())
+                  + f" ms per step over {graphs.span_totals.steps}", flush=True)
 
     t0 = time.time()
     host = surgery.extract(ts)
@@ -546,7 +579,19 @@ def train_scene(
     seconds["train"] = wall
     return TrainResult(ts=ts, edge_dict=edge_dict, metrics_path=logger.path,
                        model_path=model_path, pipe_cfg=pipe_cfg, events=events_log,
-                       seconds=seconds, graphs=graphs, render_graphs=render_graphs)
+                       seconds=seconds, graphs=graphs, render_graphs=render_graphs,
+                       span_ms=span_ms)
+
+
+def write_spans(graphs: StepGraphs, trace: str, path: str) -> None:
+    """``spans.json`` beside a profiler trace of a chunk with device spans:
+    milliseconds a step by span, the chunk's steps, and its stamps on the
+    trace's clock (``spans.anchored``)."""
+    span_ms = graphs.span_ms()  # sums the chunk's stamps first
+    names, table = graphs.last_stamps
+    with open(path, "w") as f:
+        json.dump(dict(span_ms=span_ms, steps=table.shape[0],
+                       **spans.anchored(trace, names, table)), f, indent=1)
 
 
 def _view_groups(cameras: Sequence[Camera], dtype, device) -> List[tuple]:

@@ -39,6 +39,7 @@ through the same body.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from typing import Callable, Dict, List, NamedTuple, Optional, Sequence
@@ -53,7 +54,8 @@ from ..ops.camera import Camera
 from ..ops.projection import intrinsics
 from ..ops.render import _flavor, render
 from ..parallel import multihost
-from . import graph_nodes, optim
+from . import graph_nodes, optim, spans
+from .spans import Totals
 
 
 @dataclasses.dataclass
@@ -134,6 +136,8 @@ def step_grads(
     offset = torch.zeros((P, 2), dtype=ref.dtype, device=ref.device, requires_grad=True)
     with torch.enable_grad():
         gauss = cs.gaussians(state, use_mask=use_mask, mask_threshold=opt_cfg.mask_threshold)
+        spans.on_grads([gauss[k] for k in ("xyz", "scale", "quat", "opacity")], "project")
+        spans.mark("sample")
         out = render(
             gauss["xyz"], gauss["scale"], gauss["quat"], gauss["opacity"], cam,
             bg=bg, alive=gauss["alive"], mean2d_offset=offset,
@@ -145,8 +149,10 @@ def step_grads(
             exposure=_exposure_row(params["exposure"], view_idx) if use_exposure else None,
         )
         loss, aux = L.total_loss(state, out, gauss, gt_image, opt_cfg, use_mask, conn_on=conn_on)
+        spans.mark("loss")
         names = list(live)
         gs = torch.autograd.grad(loss, [live[k] for k in names] + [offset], allow_unused=True)
+    spans.mark("sample")
     grads = {k: (g if g is not None else torch.zeros_like(live[k])) for k, g in zip(names, gs)}
     goffset = gs[-1] if gs[-1] is not None else torch.zeros_like(offset)
     visible = out["visibility"] & gauss["alive"]
@@ -313,7 +319,8 @@ class _Buffers:
     state, the view stacks (w2c, proj, centre, intrinsics, ground truth),
     the chunk's tables (the stack rows and exposure rows of each step's
     `views` views, [rows, views], and its learning-rate row), the number of
-    active steps, the step counter and the metric rows."""
+    active steps, the step counter, the metric rows and, made at the first
+    chunk with device spans, the stamp table (``engine/spans.py``)."""
 
     def __init__(self, ts: TrainState, stacks, rows: int, views: int):
         dev = ts.alive.device
@@ -327,6 +334,15 @@ class _Buffers:
         self.n_active = torch.zeros(1, **i64)
         self.counter = torch.zeros(1, **i64)
         self.metrics = torch.zeros((rows, _MAX_METRICS), dtype=torch.float64, device=dev)
+        self.stamps: Optional[torch.Tensor] = None
+
+    def stamp_table(self) -> torch.Tensor:
+        """The stamp table [rows, ``spans.columns(views)``] int64."""
+        if self.stamps is None:
+            rows, views = self.rows.shape
+            self.stamps = torch.zeros((rows, spans.columns(views)), dtype=torch.int64,
+                                      device=self.rows.device)
+        return self.stamps
 
     def load(self, ts: TrainState, stacks, tables, n_active: int) -> None:
         """A chunk's inputs: the state and stacks by device copies, the
@@ -368,7 +384,7 @@ def _step_inputs(b: _Buffers, args: dict, step: int, count: int, opacity_frozen:
 def _write_back(b: _Buffers, new: TrainState, m: dict) -> List[str]:
     """Write a step's new state (unless the step is at or past
     ``n_active``) and its metric row, and advance the counter; returns the
-    metric names of the row."""
+    metric names of the row.  The step's last device span stamp follows."""
     i = b.counter
     with torch.no_grad():
         act = i < b.n_active
@@ -382,6 +398,7 @@ def _write_back(b: _Buffers, new: TrainState, m: dict) -> List[str]:
         vals = torch.stack([m[k].to(torch.float64) for k in names])
         b.metrics[:, : len(names)].index_copy_(0, i, vals[None])
         i.add_(1)
+    spans.end("adam")
     return names
 
 
@@ -394,7 +411,9 @@ def _step_body(b: _Buffers, step_fn, args: dict, step: int, count: int,
     ``step`` and ``count`` are the host numbers of the state the step
     function sees: exact when the body runs eagerly, the capture's own in a
     graph, where nothing in the step reads them (the learning-rate row
-    decides what they would)."""
+    decides what they would).  The step's first device span stamp comes
+    first."""
+    spans.begin()
     state, cam, gt, kw = _step_inputs(b, args, step, count, opacity_frozen)
     new, m = step_fn(state, cam, gt, args["bg"], args["opt_cfg"], args["pipe_cfg"], **kw,
                      lr_row=b.lrs.index_select(0, b.counter)[0])
@@ -429,6 +448,7 @@ def _stage_local(b: _Buffers, step: StagedStep, args: dict, stepno: int, count: 
                  opacity_frozen: bool):
     """The local stage of step ``counter`` of the chunk: the tensors to
     exchange."""
+    spans.begin()
     state, cam, gt, kw = _step_inputs(b, args, stepno, count, opacity_frozen)
     return step.local(state, cam, gt, args["bg"], args["opt_cfg"], args["pipe_cfg"], **kw)
 
@@ -545,6 +565,7 @@ class _Graph:
     record: dict
     exchanged: Optional[tuple] = None  # a staged step's: the local graph's outputs
     fused: bool = False  # a StagedStep captured whole, its collectives inside
+    span_names: Optional[tuple] = None  # with spans: the spans its stamp columns 1.. close
 
 
 class StepGraphs(_Graphs):
@@ -577,10 +598,20 @@ class StepGraphs(_Graphs):
     memory) add up in ``exchange_seconds`` over ``exchanges`` calls.  The
     form never changes on a failure: a capture that fails raises.
 
+    With ``spans`` on, the step stamps its device spans (``engine/spans.py``)
+    into the buffers' stamp table: a graph of its own (``spans`` is part of
+    the key), in the same pool and over the same buffers as the graph
+    without them, which it leaves in place.  Each chunk's table reaches the
+    host in the sync that reads its metrics, and ``span_totals`` sums it:
+    ``span_ms`` gives the device milliseconds a step by span,
+    ``idle_between_steps`` the device's idle share between consecutive
+    steps, and ``last_stamps`` holds the last chunk's table.  With
+    ``spans`` off the step graph holds no stamp, and no table is made.
+
     ``captures`` records each capture (``_Graphs``) with its capacities,
     views and flags."""
 
-    def __init__(self, step=None, fused: Optional[bool] = None):
+    def __init__(self, step=None, fused: Optional[bool] = None, spans: bool = False):
         """`fused` None takes the form ``multihost.captures_collectives``
         picks for the initialized group; True or False fixes it (to hold the
         two forms against each other)."""
@@ -589,7 +620,13 @@ class StepGraphs(_Graphs):
         self.fused = fused
         self.exchange_seconds = 0.0
         self.exchanges = 0
-        self._timings: List[tuple] = []  # (start, end event, replays) of each fused chunk
+        self._fused_seconds = 0.0
+        self._fused_steps = 0
+        self._spans = bool(spans)
+        self.span_totals = Totals()
+        self.last_stamps: Optional[tuple] = None  # (the spans of its columns 1.., [k, C] table)
+        # (event, fold) of each chunk whose timings or stamps are not summed yet
+        self._pending: List[tuple] = []
         self._graphs: Dict[tuple, _Graph] = {}
         self._sizes = self._bufs = None
 
@@ -600,18 +637,59 @@ class StepGraphs(_Graphs):
         return self.fused if self.fused is not None else multihost.captures_collectives()
 
     @property
+    def spans(self) -> bool:
+        """Whether the step stamps its device spans."""
+        return self._spans
+
+    @spans.setter
+    def spans(self, on: bool) -> None:
+        if bool(on) != self._spans:
+            self.span_totals.pause()
+        self._spans = bool(on)
+
+    def _fold(self, wait: bool = True) -> None:
+        """Sum the deferred chunks, in order: all of them, waiting for
+        their events, or (`wait` False) those whose events are done."""
+        while self._pending:
+            event, fold = self._pending[0]
+            if wait:
+                event.synchronize()
+            elif not event.query():
+                return
+            self._pending.pop(0)
+            fold()
+
+    def _add_fused(self, seconds: float, steps: int) -> None:
+        self._fused_seconds += seconds
+        self._fused_steps += steps
+
+    def _add_stamps(self, names: tuple, table: torch.Tensor) -> None:
+        self.span_totals.add(table, names)
+        self.last_stamps = (names, table)
+
+    def span_ms(self) -> Dict[str, float]:
+        """Device milliseconds a step by span over the chunks with spans;
+        waits for the last of them."""
+        self._fold()
+        return self.span_totals.ms()
+
+    def idle_between_steps(self) -> Optional[float]:
+        """The device's idle share between consecutive steps with spans,
+        or None where none ran; waits for the last of them."""
+        self._fold()
+        return self.span_totals.idle_share()
+
+    @property
     def fused_steps(self) -> int:
-        return sum(k for _, _, k in self._timings)
+        self._fold()
+        return self._fused_steps
 
     @property
     def fused_seconds(self) -> float:
         """Device seconds of the fused graphs' replays (CUDA events around
         each chunk's replays); waits for the last of them."""
-        total = 0.0
-        for start, end, _ in self._timings:
-            end.synchronize()
-            total += start.elapsed_time(end) / 1e3
-        return total
+        self._fold()
+        return self._fused_seconds
 
     @property
     def fused_step_ms(self) -> Optional[float]:
@@ -758,26 +836,43 @@ def run_chunk(ts: TrainState, cam_arrays, gts: torch.Tensor, bg, opt_cfg: Optimi
     stacks = (*cam_arrays, gts)
     if any(s.shape[0] != V or s.device != dev for s in stacks):
         raise ValueError("the camera stacks and gts must have one row per view, on one device")
-    tables = (torch.tensor(rows), torch.tensor(vix),
-              torch.tensor([optim.lr_row(opt_cfg, ts.step + i, ts.opt.count + i + 1)
-                            for i in range(k)], dtype=dt))
+    with spans.host("chunk.tables"):
+        tables = (torch.tensor(rows), torch.tensor(vix),
+                  torch.tensor([optim.lr_row(opt_cfg, ts.step + i, ts.opt.count + i + 1)
+                                for i in range(k)], dtype=dt))
     bg = float(bg)
     args = dict(bg=bg, opt_cfg=opt_cfg, pipe_cfg=pipe_cfg, use_mask=use_mask,
                 n_gaussians=n_gaussians, cam_geom=tuple(cam_geom), conn_on=conn_on,
                 use_exposure=use_exposure, batched=batched)
     frozen = ts.opacity_frozen
 
+    def recording(b: _Buffers):
+        """The block's steps stamp their spans when they are on."""
+        if not graphs.spans:
+            return contextlib.nullcontext()
+        return spans.recording(b.stamp_table(), b.counter)
+
     if dev.type != "cuda":
-        b = _Buffers(ts, stacks, k, views)
-        b.load(ts, stacks, tables, n_act)
-        for i in range(k):
-            j = min(i, n_act)
-            names = graphs.eager_step(b, args, ts.step + j, ts.opt.count + j, frozen)
+        with spans.host("chunk.load"):
+            b = _Buffers(ts, stacks, k, views)
+            b.load(ts, stacks, tables, n_act)
+        seqs = set()
+        with spans.host("chunk.replay"), recording(b) as rec:
+            for i in range(k):
+                j = min(i, n_act)
+                names = graphs.eager_step(b, args, ts.step + j, ts.opt.count + j, frozen)
+                if rec is not None:
+                    seqs.add(rec.done)
+        if rec is not None:
+            if len(seqs) != 1:
+                raise RuntimeError(f"the chunk's steps stamped different spans: {seqs}")
+            graphs._add_stamps(seqs.pop(), b.stamps[:k].clone())
     else:
+        graphs._fold(wait=False)
         sizes = (dev, tuple((n, v.shape, v.dtype) for n, v in _state_leaves(ts).items()),
                  tuple((s.shape, s.dtype) for s in stacks), views, batched, opt_cfg, pipe_cfg,
                  bg, tuple(cam_geom), _flavor())
-        key = (use_mask, conn_on, use_exposure, frozen)
+        key = (use_mask, conn_on, use_exposure, frozen, graphs.spans)
         b = graphs._buffers(sizes, ts, stacks, k, views)
         g = graphs._graphs.get(key)
         if g is None:
@@ -793,31 +888,45 @@ def run_chunk(ts: TrainState, cam_arrays, gts: torch.Tensor, bg, opt_cfg: Optimi
                                                        count0, frozen)]
             else:
                 stages = [lambda: _step_body(b, step, args, step0, count0, frozen)]
-            g = graphs._capture(
-                key, lambda: graphs.eager_step(b, args, step0, count0, frozen), stages,
-                lambda: b.load(ts, stacks, tables, n_act),
-                dict(capacity=ts.alive.shape[0], tile_capacity=pipe_cfg.tile_capacity,
-                     big_capacity=pipe_cfg.big_capacity, views=views, use_mask=use_mask,
-                     conn_on=conn_on, use_exposure=use_exposure, fused=fused), fused)
+            with spans.host("chunk.capture"), recording(b) as rec:
+                g = graphs._capture(
+                    key, lambda: graphs.eager_step(b, args, step0, count0, frozen), stages,
+                    lambda: b.load(ts, stacks, tables, n_act),
+                    dict(capacity=ts.alive.shape[0], tile_capacity=pipe_cfg.tile_capacity,
+                         big_capacity=pipe_cfg.big_capacity, views=views, use_mask=use_mask,
+                         conn_on=conn_on, use_exposure=use_exposure, fused=fused,
+                         spans=graphs.spans), fused)
             g.exchanged = held.get("bufs")
-        b.load(ts, stacks, tables, n_act)
-        if g.fused:
-            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-            start.record()
-        for _ in range(k):
-            g.graphs[0].replay()
-            if g.exchanged is not None:
-                graphs.exchange(g.exchanged)
-                g.graphs[1].replay()
-        if g.fused:
-            end.record()
-            graphs._timings.append((start, end, k))
+            g.span_names = rec.done if rec is not None else None
+        with spans.host("chunk.load"):
+            b.load(ts, stacks, tables, n_act)
+        with spans.host("chunk.replay"):
+            if g.fused:
+                start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                start.record()
+            for _ in range(k):
+                g.graphs[0].replay()
+                if g.exchanged is not None:
+                    graphs.exchange(g.exchanged)
+                    g.graphs[1].replay()
+            if g.fused:
+                end.record()
+                graphs._pending.append(
+                    (end, lambda: graphs._add_fused(start.elapsed_time(end) / 1e3, k)))
         g.record["replays"] += k
         names = g.names
+        if g.span_names is not None:
+            # to the host in the sync that reads the metrics
+            host = torch.empty((k, b.stamps.shape[1]), dtype=torch.int64, pin_memory=True)
+            host.copy_(b.stamps[:k], non_blocking=True)
+            copied = torch.cuda.Event()
+            copied.record()
+            graphs._pending.append((copied, lambda: graphs._add_stamps(g.span_names, host)))
 
-    out = {k_: v.clone() for k_, v in b.state.items()}
-    out["is_bezier"], out["alive"] = ts.is_bezier, ts.alive
-    vals = b.metrics[:k, : len(names)].clone()
+    with spans.host("chunk.out"):
+        out = {k_: v.clone() for k_, v in b.state.items()}
+        out["is_bezier"], out["alive"] = ts.is_bezier, ts.alive
+        vals = b.metrics[:k, : len(names)].clone()
     return (_state_of(out, ts.step + n_act, ts.opt.count + n_act, frozen),
             {name: vals[:, j] for j, name in enumerate(names)})
 

@@ -22,6 +22,7 @@ over unchanged.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Dict, Optional
 
@@ -494,33 +495,40 @@ def schedule_fires(iteration: int, opt: OptimizationConfig) -> bool:
     return any(_fires(iteration, opt))
 
 
-def apply_schedule(ts: TrainState, iteration: int, opt: OptimizationConfig) -> TrainState:
+def apply_schedule(ts: TrainState, iteration: int, opt: OptimizationConfig,
+                   span=None) -> TrainState:
     """Run the surgery the schedule prescribes at `iteration`; returns a
     (possibly re-bucketed) TrainState, or `ts` itself when nothing fires.
-    At densify_until the opacities are fixed and frozen."""
+    At densify_until the opacities are fixed and frozen.  `span`, given,
+    is a context manager factory: each fired edit of ``SCHEDULE_OPS`` runs
+    inside ``span(op)`` (the host copy and the repack outside them)."""
     densify, until, prune_trim, split, merge = _fires(iteration, opt)
-    acts = []
+    acts = {}  # the edits of each op that fires, in order
     if densify:
-        acts.append(lambda h: densify_and_prune(h, opt.densify_grad_threshold, opt.opacity_cull))
+        acts["densify"] = [lambda h: densify_and_prune(h, opt.densify_grad_threshold,
+                                                       opt.opacity_cull)]
     if until:
-        acts.append(lambda h: keep(
-            h, ~(1.0 / (1.0 + np.exp(-h.params["opacity_raw"])) <= opt.opacity_cull_second)))
-        acts.append(fix_opacity_host)
+        acts["densify_until"] = [lambda h: keep(
+            h, ~(1.0 / (1.0 + np.exp(-h.params["opacity_raw"])) <= opt.opacity_cull_second)),
+            fix_opacity_host]
     if prune_trim:
-        acts.append(lambda h: only_prune(h, opt.opacity_cull, opt.mask_threshold))
-        acts.append(lambda h: mask_trim_split(h, opt.mask_threshold))
+        acts["prune_trim"] = [lambda h: only_prune(h, opt.opacity_cull, opt.mask_threshold),
+                              lambda h: mask_trim_split(h, opt.mask_threshold)]
     if split:
-        acts.append(lambda h: curve_split_curvature(h, opt.threshold_angle,
-                                                    opt.threshold_angle_skip))
+        acts["split"] = [lambda h: curve_split_curvature(h, opt.threshold_angle,
+                                                         opt.threshold_angle_skip)]
     if merge:
-        acts.append(lambda h: fit_curve_to_line(h, opt.threshold_line, opt.threshold_max_line))
-        acts.append(lambda h: merge_curves(h, opt.distance_threshold, opt.similarity_threshold,
-                                           seed=iteration))
+        acts["merge"] = [lambda h: fit_curve_to_line(h, opt.threshold_line,
+                                                     opt.threshold_max_line),
+                         lambda h: merge_curves(h, opt.distance_threshold,
+                                                opt.similarity_threshold, seed=iteration)]
     if not acts:
         return ts
     host = extract(ts)
-    for act in acts:
-        host = act(host)
+    for op, edits in acts.items():
+        with span(op) if span is not None else contextlib.nullcontext():
+            for edit in edits:
+                host = edit(host)
     new_ts = repack(host, ts)
     if until:
         new_ts = dataclasses.replace(new_ts, opacity_frozen=True)

@@ -9,7 +9,10 @@ inverse-depth, alpha and world-space direction maps, as
 ``mean2d_offset`` is a zeros [P, 2] input added to the projected means; its
 gradient is the screen-space statistic the densification reads.  The
 allmap payload is the view-space main axis, flipped toward the camera, and
-a one, whose channel renders the alpha map.
+a one, whose channel renders the alpha map.  Inside a step with device
+spans on (``engine/spans.py``) it marks the ends of projection, binning,
+``stack_fields`` and the blend, and the gradients of the field rows and of
+the blended image.
 
 Routing of the tile blend (``backend="pallas"``, the name the JAX package's
 configurations carry):
@@ -44,6 +47,7 @@ from typing import Optional
 
 import torch
 
+from ..engine import spans
 from .binning import bin_gaussians
 from .camera import Camera
 from .projection import clip, preprocess
@@ -105,6 +109,7 @@ def render(
     )
     if mean2d_offset is not None:
         pre = pre._replace(mean2d=pre.mean2d + mean2d_offset)
+    spans.mark("project")
     dt, dev = pre.mean2d.dtype, pre.mean2d.device
     P = xyz.shape[0]
     color_ones = color is None
@@ -117,12 +122,16 @@ def render(
     grad = torch.is_grad_enabled() and any(
         t is not None and t.requires_grad for t in (*pre, color))
     binning = bin_gaussians(pre, H, W, capacity=capacity, big_capacity=big_capacity, slots=grad)
+    spans.mark("bin")
     train_cfg = not render_geo and not compute_invdepth and color_ones
     flavor = _flavor() if backend == "pallas" else ""  # the oracle has no flavors
 
     if backend == "pallas" and train_cfg and flavor in ("", "train", "basis"):
-        img, finT = blend_train(stack_fields(pre), binning.gather_idx, binning.counts,
-                                binning.slots, bg_t, H, W, basis=flavor == "basis")
+        fields = stack_fields(pre)
+        spans.mark("project")
+        spans.on_grad(fields, "blend")
+        img, finT = blend_train(fields, binning.gather_idx, binning.counts, binning.slots,
+                                bg_t, H, W, basis=flavor == "basis")
         invd = img.new_zeros((H, W))
         am = img.new_zeros((4, H, W))
     else:
@@ -139,6 +148,8 @@ def render(
         else:
             fields = stack_fields(pre, color, allmap, geo=render_geo, invd=compute_invdepth,
                                   ones=color_ones)
+            spans.mark("project")
+            spans.on_grad(fields, "blend")
             if flavor == "basis" and fields.requires_grad:
                 raise ValueError(
                     "CGT_BLEND_FLAVOR=basis has a backward only for the training channel "
@@ -149,6 +160,8 @@ def render(
                 moment_bwd=train_cfg and flavor == "indirect",
             )
 
+    spans.mark("blend")
+    spans.on_grad(img, "loss")
     if exposure is not None:
         img = img * exposure[0] + exposure[1]
     img = clip(img, 0.0, 1.0)  # JAX's clip: half the gradient passes at a bound

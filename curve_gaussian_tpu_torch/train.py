@@ -70,7 +70,9 @@ def parse_args(argv=None):
     p.add_argument("--tile-capacity", type=int, default=PipelineConfig.tile_capacity)
     p.add_argument("--n-gaussians", type=int, default=12)
     p.add_argument("--profile-dir", default=None,
-                   help="write a torch.profiler trace of one training chunk")
+                   help="write a torch.profiler trace of one training chunk and the "
+                        "training loop's work after it (trace.json), and the chunk's device "
+                        "spans (spans.json)")
     p.add_argument("--scan-chunk", type=int, default=100,
                    help="most training steps between two host reads of the metrics")
     p.add_argument("--views-per-step", type=int, default=1,

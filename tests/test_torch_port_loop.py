@@ -209,11 +209,11 @@ def slice_runs(tmp_path_factory):
             rec["jax_counts"].append((it, int(jnp.sum(new.alive))))
         return new
 
-    def papply_rec(ts, it, opt):
+    def papply_rec(ts, it, opt, **kw):
         if "densify" in psurg.fired_ops(it, opt):
             h = psurg.extract(ts)
             rec["port_grads"].append((h.grad_accum / h.denom).max(axis=1))
-        return papply(ts, it, opt)
+        return papply(ts, it, opt, **kw)
 
     def step_rec(*a, view_idx=None, **k):
         rec["port_views"].append(view_idx)

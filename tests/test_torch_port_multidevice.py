@@ -202,7 +202,8 @@ def _driver(model_path, n_devices=None):
             seed=5, views_per_step=2, n_devices=n_devices, log_every=1, device="cpu")
     finally:
         ploop.parallel_train_steps_scan = scan
-    events = [{k: v for k, v in e.items() if k != "seconds"} for e in res.events]
+    events = [{k: v for k, v in e.items() if k not in ("seconds", "op_seconds")}
+              for e in res.events]
     return dict(leaves=_leaves(res.ts), events=events, tables=tables,
                 edges=res.edge_dict)
 
