@@ -30,7 +30,12 @@ run, on one card.
    three times each on the same inputs and must be bitwise equal (every
    sum of the backward runs in a fixed order); K2 must equal its slot rows
    through the reduction.  K1, the reduction and K8
-   must equal their plain versions; K7 and K8's launch shapes (blocks,
+   must equal their plain versions.  The projection's two kernels
+   (``project_fwd``, ``project_bwd``) on the main path's Gaussians and
+   view 0: every forward output equal to ``preprocess_plain``'s, the four
+   gradients within 1e-5 of the largest of autograd's through it, three
+   launches of each bitwise equal, each timed in one CUDA graph of 50
+   launches beside its bound by bytes and the plain version in a graph; K7 and K8's launch shapes (blocks,
    blocks per SM, waves) are printed, and one K7 call must enqueue one
    device kernel, launched by its wrapper (counted from a CUDA graph
    capture of the call).
@@ -65,8 +70,8 @@ run, on one card.
 6. The captured step's device work: its graph's nodes by type (read with
    the driver's ``cuGraphGetNodes``), beside one eager step captured the
    same way; no host node and no copy from host memory, and the wrappers
-   must have launched K1, K2, the reduction, K7 and K8 once each during
-   the capture.
+   must have launched the projection's two kernels, K1, K2, the
+   reduction, K7 and K8 once each during the capture.
 6b. The view-batched step (``parallel/sharding.py``), B = 2 and B = 4
    views per optimizer step over the bench views, from the same state: one
    step captured whole as a CUDA graph (``parallel_train_steps_scan``), its
@@ -128,18 +133,20 @@ run, on one card.
    of every kernel counted through the replays (``check_step_launches``:
    the wrappers count a captured launch once, so the device's launches
    are their counts less the captures' plus each capture's times its
-   replays; each capture must hold K1, K2, the reduction, K7 and K8 once,
-   the replays must be the iterations, so each of them runs once per step
-   and per eager warm-up step; the test renders replay their render graphs, each
-   capture holding K3 once, so K3 runs once per view of make_scene, per
-   test view rendered and per warm-up render), and eval.json's
+   replays; each capture must hold the projection's two kernels, K1, K2,
+   the reduction, K7 and K8 once, the replays must be the iterations, so
+   each of them runs once per step and per eager warm-up step; the test
+   renders replay their render graphs, each capture holding the
+   projection's forward and K3 once, so K3 runs once per view of
+   make_scene, per test view rendered and per warm-up render, and the
+   projection's forward once more per K3 launch), and eval.json's
    Chamfer, precision, recall and F-score; runs it a second time from the
    same seed, which must end in bitwise-equal state arrays and write
    byte-equal ``parametric_edges.json`` and ``eval.json``; checks that the
    artifacts exist, that the checkpoint loads into a template leaf by leaf
    bitwise,
    and that a second run resumes from it to 600 (the same launch checks
-   over its 50 steps) and writes its own ``parametric_edges.json``.
+   over its 50 steps and its test render at 600) and writes its own ``parametric_edges.json``.
 9b. The driver run of 9 (without the resume) at ``--views-per-step 4``:
    each chunk through ``parallel_train_steps_scan``, each capture holding
    K1, K2, K7 and K8 4 times and each kernel run 4 times per step and
@@ -154,8 +161,9 @@ run, on one card.
       equal the array written, and so must its re-encoding with Paeth on
       every row; the load and one view's read (both unfilter paths) and
       resize are timed on the host;
-   c. K1 (bitwise), K2, K7 and K8 (bitwise) against their plain versions on
-      one training step of the loaded scene, K3 (bitwise) on its eval
+   c. the projection's two kernels (as in 3), K1 (bitwise), K2, K7 and K8
+      (bitwise) against their plain versions on one training step of the
+      loaded scene, K3 (bitwise) on its eval
       render's inputs, K7/K8's launch shapes and one K7 call's device work,
       all at 800x800, and K1 (bitwise) on view 0 of the scene maker at
       1600x1600;
@@ -238,7 +246,7 @@ run, on one card.
       frame and warm-up) bitwise equal to one process on every frame;
    g. ``dryrun_multichip(N)`` over NCCL.
    The ranks' states must be bitwise equal after every chunk.  Then, on
-   cuda:0, K1, K2, K7, K8 (at the bench step) and K3 (at rank 0's band of
+   cuda:0, the projection's two kernels, K1, K2, K7, K8 (at the bench step) and K3 (at rank 0's band of
    ``render_curves``' frame 0) against their plain versions; the kernel
    line gives each rank's launches in e and f.
 
@@ -270,11 +278,11 @@ from curve_gaussian_tpu_torch.engine import train as T
 from curve_gaussian_tpu_torch.engine.graph_nodes import graph_nodes, nccl_kernels
 from curve_gaussian_tpu_torch.models import curve_state as cs
 from curve_gaussian_tpu_torch.models import losses as L
+from curve_gaussian_tpu_torch.ops import projection as PP
 from curve_gaussian_tpu_torch.ops import rasterize_cuda as RC
 from curve_gaussian_tpu_torch.ops import ssim_cuda as SC
 from curve_gaussian_tpu_torch.ops import tile_blend_cuda as TB
 from curve_gaussian_tpu_torch.ops.binning import bin_gaussians, tile_grid
-from curve_gaussian_tpu_torch.ops.projection import preprocess
 from curve_gaussian_tpu_torch.ops.render import render
 from curve_gaussian_tpu_torch.parallel import multihost as MH
 from curve_gaussian_tpu_torch.parallel import sharding as PS
@@ -421,6 +429,11 @@ TOL = {
     # the same D' as K2, its six sums over a tile's pixels in warp tree,
     # warp and quarter order against torch.sum's, then the same recombination
     "blend_train_bwd_basis": 1e-4,
+    # the plain version's float32 operations in its order, its GEMM's and
+    # GEMV's fused multiply-adds included: every output equal
+    "project_fwd": 0.0,
+    # the four gradients' sums in another order than autograd's
+    "project_bwd": 1e-5,
 }
 # K6b against K2 (max error over max |d fields| of K2): the same moments
 # through the raw local sums and their recombination, which cancels terms
@@ -509,7 +522,7 @@ def main() -> None:
 
     # -- kernels against their plain versions, at the main path's shapes ------
     inputs = step_inputs(state, cams[0], gts[0], pipe_cfg, slots=True)
-    kernels, pairs, acc = train_kernels(inputs, gts[0], "", library=True)
+    kernels, pairs, acc = train_kernels(state, cams[0], inputs, gts[0], "", library=True)
     fields, binning, col, finT, gc, gtt = inputs
     k2_inputs = (fields, binning.gather_idx, binning.counts, col, finT, gc, gtt, binning.slots)
     yardsticks(k2_inputs, torch.zeros(1, device=dev))
@@ -611,7 +624,18 @@ def main() -> None:
 
 
 BLEND_SRC = "curve_gaussian_tpu_torch/csrc/tile_blend.cu"
-TRAIN_KERNELS = ("blend_train_fwd", "blend_train_bwd", "reduce_slots", "ssim_fwd", "ssim_bwd")
+PROJECTION_SRC = "curve_gaussian_tpu_torch/csrc/projection.cu"
+# the projection's bytes a Gaussian: the forward reads the mean, scale,
+# quaternion, opacity and alive flag (45 B) and writes mean2d, conic,
+# depth, opacity, radius, extent and valid (41 B); the backward reads the
+# four inputs (44 B) and the four cotangents (28 B) and writes the four
+# gradients (44 B)
+PROJECT_FWD_BYTES = 86
+PROJECT_BWD_BYTES = 116
+TRAIN_KERNELS = ("project_fwd", "project_bwd", "blend_train_fwd", "blend_train_bwd", "reduce_slots",
+                 "ssim_fwd", "ssim_bwd")
+# a render without gradients: the projection's forward, then K3
+RENDER_KERNELS = ("project_fwd", "tile_blend_fwd")
 WRAPPERS = {f.__name__: f for f in T.KERNEL_WRAPPERS}
 
 
@@ -621,6 +645,25 @@ def in_turns(label, kernel, other):
     t = [cuda_ms(f, 20) for f in (other, kernel, kernel, other)]
     print(f"turns {label}: other {t[0]:.4f} ms, kernel {t[1]:.4f} ms, kernel {t[2]:.4f} ms, "
           f"other {t[3]:.4f} ms; kernel / other {(t[1] + t[2]) / (t[0] + t[3]):.3f}", flush=True)
+
+
+def graph_ms(fn, reps: int, iters: int = 20) -> float:
+    """Device milliseconds of one fn(): the median over `iters` replays
+    (``cuda_ms``) of one CUDA graph of `reps` calls, over `reps`.  For a
+    wrapper whose host dispatch outlasts its kernels, as it does inside
+    the captured step."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(reps):
+            fn()
+    ms = cuda_ms(g.replay, iters) / reps
+    del g
+    return ms
 
 
 def launches_bitwise(name: str, label: str, fn, n: int = 3):
@@ -866,7 +909,8 @@ def graphed_step(ts, cams, gts, opt_cfg, pipe_cfg, M, profile=False):
           f"same way {eager_nodes}; peak memory over the capture {peak_capture / 2**30:.3f} "
           f"GiB", flush=True)
     if cap["launches"] != {n: 1 for n in TRAIN_KERNELS}:
-        fail(f"the captured step launched {cap['launches']}, not K1, K2, K7 and K8 once each")
+        fail(f"the captured step launched {cap['launches']}, not the projection, K1, K2, K7 "
+             f"and K8 once each")
     if nodes.get("host", 0) or nodes.get("memcpy_from_host", 0) or not nodes.get("kernel"):
         fail(f"the captured step holds host work or copies from host memory: {nodes}")
 
@@ -1098,8 +1142,9 @@ def check_render_graphs(label: str, rg, n_views: int) -> int:
               f"{c['width']}: {c['seconds']:.3f} s (warm-up {c['warmup_seconds']:.3f}, capture "
               f"{c['capture_seconds']:.3f}, instantiation {c['instantiate_seconds']:.3f}), "
               f"{c['replays']} replays, launches {c['launches']}", flush=True)
-        if c["launches"] != {"tile_blend_fwd": 1}:
-            fail(f"a {label} render capture launched {c['launches']}, not K3 once")
+        if c["launches"] != {n: 1 for n in RENDER_KERNELS}:
+            fail(f"a {label} render capture launched {c['launches']}, not the projection and K3 "
+                 f"once")
     replays = sum(c["replays"] for c in rg.captures)
     if replays != n_views:
         fail(f"the {label} replayed its render graphs {replays} times, not {n_views}")
@@ -1109,14 +1154,15 @@ def check_render_graphs(label: str, rg, n_views: int) -> int:
 def check_step_launches(label: str, counts: dict, graphs, steps: int, eager: dict,
                         views: int = 1, renders=None) -> None:
     """The launch checks of a run through ``train_scene``'s step graphs
-    (``device_launches``).  Every capture must hold K1, K2, K7 and K8
-    `views` times each (once per view of a step) and nothing else, the
-    replays must be the run's steps, and K1, K2, K7 and K8 must have run
-    `views` times per step and per warm-up step on the device; `eager`
-    gives the other kernels' launches.  `renders` = (the run's render
-    graphs, the test views it rendered): their captures and replays are
-    checked (``check_render_graphs``), and K3 must have run once per
-    rendered view and per warm-up render besides `eager`'s."""
+    (``device_launches``).  Every capture must hold the projection's two
+    kernels, K1, K2, K7 and K8 `views` times each (once per view of a
+    step) and nothing else, the replays must be the run's steps, and those
+    kernels must have run `views` times per step and per warm-up step on
+    the device; `eager` gives the other kernels' launches.  `renders` =
+    (the run's render graphs, the test views it rendered): their captures
+    and replays are checked (``check_render_graphs``), and K3 must have
+    run once per rendered view and per warm-up render besides `eager`'s,
+    and the projection's forward once more per K3 launch."""
     device = device_launches(counts, graphs, *([renders[0]] if renders else []))
     if renders:
         warm = check_render_graphs(label, *renders)
@@ -1133,11 +1179,15 @@ def check_step_launches(label: str, counts: dict, graphs, steps: int, eager: dic
               f"{c['capture_seconds']:.3f}, instantiation {c['instantiate_seconds']:.3f}), "
               f"{c['replays']} replays, launches {c['launches']}", flush=True)
         if c["launches"] != {n: views for n in TRAIN_KERNELS}:
-            fail(f"a {label} capture launched {c['launches']}, not K1, K2, K7 and K8 "
-                 f"{views} times each")
+            fail(f"a {label} capture launched {c['launches']}, not the projection, K1, K2, K7 "
+                 f"and K8 {views} times each")
     if replays != steps:
         fail(f"the {label} replayed its step graphs {replays} times, not {steps}")
-    want = {**{n: views * (steps + graphs.warmup_steps) for n in TRAIN_KERNELS}, **eager}
+    want = {n: views * (steps + graphs.warmup_steps) for n in TRAIN_KERNELS}
+    for n, v in eager.items():
+        want[n] = want.get(n, 0) + v
+    # every render outside the step (an expected K3 launch) projects its Gaussians once
+    want["project_fwd"] += want.get("tile_blend_fwd", 0)
     for n, v in want.items():
         if device[n] != v:
             fail(f"the {label} launched {n} {device[n]} times on the device, not {v}")
@@ -1279,8 +1329,8 @@ def render_turns(label: str, ts, cams, pipe_cfg, smi: str) -> int:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     (g_stack, g_maps), c = run_path(f"{label} graphed eval render", lambda: graphed(views),
-                                    ("tile_blend_fwd",),
-                                    tuple(n for n in WRAPPERS if n != "tile_blend_fwd"))
+                                    RENDER_KERNELS,
+                                    tuple(n for n in WRAPPERS if n not in RENDER_KERNELS))
     peak_capture = torch.cuda.max_memory_allocated()
     (cap,) = rg.captures
     r = rg.latest()
@@ -1292,7 +1342,7 @@ def render_turns(label: str, ts, cams, pipe_cfg, smi: str) -> int:
           f"instantiation {cap['instantiate_seconds']:.3f}), wrapper launches in the capture "
           f"{cap['launches']}, K3 on the device {k3}; graph_nodes {nodes}; peak memory over the "
           f"first call {peak_capture / 2**30:.3f} GiB", flush=True)
-    if cap["launches"] != {"tile_blend_fwd": 1} or k3 != len(views) + 1:
+    if cap["launches"] != {n: 1 for n in RENDER_KERNELS} or k3 != len(views) + 1:
         fail(f"the {label} render capture launched {cap['launches']} and K3 ran {k3} times on "
              f"the device, not once and {len(views)} + 1")
     if nodes.get("host", 0) or nodes.get("memcpy_from_host", 0) or not nodes.get("kernel"):
@@ -1735,7 +1785,10 @@ def driver(dev):
     print(f"driver resume: {ck_it} -> {int(res2.ts.step)} in {time.time() - t0:.2f} s, "
           f"{len(res2.edge_dict['curves_ctl_pts'])} curves and "
           f"{len(res2.edge_dict['lines_end_pts'])} lines extracted", flush=True)
-    check_step_launches("driver resume", c2, res2.graphs, n_it - ck_it, {})
+    check_step_launches("driver resume", c2, res2.graphs, n_it - ck_it,
+                        dict(tile_blend_fwd=a.synthetic_views),
+                        renders=(res2.render_graphs,
+                                 2 * sum(t > ck_it for t in a.test_iterations)))
     if int(res2.ts.step) != n_it or not os.path.exists(
             os.path.join(resume_dir, "parametric_edges.json")):
         fail(f"the resumed run did not train {ck_it} -> {n_it} and write its "
@@ -1820,14 +1873,108 @@ def k1_entry(label, fields, b, H, W, pairs=None):
     return k, pairs
 
 
-def train_kernels(inputs, gt, label, library=False):
-    """K1 (bitwise), K2, the slot -> Gaussian reduction (bitwise), K7 and K8
-    (bitwise) against their plain versions on one training step's inputs
-    (``step_inputs``), K2 and the reduction three times each (bitwise
-    equal), timed beside their bounds and the reduction beside
-    ``index_add_``; with `library`, K7/K8 beside a cuDNN conv2d SSIM and its
-    autograd backward; returns (their five kernel entries, the pair counts,
-    K2's moments)."""
+def projection_kernels(state, cam, label):
+    """The projection's two kernels against ``preprocess_plain`` on the
+    Gaussians of `state` at view `cam` (a training step's, as
+    ``step_inputs`` projects them), with seeded cotangents: every forward
+    output equal, the four gradients within ``TOL['project_bwd']`` of the
+    largest of autograd's through the plain version; each kernel three
+    times on the same inputs (bitwise equal); each timed in one CUDA graph
+    of 50 launches (``graph_ms``), beside its bound by bytes and the plain
+    version in a graph (the backward's: the forward and backward's less
+    the forward's); returns their two kernel entries."""
+    dev = state.alive.device
+    g = cs.gaussians(state)
+    ins = [g[k].detach().contiguous() for k in ("xyz", "scale", "quat", "opacity")]
+    alive = g["alive"].contiguous()
+    P = ins[0].shape[0]
+    gen = torch.Generator(dev).manual_seed(0)
+    cot = [torch.randn(sh, device=dev, generator=gen) for sh in ((P, 2), (P, 3), (P,), (P,))]
+    needs = (True,) * 4
+
+    def run(fn):
+        leaves = [t.clone().requires_grad_(True) for t in ins]
+        with torch.enable_grad():
+            pre = fn(*leaves, cam, alive=alive)
+            outs = (pre.mean2d, pre.conic, pre.depth, pre.opacity)
+            grads = torch.autograd.grad(sum((o * c).sum() for o, c in zip(outs, cot)), leaves)
+        return PP.Preprocessed(*(t.detach() for t in pre)), grads
+
+    n_fwd, n_bwd = PP.project_fwd.launches, PP.project_bwd.launches
+    pre, grads = run(PP.preprocess)
+    ref, ref_grads = run(PP.preprocess_plain)
+    torch.cuda.synchronize()
+    if (PP.project_fwd.launches - n_fwd, PP.project_bwd.launches - n_bwd) != (1, 1):
+        fail(f"preprocess on the card launched the projection kernels "
+             f"{PP.project_fwd.launches - n_fwd} and {PP.project_bwd.launches - n_bwd} times, "
+             f"not once each")
+    unequal = {}
+    for name in PP.Preprocessed._fields:
+        a, r = getattr(pre, name), getattr(ref, name)
+        bad = int(((a != r) & ~(a.isnan() & r.isnan()) if a.is_floating_point() else a != r)
+                  .sum())
+        if bad:
+            unequal[name] = bad
+    # NaN against NaN counts as equal
+    floats = [(getattr(pre, n).nan_to_num(), getattr(ref, n).nan_to_num())
+              for n in ("mean2d", "conic", "depth", "opacity", "extent")]
+
+    def flat_fwd():
+        return torch.cat([t.reshape(-1).float()
+                          for t in PP.project_fwd(*ins, alive, cam, 1.0, False)])
+
+    def flat_bwd():
+        return torch.cat([t.reshape(-1)
+                          for t in PP.project_bwd(*ins, cam, 1.0, False, cot, needs)])
+
+    where = label or "main path"
+    launches_bitwise("project_fwd", where, flat_fwd)
+    launches_bitwise("project_bwd", where, flat_bwd)
+
+    def plain_fwd():
+        with torch.no_grad():
+            PP.preprocess_plain(*ins, cam, alive=alive)
+
+    plain_f = graph_ms(plain_fwd, 3)
+    plain_fb = graph_ms(lambda: run(PP.preprocess_plain), 3)
+    bf, byf = bound_ms(P * PROJECT_FWD_BYTES, 0)
+    bb, byb = bound_ms(P * PROJECT_BWD_BYTES, 0)
+    kf = dict(
+        name="project_fwd", route="cuda", source=PROJECTION_SRC,
+        replaces="curve_gaussian_tpu/ops/projection.py:146", launches=0,
+        max_abs_err=max((a - r).abs().max().item() for a, r in floats),
+        rel_err=max(rel_err(a, r) for a, r in floats),
+        ms=graph_ms(lambda: PP.project_fwd(*ins, alive, cam, 1.0, False), 50),
+        plain_ms=plain_f, bound_ms=bf, bound_by=byf, library_ms=None)
+    kb = dict(
+        name="project_bwd", route="cuda", source=PROJECTION_SRC,
+        replaces="curve_gaussian_tpu/ops/projection.py:146", launches=0,
+        max_abs_err=max((a - r).abs().max().item() for a, r in zip(grads, ref_grads)),
+        rel_err=max(rel_err(a, r) for a, r in zip(grads, ref_grads)),
+        ms=graph_ms(lambda: PP.project_bwd(*ins, cam, 1.0, False, cot, needs), 50),
+        plain_ms=plain_fb - plain_f, bound_ms=bb, bound_by=byb, library_ms=None)
+    print(f"kernel project_fwd {where}: P={P} ({int(alive.sum())} alive, {int(ref.valid.sum())} "
+          f"valid), outputs unequal to the plain version's {unequal or 'none'}; plain forward "
+          f"{plain_f:.4f} ms, plain forward and backward {plain_fb:.4f} ms (each one CUDA "
+          f"graph)", flush=True)
+    for k in (kf, kb):
+        report(k, label and f"{label} P={P}")
+    if unequal:
+        fail(f"the projection's forward is not equal to its plain version "
+             f"{label or 'on the main path'}: unequal entries {unequal}")
+    return [kf, kb]
+
+
+def train_kernels(state, cam, inputs, gt, label, library=False):
+    """The projection's kernels (``projection_kernels``) on the Gaussians
+    of `state` at view `cam`, then K1 (bitwise), K2, the slot -> Gaussian
+    reduction (bitwise), K7 and K8 (bitwise) against their plain versions
+    on that training step's inputs (``step_inputs``), K2 and the reduction
+    three times each (bitwise equal), timed beside their bounds and the
+    reduction beside ``index_add_``; with `library`, K7/K8 beside a cuDNN
+    conv2d SSIM and its autograd backward; returns (their seven kernel
+    entries, the pair counts, K2's moments)."""
+    kproj = projection_kernels(state, cam, label)
     fields, b, col, finT, gc, gtt = inputs
     gidx, counts = b.gather_idx, b.counts
     H, W = col.shape
@@ -1936,7 +2083,7 @@ def train_kernels(inputs, gt, label, library=False):
         report(k, shape)
     if not (torch.equal(d1, d1p) and torch.equal(d2, d2p)):
         fail(f"K8 is not equal to its plain version {label or 'on the main path'}'s pair")
-    return [k1, k2, kr, k7, k8], pairs, acc
+    return kproj + [k1, k2, kr, k7, k8], pairs, acc
 
 
 def dataset_scene(dev, smi: str, profile=False):
@@ -2000,7 +2147,7 @@ def dataset_scene(dev, smi: str, profile=False):
                           device=dev)
     gt = torch.as_tensor(scene.train_edge_maps[0], device=dev)
     inputs = step_inputs(state, cam0, gt, pipe_cfg, slots=True)
-    train_kernels(inputs, gt, "dataset step")
+    train_kernels(state, cam0, inputs, gt, "dataset step")
     ssim_checks(inputs[2], gt)
     fields3, b3 = tile_inputs(state, cam0, pipe_cfg, True, True, True)
     k3_entry("dataset eval render", fields3, b3, H, W, True, True, True)
@@ -2010,7 +2157,7 @@ def dataset_scene(dev, smi: str, profile=False):
     _, _, splats = MK.scene_splats(mk_args, dev)
     cam_full = synthetic.ring_cameras(mk_args.views, mk_args.size, mk_args.size, device=dev)[0]
     with torch.no_grad():
-        pre = preprocess(*splats, cam_full)
+        pre = PP.preprocess(*splats, cam_full)
         bf = bin_gaussians(pre, mk_args.size, mk_args.size, capacity=mk_args.tile_capacity,
                            big_capacity=1024)
         ff = RC.stack_fields(pre).contiguous()
@@ -2141,7 +2288,7 @@ def eval_export(dev, ts, cams, gts, pipe_cfg, scene):
     a = RV.parse_args(argv)
     t0 = time.time()
     res, c = run_path("render_curves", lambda: RV.render_curves(argv, quiet=True),
-                      ("tile_blend_fwd",), tuple(n for n in WRAPPERS if n != "tile_blend_fwd"))
+                      RENDER_KERNELS, tuple(n for n in WRAPPERS if n not in RENDER_KERNELS))
     wall = time.time() - t0
     n = len(res["sha256"])
     warm = check_render_graphs("render_curves", res["graphs"], n)
@@ -2665,7 +2812,8 @@ def cards_main(n: int) -> None:
            for _ in range(CARDS_VIEWS)]
     state = cs.init_state(synthetic.grid_seed_points(15), n_views=CARDS_VIEWS, n_gaussians=12,
                           device=dev)
-    kernels, _, _ = train_kernels(step_inputs(state, cams[0], gts[0], PipelineConfig(),
+    kernels, _, _ = train_kernels(state, cams[0],
+                                  step_inputs(state, cams[0], gts[0], PipelineConfig(),
                                               slots=True), gts[0],
                                   "", library=True)
     a = RV.parse_args(["--edges", "unused", "--device", "cuda:0"])

@@ -3,15 +3,28 @@
 Mirrors ``curve_gaussian_tpu/ops/projection.py``: near-plane cull at
 z_view <= 0.2, EWA x/y clamp at 1.3 * tanfov, +0.3 px low-pass dilation,
 optional antialiasing compensation, conic, radius = ceil(3 sqrt(lambda_max))
-and the exact alpha-support extent.  The backward is torch autograd through
-these formulas.
+and the exact alpha-support extent.
+
+``preprocess_plain`` is these formulas in plain PyTorch, differentiated by
+autograd.  ``preprocess`` takes it for CPU tensors; for CUDA tensors it
+launches the projection kernels of ``csrc/projection.cu`` or raises:
+``project_fwd`` computes every output in one thread per Gaussian, and
+``project_bwd``, the backward of a ``torch.autograd.Function``, recomputes
+the forward's intermediates and writes the gradients of the means, scales,
+quaternions and opacities, with autograd's rules of the plain version
+(JAX's half gradient at a tie of the frustum clamp, ``torch.clamp``'s full
+gradient at the antialiasing clamp's bound, none through the radius, the
+extent or the validity, which feed only the binning).  The kernels replace
+no Pallas kernel: the JAX package leaves projection to XLA.
 """
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple
 
 import torch
 
+from .. import _build
 from .camera import Camera
 from .quaternion import quat_to_rotmat
 
@@ -131,7 +144,7 @@ def ndc2pix(v: torch.Tensor, size: int) -> torch.Tensor:
     return ((v + 1.0) * size - 1.0) * 0.5
 
 
-def preprocess(
+def preprocess_plain(
     mean3d: torch.Tensor,
     scale: torch.Tensor,
     quat: torch.Tensor,
@@ -141,8 +154,8 @@ def preprocess(
     antialiasing: bool = False,
     alive: torch.Tensor | None = None,
 ) -> Preprocessed:
-    """mean3d [P,3], scale [P,3], quat [P,4], opacity [P]; `alive` masks
-    out capacity padding."""
+    """Plain PyTorch ``preprocess``, differentiated by autograd, on any
+    device and dtype."""
     hom = mean3d @ cam.full_proj[:3, :3].T + cam.full_proj[:3, 3]
     w = mean3d @ cam.full_proj[3, :3] + cam.full_proj[3, 3]
     inv_w = 1.0 / (w + 1e-7)
@@ -191,3 +204,140 @@ def preprocess(
         extent=ext,
         valid=valid,
     )
+
+
+_VP = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+
+
+def _lib():
+    """The projection kernels' library, ``csrc/projection.cu``."""
+    lib = _build.load("projection")
+    if not getattr(lib, "_typed", False):
+        lib.project_fwd.argtypes = [_VP] * 8 + [_F] * 5 + [_I] * 4 + [_VP] * 8
+        lib.project_bwd.argtypes = [_VP] * 7 + [_F] * 5 + [_I] * 4 + [_VP] * 9
+        lib.project_fwd.restype = lib.project_bwd.restype = _I
+        lib._typed = True
+    return lib
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _check_inputs(mean3d, scale, quat, opacity, cam: Camera, alive) -> None:
+    dev = mean3d.device
+    P = mean3d.shape[0]
+    for name, t, shape in (("mean3d", mean3d, (P, 3)), ("scale", scale, (P, 3)),
+                           ("quat", quat, (P, 4)), ("opacity", opacity, (P,)),
+                           ("cam.world_to_cam", cam.world_to_cam, (4, 4)),
+                           ("cam.full_proj", cam.full_proj, (4, 4)),
+                           ("cam.intrinsics", cam.intrinsics, (4,))):
+        if t is None:
+            continue
+        if (t.dtype != torch.float32 or tuple(t.shape) != shape or t.device != dev
+                or not t.is_contiguous()):
+            raise ValueError(f"{name} must be a contiguous float32 {list(shape)} tensor on "
+                             f"{dev}, got {t.dtype} {tuple(t.shape)} on {t.device}")
+    if alive is not None and (alive.dtype != torch.bool or tuple(alive.shape) != (P,)
+                              or alive.device != dev or not alive.is_contiguous()):
+        raise ValueError(f"alive must be a contiguous bool [{P}] tensor on {dev}, got "
+                         f"{alive.dtype} {tuple(alive.shape)} on {alive.device}")
+
+
+def _camera_args(cam: Camera) -> tuple:
+    """The kernels' camera arguments: the three device pointers (the
+    intrinsics' null when the camera has none) and the four intrinsics as
+    float32 launch arguments, read in their place."""
+    intr = (0.0,) * 4 if cam.intrinsics is not None else intrinsics(
+        cam.height, cam.width, cam.tanfovx, cam.tanfovy)
+    return (_ptr(cam.world_to_cam), _ptr(cam.full_proj), _ptr(cam.intrinsics), *intr)
+
+
+def project_fwd(mean3d, scale, quat, opacity, alive, cam: Camera, scale_modifier: float,
+                antialiasing: bool) -> Preprocessed:
+    """The forward kernel: every output of ``preprocess`` from CUDA
+    tensors checked by ``_check_inputs``."""
+    P = mean3d.shape[0]
+    dev = mean3d.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    out = Preprocessed(
+        mean2d=torch.empty((P, 2), **f32), conic=torch.empty((P, 3), **f32),
+        depth=torch.empty((P,), **f32), opacity=torch.empty((P,), **f32),
+        radius=torch.empty((P,), dtype=torch.int32, device=dev),
+        extent=torch.empty((P, 2), **f32), valid=torch.empty((P,), dtype=torch.bool, device=dev))
+    lib = _lib()
+    code = lib.project_fwd(
+        *(_ptr(t) for t in (mean3d, scale, quat, opacity, alive)), *_camera_args(cam),
+        scale_modifier, P, cam.height, cam.width, int(antialiasing), *(_ptr(t) for t in out),
+        torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(lib, code, "project_fwd")
+    project_fwd.launches += 1
+    return out
+
+
+def project_bwd(mean3d, scale, quat, opacity, cam: Camera, scale_modifier: float,
+                antialiasing: bool, cotangents, needs) -> list:
+    """The backward kernel: [d mean3d, d scale, d quat, d opacity], None
+    where ``needs`` is false, from the cotangents of (mean2d, conic, depth,
+    opacity), each None for zero."""
+    dev = mean3d.device
+    cot = [None if g is None else g.contiguous() for g in cotangents]
+    grads = [torch.empty_like(t) if n else None
+             for t, n in zip((mean3d, scale, quat, opacity), needs)]
+    lib = _lib()
+    code = lib.project_bwd(
+        *(_ptr(t) for t in (mean3d, scale, quat, opacity)), *_camera_args(cam), scale_modifier,
+        mean3d.shape[0], cam.height, cam.width, int(antialiasing), *(_ptr(g) for g in cot),
+        *(_ptr(g) for g in grads), torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(lib, code, "project_bwd")
+    project_bwd.launches += 1
+    return grads
+
+
+project_fwd.launches = 0
+project_bwd.launches = 0
+
+
+class _Project(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, mean3d, scale, quat, opacity, alive, cam, scale_modifier, antialiasing):
+        out = project_fwd(mean3d, scale, quat, opacity, alive, cam, scale_modifier, antialiasing)
+        ctx.mark_non_differentiable(out.radius, out.extent, out.valid)
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(mean3d, scale, quat, opacity)
+        ctx.cam, ctx.scale_modifier, ctx.antialiasing = cam, scale_modifier, antialiasing
+        return tuple(out)
+
+    @staticmethod
+    def backward(ctx, g_mean2d, g_conic, g_depth, g_opacity, _radius, _extent, _valid):
+        cot = (g_mean2d, g_conic, g_depth, g_opacity)
+        needs = ctx.needs_input_grad[:4]
+        grads = [None] * 4
+        if any(needs) and any(g is not None for g in cot):
+            grads = project_bwd(*ctx.saved_tensors, ctx.cam, ctx.scale_modifier,
+                                ctx.antialiasing, cot, needs)
+        return (*grads, None, None, None, None)
+
+
+def preprocess(
+    mean3d: torch.Tensor,
+    scale: torch.Tensor,
+    quat: torch.Tensor,
+    opacity: torch.Tensor,
+    cam: Camera,
+    scale_modifier: float = 1.0,
+    antialiasing: bool = False,
+    alive: torch.Tensor | None = None,
+) -> Preprocessed:
+    """mean3d [P,3], scale [P,3], quat [P,4], opacity [P]; `alive` masks
+    out capacity padding.  CPU tensors take ``preprocess_plain``; CUDA
+    tensors (float32, contiguous, the camera's on the same device) take
+    the projection kernels, differentiable in the four inputs."""
+    if not mean3d.is_cuda:
+        return preprocess_plain(mean3d, scale, quat, opacity, cam, scale_modifier=scale_modifier,
+                                antialiasing=antialiasing, alive=alive)
+    _check_inputs(mean3d, scale, quat, opacity, cam, alive)
+    return Preprocessed(*_Project.apply(mean3d, scale, quat, opacity, alive, cam,
+                                        float(scale_modifier), bool(antialiasing)))

@@ -2,7 +2,7 @@
 inverse-depth, alpha and world-space direction maps, as
 ``curve_gaussian_tpu/ops/render.py``:
 
-    preprocess (autograd) -> bin_gaussians (integer, no gradient)
+    preprocess (kernels on the card) -> bin_gaussians (integer, no gradient)
         -> stack_fields -> tile blend (kernels) -> exposure -> clip
         -> direction map back to world space
 
@@ -37,8 +37,9 @@ and the training route needs K <= 1024.  Here every kernel reads the
 fields through ``gather_idx``, any K works, and the flavor names only the
 backward kernel.
 
-``backend="reference"`` renders through ``rasterize_reference`` with the
-binning's tile membership, so both backends see the same candidates.
+``backend="reference"`` projects with ``preprocess_plain`` and renders
+through ``rasterize_reference`` with the binning's tile membership, so
+both backends see the same candidates and the oracle runs no kernel.
 """
 from __future__ import annotations
 
@@ -50,7 +51,7 @@ import torch
 from ..engine import spans
 from .binning import bin_gaussians
 from .camera import Camera
-from .projection import clip, preprocess
+from .projection import clip, preprocess, preprocess_plain
 from .quaternion import quat_to_rotmat
 from .rasterize_cuda import blend_train, stack_fields
 from .rasterize_ref import membership, rasterize_reference
@@ -103,7 +104,8 @@ def render(
     if backend not in ("pallas", "reference"):
         raise ValueError(f"backend={backend!r} is not 'pallas' or 'reference'")
     H, W = cam.height, cam.width
-    pre = preprocess(
+    project = preprocess if backend == "pallas" else preprocess_plain
+    pre = project(
         xyz, scale, quat, opacity, cam,
         scale_modifier=scale_modifier, antialiasing=antialiasing, alive=alive,
     )
