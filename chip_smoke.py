@@ -244,8 +244,16 @@ run, on one card.
    f. ``render_curves --n-devices N`` of the driver's curves (each rank's
       band and the sum one captured graph with NCCL kernels, K3 once per
       frame and warm-up) bitwise equal to one process on every frame;
-   g. ``dryrun_multichip(N)`` over NCCL.
-   The ranks' states must be bitwise equal after every chunk.  Then, on
+   g. ``dryrun_multichip(N)`` over NCCL;
+   h. (after a.) the fused form's 20 steps with device spans
+      (``engine/spans.py``): the seven spans on every rank, ``exchange``
+      from the stamp before the SUM to the one after the MAX, each rank's
+      exchange ms printed beside the others'; ``exchange_bytes`` of both
+      forms equal to the buffers'.
+   The ranks' states must be bitwise equal after every chunk.  Each rank
+   has ``CARDS_TIMEOUT_S``; one still running ``CARDS_STACKS_BEFORE_S``
+   before it prints every thread's Python stack, and a phase that times out
+   prints each rank's exit or time-out, its seconds and its output.  Then, on
    cuda:0, the projection's two kernels, K1, K2, K7, K8 (at the bench step) and K3 (at rank 0's band of
    ``render_curves``' frame 0) against their plain versions; the kernel
    line gives each rank's launches in e and f.
@@ -273,7 +281,7 @@ from curve_gaussian_tpu_torch import _build
 from curve_gaussian_tpu_torch.config import OptimizationConfig, PipelineConfig
 from curve_gaussian_tpu_torch.data import png as PNG
 from curve_gaussian_tpu_torch.data import synthetic
-from curve_gaussian_tpu_torch.engine import optim
+from curve_gaussian_tpu_torch.engine import optim, spans
 from curve_gaussian_tpu_torch.engine import train as T
 from curve_gaussian_tpu_torch.engine.graph_nodes import graph_nodes, nccl_kernels
 from curve_gaussian_tpu_torch.models import curve_state as cs
@@ -2740,7 +2748,12 @@ def rank_main(rank: int) -> None:
 
 
 CARDS_DIR = os.path.join(DRIVER_DIR, "cards")
-CARDS_TIMEOUT_S = 600  # every rank's whole phase
+# every rank's whole phase; under any call limit that holds two such phases
+# (--cards 2 then --cards 4), so a phase that runs out still prints its ranks
+CARDS_TIMEOUT_S = 420
+# a rank still running this many seconds before the deadline prints the
+# Python stack of each of its threads, so a hang names where it waits
+CARDS_STACKS_BEFORE_S = 20
 CARDS_VIEWS = 4  # views a step, CARDS_VIEWS / N a rank
 CARDS_STEPS = 20
 
@@ -2791,6 +2804,8 @@ def cards_main(n: int) -> None:
     res = MH.run_ranks([[sys.executable, os.path.abspath(__file__), "--cards", str(n), "--rank",
                          str(r)] for r in range(n)], CARDS_TIMEOUT_S, env=env)
     for r in res:
+        print(f"rank {r.rank}: {'timed out' if r.timed_out else f'exit {r.returncode}'} after "
+              f"{r.seconds:.1f} s (limit {CARDS_TIMEOUT_S} s)", flush=True)
         for line in r.output.splitlines():
             print(f"[rank {r.rank}] {line}", flush=True)
     bad = MH.failures(res)
@@ -2872,7 +2887,10 @@ def cards_rank_main(n: int, rank: int) -> None:
     from curve_gaussian_tpu_torch.parallel import dryrun as DRY
     from curve_gaussian_tpu_torch.scripts import render_curves as RV
 
+    import faulthandler
+
     t_start = time.time()
+    faulthandler.dump_traceback_later(CARDS_TIMEOUT_S - CARDS_STACKS_BEFORE_S)
     dev = torch.device("cuda", rank)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2953,6 +2971,9 @@ def cards_rank_main(n: int, rank: int) -> None:
     nbytes = sum(b.numel() * b.element_size() for b in bufs)
     print(f"one step exchanges {nbytes} bytes a rank: SUM of {bufs[0].numel()} and MAX of "
           f"{bufs[1].numel()} {bufs[0].dtype}", flush=True)
+    if [g.exchange_bytes for g in forms.values()] != [nbytes, nbytes]:
+        fail(f"the step graphs count {[g.exchange_bytes for g in forms.values()]} bytes "
+             f"exchanged, the buffers hold {nbytes}")
 
     # -- a. 20 steps of each form in turns ---------------------------------------------------
     table = [[(i * CARDS_VIEWS + j) % n_views for j in range(CARDS_VIEWS)]
@@ -2992,6 +3013,24 @@ def cards_rank_main(n: int, rank: int) -> None:
     # -- d. launches on the device -----------------------------------------------------------
     for form, g in forms.items():
         check_step_launches(f"{form} step", counts[form], g, steps_run[form], {}, views=per)
+
+    # -- h. the fused step with device spans: the exchange span on every rank ---------------
+    fg = forms["fused"]
+    fg.spans = True
+    run("fused", table)
+    fg.spans = False
+    span_ms = fg.span_ms()  # sums the chunk's stamps first
+    names, stamps = fg.last_stamps
+    every = [None] * n
+    dist.all_gather_object(every, span_ms.get(spans.EXCHANGE))
+    print(f"fused step with device spans, rank {rank}: " + ", ".join(
+        f"{k} {v:.4f}" for k, v in span_ms.items()) + f" ms a step (sum "
+        f"{sum(span_ms.values()):.4f}); exchange ms by rank {every}", flush=True)
+    t = stamps[:, : len(names) + 1]
+    if (list(span_ms) != list(spans.SPANS) + [spans.EXCHANGE]
+            or names.count(spans.EXCHANGE) != 1 or bool((t[:, 1:] < t[:, :-1]).any())
+            or None in every):
+        fail(f"the fused step's spans on rank {rank}: {names}, {list(span_ms)}, {every}")
 
     # -- b. against one process, on rank 0 ---------------------------------------------------
     if rank == 0:

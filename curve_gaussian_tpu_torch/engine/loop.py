@@ -49,8 +49,11 @@ What ``train_scene`` does, and how the port does it:
   ``trace.json`` shows the host ranges ``chunk.*`` (``run_chunk``) and
   ``loop.readback``, ``loop.capacity``, ``loop.surgery.<op>``,
   ``loop.test_renders``, ``loop.save``; ``spans.json`` holds the spans
-  and the chunk's stamps on the trace's clock.  ``TrainResult.span_ms``
-  carries the spans, and each surgery event its host seconds by op.
+  and the chunk's stamps on the trace's clock, and over more than one rank
+  every rank's ``exchange`` milliseconds (their spread is the imbalance
+  between the ranks) and the bytes a step exchanges.
+  ``TrainResult.span_ms`` carries the spans, and each surgery event its
+  host seconds by op.
 - **Left out as TPU/XLA machinery:** the ``Prewarmer`` and ``engine/warm.py``
   (ahead-of-time compiles), the persistent compile cache, the
   ``device_put`` commits of the state, the padding of every chunk to one
@@ -69,6 +72,7 @@ from typing import Dict, List, NamedTuple, Optional, Sequence, Set, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .. import resolve_device
 from ..config import ModelConfig, OptimizationConfig, PipelineConfig
@@ -229,6 +233,9 @@ class TrainResult:
     # device milliseconds a step by span (engine/spans.py) over the chunks
     # that ran with device spans (the profiled chunk of ``profile_dir``)
     span_ms: Optional[Dict[str, float]] = None
+    # over more than one rank: the bytes a step exchanges (its SUM and MAX
+    # buffers, StepGraphs.exchange_bytes)
+    exchange_bytes: Optional[int] = None
 
 
 def _chunk_metrics(ms: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
@@ -366,7 +373,8 @@ def train_scene(
         # profile the second chunk (the first one pays the kernel builds) with
         # its device spans, on every rank (a capture of collectives takes them all)
         prof = None
-        if profile_dir is not None and iteration > first_iter and not profiled:
+        span_chunk = profile_dir is not None and iteration > first_iter and not profiled
+        if span_chunk:
             profiled = True
             graphs.spans = True
             if rank0:
@@ -536,12 +544,14 @@ def train_scene(
                 save_model_artifacts(ts, model_path, iteration)
             if iteration in checkpoint_iterations and rank0:
                 ckpt_mod.save_checkpoint(os.path.join(model_path, f"chkpnt{iteration}.npz"), ts)
+        # every rank's exchange span of the profiled chunk, gathered on every rank
+        by_rank = exchange_ms_by_rank(graphs, ndev) if span_chunk and ndev > 1 else None
         if prof is not None:  # the profile ends with the chunk's iteration of this loop
             prof.__exit__(None, None, None)
             os.makedirs(profile_dir, exist_ok=True)
             trace = os.path.join(profile_dir, "trace.json")
             prof.export_chrome_trace(trace)
-            write_spans(graphs, trace, os.path.join(profile_dir, "spans.json"))
+            write_spans(graphs, trace, os.path.join(profile_dir, "spans.json"), by_rank)
             if not quiet:
                 print(f"profiler trace -> {profile_dir}", flush=True)
 
@@ -580,18 +590,35 @@ def train_scene(
     return TrainResult(ts=ts, edge_dict=edge_dict, metrics_path=logger.path,
                        model_path=model_path, pipe_cfg=pipe_cfg, events=events_log,
                        seconds=seconds, graphs=graphs, render_graphs=render_graphs,
-                       span_ms=span_ms)
+                       span_ms=span_ms, exchange_bytes=graphs.exchange_bytes)
 
 
-def write_spans(graphs: StepGraphs, trace: str, path: str) -> None:
+def exchange_ms_by_rank(graphs: StepGraphs, n: int) -> List[Optional[float]]:
+    """Each of the `n` ranks' ``exchange`` milliseconds a step over its
+    chunks with device spans (a collective: every rank calls it)."""
+    out: List[Optional[float]] = [None] * n
+    dist.all_gather_object(out, graphs.span_ms().get(spans.EXCHANGE))
+    return out
+
+
+def write_spans(graphs: StepGraphs, trace: str, path: str,
+                exchange_by_rank: Optional[List[Optional[float]]] = None) -> None:
     """``spans.json`` beside a profiler trace of a chunk with device spans:
     milliseconds a step by span, the chunk's steps, and its stamps on the
-    trace's clock (``spans.anchored``)."""
+    trace's clock (``spans.anchored``); over more than one rank, each
+    rank's ``exchange`` milliseconds (`exchange_by_rank`), their spread
+    (the most less the least: the imbalance between the ranks) and the
+    bytes a step exchanges."""
     span_ms = graphs.span_ms()  # sums the chunk's stamps first
     names, table = graphs.last_stamps
+    out = dict(span_ms=span_ms, steps=table.shape[0])
+    if exchange_by_rank is not None:
+        got = [v for v in exchange_by_rank if v is not None]
+        out.update(exchange_ms_by_rank=exchange_by_rank,
+                   exchange_spread_ms=max(got) - min(got) if got else None,
+                   exchange_bytes=graphs.exchange_bytes)
     with open(path, "w") as f:
-        json.dump(dict(span_ms=span_ms, steps=table.shape[0],
-                       **spans.anchored(trace, names, table)), f, indent=1)
+        json.dump(dict(out, **spans.anchored(trace, names, table)), f, indent=1)
 
 
 def _view_groups(cameras: Sequence[Camera], dtype, device) -> List[tuple]:

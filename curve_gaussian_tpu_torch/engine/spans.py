@@ -19,7 +19,15 @@ the step from its first node to its last.  The six spans (``SPANS``):
 - ``loss``: the exposure, ``clip`` and ``total_loss`` (K7, K8), forward and
   backward;
 - ``adam``: ``update_state``, the densification statistics, the metrics
-  and the write-back (over more than one rank, the exchange too).
+  and the write-back (over more than one rank, the packing of the sums for
+  the exchange too).
+
+A step over more than one rank has a seventh, ``EXCHANGE``: from the stamp
+immediately before its SUM collective to the one immediately after its MAX
+(inside the fused step graph; in the staged form, around the eager exchange
+between the two graphs).  Each rank's collectives end only when every rank
+has joined them, so the span holds the wait for the slowest rank, and its
+spread across the ranks is their imbalance.
 
 The backward boundaries are autograd tensor hooks registered in the forward
 pass (``on_grad``, ``on_grads``), in the order autograd runs them: the
@@ -52,12 +60,13 @@ import torch
 from .. import _build
 
 SPANS = ("sample", "project", "bin", "blend", "loss", "adam")
+EXCHANGE = "exchange"  # the multi-rank step's collectives
 KERNEL = "spans_stamp_kernel"  # the stamp kernel's name in a profiler trace
 
 
 def columns(views: int) -> int:
     """Stamp columns a step of `views` views needs at most: its start, ten
-    marks a view and its end, with room to spare."""
+    marks a view, two around the exchange and its end, with room to spare."""
     return 4 + 12 * views
 
 
@@ -189,8 +198,9 @@ class Totals:
         self._last = None
 
     def ms(self) -> Dict[str, float]:
-        """Milliseconds a step by span, in ``SPANS`` order."""
-        return {s: self.ns[s] / self.steps * 1e-6 for s in SPANS if s in self.ns}
+        """Milliseconds a step by span, in ``SPANS`` order, then ``EXCHANGE``
+        where the steps had one."""
+        return {s: self.ns[s] / self.steps * 1e-6 for s in SPANS + (EXCHANGE,) if s in self.ns}
 
     def idle_share(self) -> Optional[float]:
         """The share of the device's time from the first step's start to

@@ -427,11 +427,11 @@ class StagedStep(NamedTuple):
     (without ``lr_row``) and returns the tensors to exchange, ``exchange``
     reduces them across the ranks in place, and ``update(ts, tensors,
     opt_cfg, (H, W), use_exposure, lr_row)`` returns (new TrainState,
-    metrics).  Called, it runs the three in turn: the fused body, which
-    ``StepGraphs`` captures as one graph when the group can capture its
-    collectives.  Otherwise ``StepGraphs`` captures ``local`` and
-    ``update`` as two graphs and runs ``exchange`` eagerly between their
-    replays (the staged form)."""
+    metrics).  Called, it runs the three in turn.  ``StepGraphs`` captures
+    the three as one graph (its fused body) when the group can capture its
+    collectives; otherwise it captures ``local`` and ``update`` as two
+    graphs and runs ``exchange`` eagerly between their replays (the staged
+    form)."""
 
     local: Callable
     exchange: Callable
@@ -448,16 +448,21 @@ class StagedStep(NamedTuple):
 def _stage_local(b: _Buffers, step: StagedStep, args: dict, stepno: int, count: int,
                  opacity_frozen: bool):
     """The local stage of step ``counter`` of the chunk: the tensors to
+    exchange.  Its last device span stamp immediately precedes the
     exchange."""
     spans.begin()
     state, cam, gt, kw = _step_inputs(b, args, stepno, count, opacity_frozen)
-    return step.local(state, cam, gt, args["bg"], args["opt_cfg"], args["pipe_cfg"], **kw)
+    bufs = step.local(state, cam, gt, args["bg"], args["opt_cfg"], args["pipe_cfg"], **kw)
+    spans.mark("adam")
+    return bufs
 
 
 def _stage_update(b: _Buffers, step: StagedStep, args: dict, bufs, stepno: int, count: int,
                   opacity_frozen: bool) -> List[str]:
     """The update stage of step ``counter`` from the exchanged `bufs`,
-    written back as ``_step_body`` writes a step."""
+    written back as ``_step_body`` writes a step.  Its first device span
+    stamp immediately follows the exchange and closes its span."""
+    spans.mark(spans.EXCHANGE)
     h, w, _, _ = args["cam_geom"]
     new, m = step.update(_state_of(b.state, stepno, count, opacity_frozen), bufs,
                          args["opt_cfg"], (h, w), args["use_exposure"],
@@ -597,7 +602,9 @@ class StepGraphs(_Graphs):
     their replays; the exchanges' host seconds (which include the wait for
     the local graph's device work where the collective copies through host
     memory) add up in ``exchange_seconds`` over ``exchanges`` calls.  The
-    form never changes on a failure: a capture that fails raises.
+    form never changes on a failure: a capture that fails raises.  Either
+    form counts the bytes its step exchanges (``exchange_bytes``, the SUM
+    and MAX buffers of its last capture or eager step).
 
     With ``spans`` on, the step stamps its device spans (``engine/spans.py``)
     into the buffers' stamp table: a graph of its own (``spans`` is part of
@@ -621,12 +628,18 @@ class StepGraphs(_Graphs):
         self.fused = fused
         self.exchange_seconds = 0.0
         self.exchanges = 0
+        self.exchange_bytes: Optional[int] = None
         self._fused_seconds = 0.0
         self._fused_steps = 0
         self._spans = bool(spans)
         self.span_totals = Totals()
         self.last_stamps: Optional[tuple] = None  # (the spans of its columns 1.., [k, C] table)
-        # (event, fold) of each chunk whose timings or stamps are not summed yet
+        # (event, fold, args) of each chunk whose timings or stamps are not summed
+        # yet: ``fold(self, *args)`` once the event is done.  No entry refers to
+        # this object or to a graph: a graph that held NCCL collectives and
+        # outlived its last use in a reference cycle would block
+        # ``destroy_process_group`` (NCCL waits for the graphs that captured
+        # its collectives to be destroyed)
         self._pending: List[tuple] = []
         self._graphs: Dict[tuple, _Graph] = {}
         self._sizes = self._bufs = None
@@ -652,16 +665,17 @@ class StepGraphs(_Graphs):
         """Sum the deferred chunks, in order: all of them, waiting for
         their events, or (`wait` False) those whose events are done."""
         while self._pending:
-            event, fold = self._pending[0]
+            event, fold, args = self._pending[0]
             if wait:
                 event.synchronize()
             elif not event.query():
                 return
             self._pending.pop(0)
-            fold()
+            fold(self, *args)
 
-    def _add_fused(self, seconds: float, steps: int) -> None:
-        self._fused_seconds += seconds
+    def _add_fused(self, start: "torch.cuda.Event", end: "torch.cuda.Event",
+                   steps: int) -> None:
+        self._fused_seconds += start.elapsed_time(end) / 1e3
         self._fused_steps += steps
 
     def _add_stamps(self, names: tuple, table: torch.Tensor) -> None:
@@ -704,13 +718,30 @@ class StepGraphs(_Graphs):
         self.exchange_seconds += time.perf_counter() - t0
         self.exchanges += 1
 
+    def _local(self, b: "_Buffers", args: dict, stepno: int, count: int,
+               opacity_frozen: bool):
+        """A staged step's local stage; counts the bytes it exchanges."""
+        bufs = _stage_local(b, self.step, args, stepno, count, opacity_frozen)
+        self.exchange_bytes = sum(t.numel() * t.element_size() for t in bufs)
+        return bufs
+
+    def _fused_body(self, b: "_Buffers", args: dict, stepno: int, count: int,
+                    opacity_frozen: bool) -> List[str]:
+        """A staged step's three stages as one body (the fused form): the
+        local stage, the exchange and the update stage in turn."""
+        bufs = self._local(b, args, stepno, count, opacity_frozen)
+        self.step.exchange(bufs)
+        return _stage_update(b, self.step, args, bufs, stepno, count, opacity_frozen)
+
     def eager_step(self, b: "_Buffers", args: dict, stepno: int, count: int,
                    opacity_frozen: bool) -> List[str]:
         """One step of the chunk eagerly, through the same bodies (and the
         same stages) as its graphs."""
-        if not isinstance(self.step, StagedStep) or self.fuses():
+        if not isinstance(self.step, StagedStep):
             return _step_body(b, self.step, args, stepno, count, opacity_frozen)
-        bufs = _stage_local(b, self.step, args, stepno, count, opacity_frozen)
+        if self.fuses():
+            return self._fused_body(b, args, stepno, count, opacity_frozen)
+        bufs = self._local(b, args, stepno, count, opacity_frozen)
         self.exchange(bufs)
         return _stage_update(b, self.step, args, bufs, stepno, count, opacity_frozen)
 
@@ -883,10 +914,12 @@ def run_chunk(ts: TrainState, cam_arrays, gts: torch.Tensor, bg, opt_cfg: Optimi
             held = {}
             if isinstance(step, StagedStep) and not fused:
                 def local():
-                    held["bufs"] = _stage_local(b, step, args, step0, count0, frozen)
+                    held["bufs"] = graphs._local(b, args, step0, count0, frozen)
 
                 stages = [local, lambda: _stage_update(b, step, args, held["bufs"], step0,
                                                        count0, frozen)]
+            elif fused:
+                stages = [lambda: graphs._fused_body(b, args, step0, count0, frozen)]
             else:
                 stages = [lambda: _step_body(b, step, args, step0, count0, frozen)]
             with spans.host("chunk.capture"), recording(b) as rec:
@@ -912,8 +945,7 @@ def run_chunk(ts: TrainState, cam_arrays, gts: torch.Tensor, bg, opt_cfg: Optimi
                     g.graphs[1].replay()
             if g.fused:
                 end.record()
-                graphs._pending.append(
-                    (end, lambda: graphs._add_fused(start.elapsed_time(end) / 1e3, k)))
+                graphs._pending.append((end, StepGraphs._add_fused, (start, end, k)))
         g.record["replays"] += k
         names = g.names
         if g.span_names is not None:
@@ -922,7 +954,7 @@ def run_chunk(ts: TrainState, cam_arrays, gts: torch.Tensor, bg, opt_cfg: Optimi
             host.copy_(b.stamps[:k], non_blocking=True)
             copied = torch.cuda.Event()
             copied.record()
-            graphs._pending.append((copied, lambda: graphs._add_stamps(g.span_names, host)))
+            graphs._pending.append((copied, StepGraphs._add_stamps, (g.span_names, host)))
 
     with spans.host("chunk.out"):
         out = {k_: v.clone() for k_, v in b.state.items()}

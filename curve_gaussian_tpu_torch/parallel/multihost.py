@@ -235,6 +235,7 @@ class RankResult(NamedTuple):
     returncode: int
     output: str
     timed_out: bool
+    seconds: float  # from the start to its exit, or to its kill
 
 
 def run_ranks(commands: Sequence[Sequence[str]], timeout: float, env=None,
@@ -243,16 +244,25 @@ def run_ranks(commands: Sequence[Sequence[str]], timeout: float, env=None,
     at most `timeout` seconds.  When one exits non-zero or the time is up,
     the others are killed (a rank left alone would wait in its next
     collective).  Returns each rank's exit code and its output (stdout and
-    stderr), and whether it was still running at the deadline; a killed
-    process has a negative code."""
+    stderr), whether it was still running at the deadline, and its seconds;
+    a killed process has a negative code."""
     files = [tempfile.TemporaryFile() for _ in commands]
+    t0 = time.monotonic()
     procs = [subprocess.Popen(list(c), stdout=f, stderr=subprocess.STDOUT, env=env, cwd=cwd)
              for c, f in zip(commands, files)]
-    deadline = time.monotonic() + timeout
+    deadline = t0 + timeout
+    ends: List[Optional[float]] = [None] * len(procs)
     timed_out = False
     running = [False] * len(procs)
+
+    def seen():
+        for i, p in enumerate(procs):
+            if ends[i] is None and p.poll() is not None:
+                ends[i] = time.monotonic()
+
     try:
         while any(p.poll() is None for p in procs):
+            seen()
             if any(p.returncode not in (None, 0) for p in procs):
                 break
             if time.monotonic() > deadline:
@@ -260,17 +270,19 @@ def run_ranks(commands: Sequence[Sequence[str]], timeout: float, env=None,
                 break
             time.sleep(0.05)
     finally:
+        seen()
         running = [p.poll() is None for p in procs]
         for p, alive in zip(procs, running):
             if alive:
                 p.kill()
         for p in procs:
             p.wait()
+        seen()
     out = []
     for r, (p, f) in enumerate(zip(procs, files)):
         f.seek(0)
         out.append(RankResult(r, p.returncode, f.read().decode(errors="replace"),
-                              timed_out and running[r]))
+                              timed_out and running[r], ends[r] - t0))
         f.close()
     return out
 
@@ -278,5 +290,5 @@ def run_ranks(commands: Sequence[Sequence[str]], timeout: float, env=None,
 def failures(results: Sequence[RankResult]) -> str:
     """The failed ranks of `run_ranks` with the end of their output, or ''."""
     bad = [r for r in results if r.returncode != 0 or r.timed_out]
-    return "\n".join(f"rank {r.rank} {'timed out' if r.timed_out else f'exit {r.returncode}'}:"
-                     f"\n{r.output[-4000:]}" for r in bad)
+    return "\n".join(f"rank {r.rank} {'timed out' if r.timed_out else f'exit {r.returncode}'} "
+                     f"after {r.seconds:.1f} s:\n{r.output[-4000:]}" for r in bad)

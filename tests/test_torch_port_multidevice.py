@@ -53,6 +53,7 @@ from curve_gaussian_tpu_torch import convert
 from curve_gaussian_tpu_torch.config import ModelConfig, OptimizationConfig, PipelineConfig
 from curve_gaussian_tpu_torch.data import synthetic as psyn
 from curve_gaussian_tpu_torch.engine import loop as ploop
+from curve_gaussian_tpu_torch.engine import spans
 from curve_gaussian_tpu_torch.engine import train as ptrain
 from curve_gaussian_tpu_torch.models import curve_state as pcs
 from curve_gaussian_tpu_torch.ops import binning as pbin
@@ -163,6 +164,20 @@ def _steps(inp, mesh):
                 view_indices=rows, rows=rows,
                 graphs=ptrain.StepGraphs(pps.batch_step(RANKS), fused=fused), **kw)
             out[name] = (_leaves(ts), _metrics(m))
+        # the same chunk's first two steps with device spans on, in each form
+        s0 = _port_ts(inp["s0"], torch.float32)
+        live = [k for k in s0.params if k not in ptrain.dead_groups(True)]
+        P = s0.max_radii.shape[0]
+        out["exchange_numel"] = (sum(s0.params[k].numel() for k in live) + 3 * P + 4, P + 1)
+        for name, fused in (("spans_staged", False), ("spans_fused", True)):
+            g = ptrain.StepGraphs(pps.batch_step(RANKS), fused=fused, spans=True)
+            pps.parallel_train_steps_scan(
+                s0, pps.camera_batch_arrays(cams), gts, 0.0, OptimizationConfig(),
+                PipelineConfig(tile_capacity=TILE_K), mesh_shape=mesh.shape,
+                cam_geom=inp["geom"], view_indices=rows[:2], rows=rows[:2], graphs=g, **kw)
+            names, table = g.last_stamps
+            out[name] = dict(names=names, table=table.numpy(), ms=g.span_ms(),
+                             exchange_bytes=g.exchange_bytes)
         cams, gts = _cams(inp, torch.float64), torch.tensor(inp["gts"], dtype=torch.float64)
         vi = torch.tensor([mesh.block(r) for r in TABLE4])
         ts, m = pps.parallel_train_steps_scan(
@@ -476,6 +491,30 @@ def test_fused_body_equals_staged(ranks):
     out, _, _ = ranks
     for r in out:
         _assert_equal(r["chunk_B2_fused"], r["chunk_B2"])
+
+
+@pytest.mark.parametrize("form", ["staged", "fused"])
+def test_exchange_span_two_ranks(ranks, form):
+    """(b): a two-rank step with device spans on (one view a rank): each
+    view's marks, then the stamp before the SUM closes ``adam``, the one
+    after the MAX closes ``exchange``, and the update's end ``adam`` again;
+    the stamps are ordered and tile the step; the seven spans, exchange
+    last; the bytes a step exchanges are the SUM and MAX buffers'."""
+    from test_torch_port_spans import VIEW_MARKS
+
+    out, _, _ = ranks
+    for r in out:
+        got = r[f"spans_{form}"]
+        assert got["names"] == VIEW_MARKS + ("adam", spans.EXCHANGE, "adam")
+        t = got["table"][:, : len(got["names"]) + 1]
+        d = t[:, 1:] - t[:, :-1]
+        assert t.shape[0] == 2 and (d >= 0).all() and (t[:, -1] > t[:, 0]).all()
+        j = len(VIEW_MARKS) + 1  # the column of the stamp after the MAX
+        assert (t[:, j - 1] >= t[:, : j - 1].max(axis=1)).all()
+        assert (t[:, j] <= t[:, j + 1:].min(axis=1)).all()
+        assert list(got["ms"]) == list(spans.SPANS) + [spans.EXCHANGE]
+        assert sum(got["ms"].values()) == pytest.approx(d.sum() / 2 * 1e-6, rel=1e-12)
+        assert got["exchange_bytes"] == 4 * sum(r["exchange_numel"])
 
 
 # ---------------------------------------------------------------------------

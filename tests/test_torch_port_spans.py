@@ -4,12 +4,17 @@ On the CPU the step body runs eagerly and a stamp is the host's
 nanosecond clock, so these tests see the same marks, in the same order, as
 the captured step on the card: every step of a chunk with spans on records
 all six spans, they tile the step exactly, and nothing else of the step
-changes; with spans off nothing is stamped.  The last test needs a CUDA
-card (``pytest --noconftest -m cuda tests/test_torch_port_spans.py``): the
-graph with spans holds exactly one more kernel node per stamp than the
-graph without them, beside which it is captured.
+changes; with spans off nothing is stamped.  The last two tests need a
+CUDA card (``pytest --noconftest -m cuda tests/test_torch_port_spans.py``):
+the graph with spans holds exactly one more kernel node per stamp than the
+graph without them, beside which it is captured; and a ``StepGraphs``
+dropped after chunks whose stamps and timings wait to be summed is freed
+at once, its graphs with it (a graph of NCCL collectives kept alive by a
+reference cycle blocks ``destroy_process_group``).
 """
+import gc
 import json
+import weakref
 
 import numpy as np
 import pytest
@@ -83,6 +88,7 @@ def test_spans_tile_every_step():
     graphs = ptrain.StepGraphs(spans=True)
     _chunk(graphs)
     _assert_tiled(graphs, 3, STEP_MARKS)
+    assert graphs.exchange_bytes is None  # one rank exchanges nothing
 
 
 def test_spans_leave_metrics_and_state_bitwise():
@@ -180,6 +186,7 @@ def test_profile_dir_writes_the_spans(tmp_path):
                             device="cpu")
     got = json.loads((tmp_path / "prof" / "spans.json").read_text())
     assert got["span_ms"] == res.span_ms and list(got["span_ms"]) == list(spans.SPANS)
+    assert "exchange_ms_by_rank" not in got and res.exchange_bytes is None
     assert got["marks"] == list(STEP_MARKS) and got["steps"] == res.graphs.span_totals.steps
     assert got["steps"] < int(res.ts.step)  # only the profiled chunk
     trace = json.loads((tmp_path / "prof" / "trace.json").read_text())
@@ -229,3 +236,24 @@ def test_spans_graph_on_card():
     assert all(torch.equal(on_m[k], off_m[k]) for k in on_m)
     a, b = ptrain._state_leaves(on_ts), ptrain._state_leaves(off_ts)
     assert all(torch.equal(a[k], b[k]) for k in a)
+
+
+@pytest.mark.cuda
+def test_step_graphs_freed_without_gc_on_card():
+    """Chunks leave their stamps to be summed later; the object holding
+    them is still freed when its last reference goes, with the cycle
+    collector off, and the graph it captured with it."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the chunk's deferred sums exist only there")
+    gc.collect()
+    gc.disable()
+    try:
+        graphs = ptrain.StepGraphs(spans=True)
+        _chunk(graphs, device="cuda")
+        assert graphs._pending  # the stamps, summed at the next read
+        freed = weakref.ref(graphs)
+        graph = weakref.ref(graphs.latest_graph())
+        del graphs
+        assert freed() is None and graph() is None
+    finally:
+        gc.enable()
