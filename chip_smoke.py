@@ -35,8 +35,13 @@ run, on one card.
    view 0: every forward output equal to ``preprocess_plain``'s, the four
    gradients within 1e-5 of the largest of autograd's through it, three
    launches of each bitwise equal, each timed in one CUDA graph of 50
-   launches beside its bound by bytes and the plain version in a graph; K7 and K8's launch shapes (blocks,
-   blocks per SM, waves) are printed, and one K7 call must enqueue one
+   launches beside its bound by bytes and the plain version in a graph.
+   The binning's kernels (``bin_tiles``) on the same Gaussians and view,
+   binned as the step bins them: every field of ``Binning`` equal to
+   ``bin_gaussians_plain``'s, the slots table included, three launches
+   bitwise equal, timed in one CUDA graph of 50 launches beside its bound
+   by bytes and the plain version in a graph.  K7 and K8's launch shapes
+   (blocks, blocks per SM, waves) are printed, and one K7 call must enqueue one
    device kernel, launched by its wrapper (counted from a CUDA graph
    capture of the call).
 4. Checks one whole training step on the card against the same step on
@@ -70,8 +75,8 @@ run, on one card.
 6. The captured step's device work: its graph's nodes by type (read with
    the driver's ``cuGraphGetNodes``), beside one eager step captured the
    same way; no host node and no copy from host memory, and the wrappers
-   must have launched the projection's two kernels, K1, K2, the
-   reduction, K7 and K8 once each during the capture.
+   must have launched the projection's two kernels, the binning's,
+   K1, K2, the reduction, K7 and K8 once each during the capture.
 6b. The view-batched step (``parallel/sharding.py``), B = 2 and B = 4
    views per optimizer step over the bench views, from the same state: one
    step captured whole as a CUDA graph (``parallel_train_steps_scan``), its
@@ -133,13 +138,14 @@ run, on one card.
    of every kernel counted through the replays (``check_step_launches``:
    the wrappers count a captured launch once, so the device's launches
    are their counts less the captures' plus each capture's times its
-   replays; each capture must hold the projection's two kernels, K1, K2,
-   the reduction, K7 and K8 once, the replays must be the iterations, so
-   each of them runs once per step and per eager warm-up step; the test
-   renders replay their render graphs, each capture holding the
-   projection's forward and K3 once, so K3 runs once per view of
-   make_scene, per test view rendered and per warm-up render, and the
-   projection's forward once more per K3 launch), and eval.json's
+   replays; each capture must hold the projection's two kernels, the
+   binning's, K1, K2, the reduction, K7 and K8 once, the replays must
+   be the iterations, so each of them runs once per step and per eager
+   warm-up step; the test renders replay their render graphs, each
+   capture holding the projection's forward, the binning's kernels and
+   K3 once, so K3 runs once per view of make_scene, per test view
+   rendered and per warm-up render, and the projection's forward and the
+   binning's kernels once more per K3 launch), and eval.json's
    Chamfer, precision, recall and F-score; runs it a second time from the
    same seed, which must end in bitwise-equal state arrays and write
    byte-equal ``parametric_edges.json`` and ``eval.json``; checks that the
@@ -286,6 +292,8 @@ from curve_gaussian_tpu_torch.engine import train as T
 from curve_gaussian_tpu_torch.engine.graph_nodes import graph_nodes, nccl_kernels
 from curve_gaussian_tpu_torch.models import curve_state as cs
 from curve_gaussian_tpu_torch.models import losses as L
+from curve_gaussian_tpu_torch.ops import binning as BN
+from curve_gaussian_tpu_torch.ops import binning_cuda as BC
 from curve_gaussian_tpu_torch.ops import projection as PP
 from curve_gaussian_tpu_torch.ops import rasterize_cuda as RC
 from curve_gaussian_tpu_torch.ops import ssim_cuda as SC
@@ -442,6 +450,9 @@ TOL = {
     "project_fwd": 0.0,
     # the four gradients' sums in another order than autograd's
     "project_bwd": 1e-5,
+    # integer tables from the plain version's cull, keys and order: every
+    # field of Binning equal
+    "bin_tiles": 0.0,
 }
 # K6b against K2 (max error over max |d fields| of K2): the same moments
 # through the raw local sums and their recombination, which cancels terms
@@ -640,10 +651,16 @@ PROJECTION_SRC = "curve_gaussian_tpu_torch/csrc/projection.cu"
 # gradients (44 B)
 PROJECT_FWD_BYTES = 86
 PROJECT_BWD_BYTES = 116
-TRAIN_KERNELS = ("project_fwd", "project_bwd", "blend_train_fwd", "blend_train_bwd", "reduce_slots",
-                 "ssim_fwd", "ssim_bwd")
-# a render without gradients: the projection's forward, then K3
-RENDER_KERNELS = ("project_fwd", "tile_blend_fwd")
+BINNING_SRC = "curve_gaussian_tpu_torch/csrc/binning.cu"
+# the binning's bytes: a Gaussian's mean2d, conic, depth, opacity, extent
+# and valid flag read (37 B); a candidate pair's key written and read once
+# (16 B); a table entry's index and flag (5 B), a tile's count (4 B) and
+# each slot row of the slots table (4 B) written
+BIN_GAUSS_BYTES = 37
+TRAIN_KERNELS = ("project_fwd", "project_bwd", "bin_tiles", "blend_train_fwd", "blend_train_bwd",
+                 "reduce_slots", "ssim_fwd", "ssim_bwd")
+# a render without gradients: the projection's forward, the binning, then K3
+RENDER_KERNELS = ("project_fwd", "bin_tiles", "tile_blend_fwd")
 WRAPPERS = {f.__name__: f for f in T.KERNEL_WRAPPERS}
 
 
@@ -767,10 +784,6 @@ NONDET_OPS = {
 # each such op the step and render-gradient paths run, and why its result
 # is the same in any order there
 ORDER_FREE = {
-    "index_put accumulate=False": "the binning's scatters by a permutation (Binning.slots: "
-                                  "pair_slot[order] = sorted_slot): every place is written once",
-    "cumsum int": "integer prefix sums of the binning (the big tier's positions): exact in any "
-                  "order",
     "cuBLAS": "cuBLAS GEMMs (mm, bmm, mv: the projection, the Bezier samples): a fixed "
               "reduction per shape, the same bits on every run while one stream runs cuBLAS "
               "(cuBLAS's reproducibility rule); the warning asks for CUBLAS_WORKSPACE_CONFIG, "
@@ -917,8 +930,8 @@ def graphed_step(ts, cams, gts, opt_cfg, pipe_cfg, M, profile=False):
           f"same way {eager_nodes}; peak memory over the capture {peak_capture / 2**30:.3f} "
           f"GiB", flush=True)
     if cap["launches"] != {n: 1 for n in TRAIN_KERNELS}:
-        fail(f"the captured step launched {cap['launches']}, not the projection, K1, K2, K7 "
-             f"and K8 once each")
+        fail(f"the captured step launched {cap['launches']}, not {', '.join(TRAIN_KERNELS)} "
+             f"once each")
     if nodes.get("host", 0) or nodes.get("memcpy_from_host", 0) or not nodes.get("kernel"):
         fail(f"the captured step holds host work or copies from host memory: {nodes}")
 
@@ -1151,8 +1164,8 @@ def check_render_graphs(label: str, rg, n_views: int) -> int:
               f"{c['capture_seconds']:.3f}, instantiation {c['instantiate_seconds']:.3f}), "
               f"{c['replays']} replays, launches {c['launches']}", flush=True)
         if c["launches"] != {n: 1 for n in RENDER_KERNELS}:
-            fail(f"a {label} render capture launched {c['launches']}, not the projection and K3 "
-                 f"once")
+            fail(f"a {label} render capture launched {c['launches']}, not "
+                 f"{', '.join(RENDER_KERNELS)} once")
     replays = sum(c["replays"] for c in rg.captures)
     if replays != n_views:
         fail(f"the {label} replayed its render graphs {replays} times, not {n_views}")
@@ -1187,15 +1200,17 @@ def check_step_launches(label: str, counts: dict, graphs, steps: int, eager: dic
               f"{c['capture_seconds']:.3f}, instantiation {c['instantiate_seconds']:.3f}), "
               f"{c['replays']} replays, launches {c['launches']}", flush=True)
         if c["launches"] != {n: views for n in TRAIN_KERNELS}:
-            fail(f"a {label} capture launched {c['launches']}, not the projection, K1, K2, K7 "
-                 f"and K8 {views} times each")
+            fail(f"a {label} capture launched {c['launches']}, not "
+                 f"{', '.join(TRAIN_KERNELS)} {views} times each")
     if replays != steps:
         fail(f"the {label} replayed its step graphs {replays} times, not {steps}")
     want = {n: views * (steps + graphs.warmup_steps) for n in TRAIN_KERNELS}
     for n, v in eager.items():
         want[n] = want.get(n, 0) + v
-    # every render outside the step (an expected K3 launch) projects its Gaussians once
-    want["project_fwd"] += want.get("tile_blend_fwd", 0)
+    # every render outside the step (an expected K3 launch) projects and bins its
+    # Gaussians once
+    for n in ("project_fwd", "bin_tiles"):
+        want[n] += want.get("tile_blend_fwd", 0)
     for n, v in want.items():
         if device[n] != v:
             fail(f"the {label} launched {n} {device[n]} times on the device, not {v}")
@@ -1973,16 +1988,68 @@ def projection_kernels(state, cam, label):
     return [kf, kb]
 
 
+def binning_kernels(state, cam, label):
+    """The binning kernels (``bin_tiles``) against ``bin_gaussians_plain``
+    on the Gaussians of `state` at view `cam`, binned as a training step
+    bins them (the projection's forward, ``PipelineConfig``'s capacities,
+    the slots table): every field of ``Binning`` equal; three launches
+    bitwise equal; timed in one CUDA graph of 50 launches (``graph_ms``)
+    beside its bound by bytes from this view's pairs and tables and the
+    plain version in a graph; returns its kernel entry."""
+    pipe = PipelineConfig()
+    g = cs.gaussians(state)
+    with torch.no_grad():
+        pre = PP.preprocess(g["xyz"], g["scale"], g["quat"], g["opacity"], cam, alive=g["alive"])
+    H, W = cam.height, cam.width
+    kw = dict(capacity=pipe.tile_capacity, big_capacity=pipe.big_capacity, slots=True)
+    n0 = BC.bin_tiles.launches
+    got = bin_gaussians(pre, H, W, **kw)
+    ref = BN.bin_gaussians_plain(pre, H, W, **kw)
+    torch.cuda.synchronize()
+    if BC.bin_tiles.launches - n0 != 1:
+        fail(f"bin_gaussians on the card launched the binning kernels "
+             f"{BC.bin_tiles.launches - n0} times, not once")
+    diffs = {f: (getattr(got, f).long() - getattr(ref, f).long()).abs()
+             for f in BN.Binning._fields}
+    unequal = {f: int((d != 0).sum()) for f, d in diffs.items() if bool((d != 0).any())}
+    err = max(float(d.max()) if d.numel() else 0.0 for d in diffs.values())
+    where = label or "main path"
+    launches_bitwise("bin_tiles", where, lambda: torch.cat(
+        [t.reshape(-1).long() for t in bin_gaussians(pre, H, W, **kw)]))
+    # the candidates: every tile's count below a capacity that drops none
+    C = int(BN.bin_gaussians_plain(pre, H, W, capacity=max(int(ref.peak), 1),
+                                   big_capacity=pipe.big_capacity).counts.sum())
+    P = pre.mean2d.shape[0]
+    Tn, K = ref.gather_idx.shape
+    R = ref.slots.shape[0]
+    b, by = bound_ms(P * BIN_GAUSS_BYTES + C * 16 + Tn * K * 5 + Tn * 4 + R * P * 4, 0)
+    k = dict(name="bin_tiles", route="cuda", source=BINNING_SRC,
+             replaces="curve_gaussian_tpu/ops/binning.py:333", launches=0, max_abs_err=err,
+             rel_err=err, ms=graph_ms(lambda: bin_gaussians(pre, H, W, **kw), 50),
+             plain_ms=graph_ms(lambda: BN.bin_gaussians_plain(pre, H, W, **kw), 3), bound_ms=b,
+             bound_by=by, library_ms=None)
+    print(f"kernel bin_tiles {where}: P={P} ({int(pre.valid.sum())} valid), {C} candidates, "
+          f"T={Tn} K={K}, slots [{R}, {P}], big tier {int(ref.big_count)} of "
+          f"{pipe.big_capacity}, peak {int(ref.peak)}, overflow {int(ref.overflow)}; fields "
+          f"unequal to the plain version's {unequal or 'none'}", flush=True)
+    report(k, label and f"{label} P={P}")
+    if unequal:
+        fail(f"the binning kernels are not equal to the plain version "
+             f"{label or 'on the main path'}: unequal entries {unequal}")
+    return [k]
+
+
 def train_kernels(state, cam, inputs, gt, label, library=False):
-    """The projection's kernels (``projection_kernels``) on the Gaussians
-    of `state` at view `cam`, then K1 (bitwise), K2, the slot -> Gaussian
-    reduction (bitwise), K7 and K8 (bitwise) against their plain versions
-    on that training step's inputs (``step_inputs``), K2 and the reduction
-    three times each (bitwise equal), timed beside their bounds and the
-    reduction beside ``index_add_``; with `library`, K7/K8 beside a cuDNN
-    conv2d SSIM and its autograd backward; returns (their seven kernel
-    entries, the pair counts, K2's moments)."""
-    kproj = projection_kernels(state, cam, label)
+    """The projection's kernels (``projection_kernels``) and the binning's
+    (``binning_kernels``) on the Gaussians of `state` at view `cam`, then
+    K1 (bitwise), K2, the slot -> Gaussian reduction (bitwise), K7 and K8
+    (bitwise) against their plain versions on that training step's inputs
+    (``step_inputs``), K2 and the reduction three times each (bitwise
+    equal), timed beside their bounds and the reduction beside
+    ``index_add_``; with `library`, K7/K8 beside a cuDNN conv2d SSIM and
+    its autograd backward; returns (their eight kernel entries, the pair
+    counts, K2's moments)."""
+    kproj = projection_kernels(state, cam, label) + binning_kernels(state, cam, label)
     fields, b, col, finT, gc, gtt = inputs
     gidx, counts = b.gather_idx, b.counts
     H, W = col.shape

@@ -49,7 +49,7 @@ import torch
 from ..config import OptimizationConfig, PipelineConfig
 from ..models import curve_state as cs
 from ..models import losses as L
-from ..ops import projection, rasterize_cuda, ssim_cuda, tile_blend_cuda
+from ..ops import binning_cuda, projection, rasterize_cuda, ssim_cuda, tile_blend_cuda
 from ..ops.camera import Camera
 from ..ops.projection import intrinsics
 from ..ops.render import _flavor, render
@@ -261,6 +261,7 @@ def train_steps(
 # the kernel wrappers, whose host counters count their launches
 KERNEL_WRAPPERS = (
     projection.project_fwd, projection.project_bwd,
+    binning_cuda.bin_tiles,
     rasterize_cuda.blend_train_fwd, rasterize_cuda.blend_train_bwd,
     rasterize_cuda.blend_train_bwd_basis, rasterize_cuda.reduce_slots,
     tile_blend_cuda.tile_blend_fwd,

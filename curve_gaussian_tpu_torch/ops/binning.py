@@ -14,6 +14,12 @@ The ``sort`` method of ``curve_gaussian_tpu/ops/binning.py``:
   4. tile ranges by ``torch.searchsorted``; the [T, K] table keeps each
      tile's K nearest instances, with sentinel P in empty slots.
 
+``bin_gaussians_plain`` is these steps in plain PyTorch, on any device and
+dtype.  ``bin_gaussians`` takes it for CPU tensors, float64 fields, the
+exact key (``packed=False``) and the ``pairs`` method; CUDA float32 fields
+binned by the packed sort take the kernels of ``csrc/binning.cu``
+(``binning_cuda.bin_tiles``), which return the same bits.
+
 Beside the table it lists, when asked (``slots=True``, for a render whose
 backward will run), each Gaussian's slots (``Binning.slots``), the order in
 which the backward's slot -> Gaussian reduction adds them.  A
@@ -38,6 +44,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from . import binning_cuda
 from .projection import Preprocessed
 from .rasterize_ref import ALPHA_EPS, TILE_H, TILE_W
 
@@ -153,6 +160,11 @@ def _depth_bits(d: torch.Tensor) -> torch.Tensor:
     return d.to(torch.float32).view(torch.int32).to(torch.int64) & 0xFFFFFFFF
 
 
+def _key_bits(T: int, key_tiles: int | None) -> int:
+    """The tile bits of the packed key."""
+    return (max(T, key_tiles or 0) + 1).bit_length()
+
+
 @torch.no_grad()
 def bin_gaussians(
     pre: Preprocessed,
@@ -173,7 +185,35 @@ def bin_gaussians(
     image passes the whole image's count, so that its tiles keep the
     image's order among near-equal depths.  ``slots`` builds the table of
     each Gaussian's slots that a blend backward reduces through; a render
-    without gradients leaves it out (``Binning.slots`` None)."""
+    without gradients leaves it out (``Binning.slots`` None).  CUDA
+    float32 fields binned by the packed sort take the binning kernels;
+    everything else ``bin_gaussians_plain``."""
+    if packed is None:
+        packed = SORT_PACKED
+    if method == "sort" and packed and binning_cuda.takes(pre):
+        nty, ntx = tile_grid(height, width)
+        return Binning(*binning_cuda.bin_tiles(pre, nty, ntx, capacity, max_rect, tier1_rect,
+                                               big_capacity, _key_bits(nty * ntx, key_tiles),
+                                               slots))
+    return bin_gaussians_plain(pre, height, width, capacity, max_rect, method, tier1_rect,
+                               big_capacity, packed, key_tiles, slots)
+
+
+@torch.no_grad()
+def bin_gaussians_plain(
+    pre: Preprocessed,
+    height: int,
+    width: int,
+    capacity: int = 1024,
+    max_rect: int = 16,
+    method: str = "sort",
+    tier1_rect: int = 4,
+    big_capacity: int = 1024,
+    packed: bool | None = None,
+    key_tiles: int | None = None,
+    slots: bool = False,
+) -> Binning:
+    """Plain PyTorch ``bin_gaussians``, on any device and dtype."""
     if method not in ("sort", "pairs"):
         raise ValueError(f"binning method {method!r} is not 'sort' or 'pairs'")
     if packed is None:
@@ -226,7 +266,7 @@ def bin_gaussians(
     if packed:
         # uint32 [tile | depth bits >> tbits] key with the index below it:
         # bit for bit the JAX package's packed (key, index) sort
-        tbits = (max(T, key_tiles or 0) + 1).bit_length()
+        tbits = _key_bits(T, key_tiles)
         dq = _depth_bits(depth_flat) >> tbits
         key = (tiles_flat.to(torch.int64) << (32 - tbits)) | dq
         order = torch.sort((key << 31) | vals.to(torch.int64)).indices
