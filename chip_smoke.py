@@ -7,9 +7,9 @@
     python3 chip_smoke.py --cards N  # phase 13 alone, N = 2 or 4 ranks over NCCL, one card
                                      # each; fails with fewer than N cards
 
-(``--rank R`` runs one rank of phase 12, ``--cards N --rank R`` one of phase
-13; the phases start them themselves.)  Phases 1-12 below are the default
-run, on one card.
+(``--cards N --rank R`` runs one rank of phase 13; the phase starts them
+itself.)  Phases 1-11 below are the default run, on one card; phase 13
+is ``--cards N``.
 
 1. Prints the card (``nvidia-smi`` name and power limit) and the torch,
    CUDA and nvcc versions.
@@ -196,55 +196,23 @@ run, on one card.
       ``eval_summary.json`` (per-type keys too); a second run skips both;
    d. ``evaluate_replica`` of the dataset run's curves over 5 views: the
       counts of stats.json, frames of [H, 2W, 3].
-12. Two ranks on one card: this script started twice with ``--rank``
-   (``multihost.run_ranks``, a time limit on the pair; either failing
-   fails the phase), two ranks of a gloo process group both on cuda:0
-   (NCCL refuses two ranks on one card), at the bench configuration (a
-   fresh state, 4 views a step, 2 a rank):
-   a. one step through ``parallel_train_steps_scan`` over the two ranks
-      (the local sums and the update as two captured graphs, the exchange
-      between them eager) against the one-process 4-view graphed step from
-      the same state: the loss within 1e-6 relative, each state array no
-      further than 2x a second eager step's distance plus 1e-6 of its max;
-      each rank's captures holding K1, K2, K7 and K8 twice;
-   b. 20 steps, twice, timed on the host clock with the exchange's host
-      seconds, then the two collectives alone, and one-process 4-view
-      graphed steps on rank 0 for comparison;
-   c. the driver run of 9 at ``--views-per-step 4 --n-devices 2 --device
-      cuda:0 --dist-backend gloo`` (600 iterations, no resume): each rank's
-      launches counted through the replays, its it/s and curve count;
-      rank 0 alone writes (``eval.json`` once, finite), rank 1 nothing;
-   d. the tile-parallel render of the 4 bench views within 2e-5 of
-      ``eval_render`` (K3 once per view on each rank), and ``render_curves
-      --n-devices 2`` of the driver's curves (each rank's band one captured
-      graph replayed per frame, the sum eager between: K3 once per frame
-      and warm-up on each rank, frames from rank 0 alone) bitwise equal to
-      one process on every frame (SHA-256);
-   e. ``dryrun_multichip(2)`` on the card.
-   The ranks' states must be bitwise equal after every chunk (1 to 3 and
-   each of the driver's); the phase's seconds are printed.
 13. ``--cards N`` alone: every card's name and power limit, ``nvidia-smi
    topo -m`` and the NCCL version, then N ranks (this script with
    ``--cards N --rank R``, ``multihost.run_ranks``), rank r on cuda:r, over
    NCCL, at the bench configuration (a fresh state, 4 views a step, 4/N a
    rank):
    a. the fused step (one captured graph, its SUM and MAX collectives
-      inside) against the staged step (two graphs, the NCCL exchange eager
-      between them): one step of each, the loss within 1e-6 relative and
-      each state array no further than 2x a second staged step's distance
-      plus 1e-6 of its max; then 20 steps of each in turns (staged, fused,
-      fused, staged) on the host clock, the fused form's device time (CUDA
-      events) and the staged form's exchange, each turn's peak memory, the
+      inside): one step, then 20 steps twice on the host clock, each
+      turn's device time (CUDA events) and peak memory, the two turns'
       losses within 1e-4 relative; the exchange alone; the bytes a step
       exchanges;
    b. on rank 0, the fused step against the one-process 4-view step (graphed
       and eager) within 1e-6, with the same slack;
    c. the fused graph's nodes by type: NCCL kernels, no host node;
    d. each rank's K1, K2, K7 and K8 launches on the device: 4/N per step
-      and warm-up step of each form;
+      and warm-up step;
    e. the driver run of 9 at ``--views-per-step 4 --n-devices N --device
-      cuda:r --dist-backend nccl`` (600 iterations): every capture fused
-      with NCCL kernels, the launches counted through the replays, the
+      cuda:r`` (600 iterations): every capture with NCCL kernels, the launches counted through the replays, the
       fused step's device time, it/s, seconds by phase; rank 0 alone
       writes;
    f. ``render_curves --n-devices N`` of the driver's curves (each rank's
@@ -254,8 +222,7 @@ run, on one card.
    h. (after a.) the fused form's 20 steps with device spans
       (``engine/spans.py``): the seven spans on every rank, ``exchange``
       from the stamp before the SUM to the one after the MAX, each rank's
-      exchange ms printed beside the others'; ``exchange_bytes`` of both
-      forms equal to the buffers'.
+      exchange ms printed beside the others'.
    The ranks' states must be bitwise equal after every chunk.  Each rank
    has ``CARDS_TIMEOUT_S``; one still running ``CARDS_STACKS_BEFORE_S``
    before it prints every thread's Python stack, and a phase that times out
@@ -289,7 +256,7 @@ from curve_gaussian_tpu_torch.data import png as PNG
 from curve_gaussian_tpu_torch.data import synthetic
 from curve_gaussian_tpu_torch.engine import optim, spans
 from curve_gaussian_tpu_torch.engine import train as T
-from curve_gaussian_tpu_torch.engine.graph_nodes import graph_nodes, nccl_kernels
+from curve_gaussian_tpu_torch.engine.graph_nodes import graph_nodes
 from curve_gaussian_tpu_torch.models import curve_state as cs
 from curve_gaussian_tpu_torch.models import losses as L
 from curve_gaussian_tpu_torch.ops import binning as BN
@@ -631,9 +598,6 @@ def main() -> None:
     # -- evaluation and export ------------------------------------------------------
     kernels.append(eval_export(dev, ts, cams, gts, pipe_cfg, scene))
 
-    # -- two ranks on one card --------------------------------------------------------
-    two_ranks(smi)
-
     print(json.dumps({"kernels": [{k: v for k, v in d.items() if k != "rel_err"}
                                   for d in kernels]}), flush=True)
     print(smi, flush=True)
@@ -791,11 +755,11 @@ ORDER_FREE = {
 }
 
 # comparisons of one step taken in two summation orders (ranks' partial
-# sums against one process's, NCCL's inside a graph or out): every state
-# array no further than 2x a second step's distance from the first (0 when
-# the sums run in a fixed order) plus 1e-6 of its max
-RANKS_STATE_SLACK, RANKS_STATE_TOL = 2.0, 1e-6
-# and the losses of 20 such steps within 1e-4 relative
+# sums against one process's): every state array no further than 2x a
+# second step's distance from the first (0 when the sums run in a fixed
+# order) plus the caller's tolerance of its max
+RANKS_STATE_SLACK = 2.0
+# and the losses of two runs of 20 such steps within 1e-4 relative
 RANKS_CHUNK_TOL = 1e-4
 
 
@@ -2514,38 +2478,6 @@ def write_png_paeth(path: str, img: np.ndarray) -> None:
         f.write(PNG._chunk(b"IEND", b""))
 
 
-TWO_RANKS = 2
-TWO_RANKS_DIR = os.path.join(DRIVER_DIR, "two_ranks")
-TWO_RANKS_TIMEOUT_S = 600  # both ranks' whole phase
-TWO_RANK_VIEWS = 4  # views a step, TWO_RANK_VIEWS / TWO_RANKS a rank
-TWO_RANK_STEPS = 20
-RENDER_TOL = 2e-5  # tests/test_parallel.py's row-sharded render
-
-
-def two_ranks(smi: str) -> None:
-    """Phase 12 of the module docstring: starts the two ranks (this script
-    with ``--rank``), waits for them, prints their output and fails if
-    either fails or outlives the phase's time limit."""
-    import shutil
-
-    shutil.rmtree(TWO_RANKS_DIR, ignore_errors=True)
-    os.makedirs(TWO_RANKS_DIR)
-    env = dict(os.environ, CGT_NUM_PROCESSES=str(TWO_RANKS),
-               CGT_COORDINATOR="file://" + os.path.abspath(os.path.join(TWO_RANKS_DIR,
-                                                                        "rendezvous")))
-    t0 = time.time()
-    res = MH.run_ranks([[sys.executable, os.path.abspath(__file__), "--rank", str(r)]
-                        for r in range(TWO_RANKS)], TWO_RANKS_TIMEOUT_S, env=env)
-    for r in res:
-        for line in r.output.splitlines():
-            print(f"[rank {r.rank}] {line}", flush=True)
-    bad = MH.failures(res)
-    if bad:
-        fail(f"two ranks on one card:\n{bad}")
-    print(f"two ranks on one card: phase {time.time() - t0:.1f} s (host clock, the ranks' "
-          f"start included); {smi}", flush=True)
-
-
 class _Writes:
     """The files a process opens for writing under `root` while ``on``
     (the interpreter's audit events)."""
@@ -2568,250 +2500,6 @@ def replicated(ts, what: str) -> None:
 
     if not DRY.replicated(ts):
         fail(f"the ranks' states differ {what}")
-
-
-def rank_main(rank: int) -> None:
-    """One rank of phase 12 on cuda:0: the group from the environment the
-    phase sets (gloo, which lets two ranks share a card)."""
-    import torch.distributed as dist
-
-    from curve_gaussian_tpu_torch import train as TR
-    from curve_gaussian_tpu_torch.engine import loop as LOOP
-    from curve_gaussian_tpu_torch.parallel import dryrun as DRY
-    from curve_gaussian_tpu_torch.scripts import render_curves as RV
-
-    t_start = time.time()
-    dev = torch.device("cuda", 0)
-    torch.cuda.set_device(dev)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    MH.initialize_distributed(process_id=rank, backend="gloo", device=dev)
-    mesh = PS.make_mesh(TWO_RANKS, device=dev)
-    writes = _Writes(TWO_RANKS_DIR)
-    print(f"rank {rank} of {mesh.size} on {torch.cuda.get_device_name(dev)}, gloo", flush=True)
-
-    # -- the bench configuration, as the main path's ---------------------------------
-    H = W = 512
-    n_views, M = 4, 12
-    cams = synthetic.ring_cameras(n_views, H, W, device=dev)
-    rng = np.random.default_rng(0)
-    gts = [torch.tensor(rng.uniform(size=(H, W)) ** 4, dtype=torch.float32, device=dev)
-           for _ in range(n_views)]
-    state = cs.init_state(synthetic.grid_seed_points(15), n_views=n_views, n_gaussians=M,
-                          device=dev)
-    ts = T.init_train_state(state)
-    opt_cfg, pipe_cfg = OptimizationConfig(), PipelineConfig()
-    stacks = T.camera_stacks(cams, torch.float32, dev)
-    gt_stack = torch.stack(gts)
-    geom = (H, W, cams[0].tanfovx, cams[0].tanfovy)
-    views = list(range(TWO_RANK_VIEWS))
-    graphs = T.StepGraphs(PS.batch_step(TWO_RANKS))
-
-    def two(table):
-        return PS.parallel_train_steps_scan(ts, stacks, gt_stack, 0.0, opt_cfg, pipe_cfg,
-                                            use_mask=False, mesh_shape=mesh.shape, cam_geom=geom,
-                                            rows=[mesh.block(r) for r in table], graphs=graphs)
-
-    # -- 1. one step against the one-process B-view step ------------------------------
-    (t1, m1), counts = run_path("two-rank graphed step", lambda: two([views]), TRAIN_KERNELS)
-    check_step_launches("two-rank graphed step", counts, graphs, 1, {},
-                        views=TWO_RANK_VIEWS // TWO_RANKS)
-    replicated(t1, "after the one-step chunk")
-    if rank == 0:
-        one = T.StepGraphs(PS._local_batch_step)
-        g1, mg = PS.parallel_train_steps_scan(ts, stacks, gt_stack, 0.0, opt_cfg, pipe_cfg,
-                                              use_mask=False, mesh_shape=None, cam_geom=geom,
-                                              rows=[views], graphs=one)
-
-        def eager():
-            return PS.parallel_train_step(ts, tuple(s[views] for s in stacks), gt_stack[views],
-                                          0.0, opt_cfg, pipe_cfg, use_mask=False,
-                                          mesh_shape=None, cam_geom=geom)
-
-        (e1, _), (e2, _) = eager(), eager()
-        torch.cuda.synchronize()
-        loss_t, loss_g = float(m1["total"][0]), float(mg["total"][0])
-        loss_err = abs(loss_t - loss_g) / abs(loss_g)
-        tl, gl, el, ol = (T._state_leaves(t) for t in (t1, g1, e1, e2))
-        worst = []
-        for k, g in gl.items():
-            e, o = el[k].double(), ol[k].double()
-            bound = RANKS_STATE_SLACK * (o - e).abs().max().item() + VIEW_TOL * g.double(
-            ).abs().max().item()
-            for name, ref in (("graphed", g), ("eager", e)):
-                d = (tl[k].double() - ref.double()).abs().max().item()
-                worst.append((d / bound if bound > 0 else (0.0 if d == 0 else np.inf), name, k,
-                              d, bound))
-        worst.sort(key=lambda w: -w[0])
-        print(f"two-rank step against the one-process B={TWO_RANK_VIEWS} step: loss "
-              f"{loss_t:.8f} vs {loss_g:.8f}, error over value {loss_err:.3g} (tol "
-              f"{VIEW_TOL:g}); state, worst (max |two-rank - one-process| over its bound): "
-              + ", ".join(f"{n} {k} {d:.3g}/{b:.3g}" for _, n, k, d, b in worst[:6]),
-              flush=True)
-        if loss_err > VIEW_TOL:
-            fail("the two-rank step's loss disagrees with the one-process step's")
-        if worst[0][0] > 1.0:
-            fail(f"the two-rank step's {worst[0][2]} is further from the {worst[0][1]} "
-                 f"one-process step than {RANKS_STATE_SLACK:g} x a second eager step plus "
-                 f"{VIEW_TOL:g} of max")
-    dist.barrier()
-
-    # -- 2. timed steps, and the collectives alone ---------------------------------------
-    table = [[(i * TWO_RANK_VIEWS + j) % n_views for j in range(TWO_RANK_VIEWS)]
-             for i in range(TWO_RANK_STEPS)]
-    for turn in range(2):
-        torch.cuda.synchronize()
-        dist.barrier()
-        ex_s, ex_n = graphs.exchange_seconds, graphs.exchanges
-        t0 = time.time()
-        tn, mn = two(table)
-        torch.cuda.synchronize()
-        dt = time.time() - t0
-        replicated(tn, f"after the {TWO_RANK_STEPS}-step chunk")
-        n_ex = graphs.exchanges - ex_n
-        print(f"two-rank steps, turn {turn + 1}: {TWO_RANK_STEPS} steps of {TWO_RANK_VIEWS} "
-              f"views in {dt:.4f} s, {dt / TWO_RANK_STEPS * 1e3:.3f} ms/step (host clock); "
-              f"exchange {(graphs.exchange_seconds - ex_s) / n_ex * 1e3:.3f} ms host per step "
-              f"over {n_ex} (with the wait for the local graph); losses finite "
-              f"{bool(torch.isfinite(mn['total']).all())}", flush=True)
-        if n_ex != TWO_RANK_STEPS or not bool(torch.isfinite(mn["total"]).all()):
-            fail("the two-rank chunk exchanged other than once a step or lost its loss")
-    bufs = next(g.exchanged for g in graphs._graphs.values())
-    probe = tuple(b.clone() for b in bufs)
-    torch.cuda.synchronize()
-    dist.barrier()
-    t0 = time.time()
-    for _ in range(TWO_RANK_STEPS):
-        PS._exchange(probe)
-    torch.cuda.synchronize()
-    bare = (time.time() - t0) / TWO_RANK_STEPS
-    print(f"two-rank exchange alone: {bare * 1e3:.3f} ms host each (SUM of "
-          f"{probe[0].numel()} and MAX of {probe[1].numel()} float32, "
-          f"{sum(b.numel() * 4 for b in probe)} bytes; gloo through host memory); capture "
-          f"{graphs.capture_seconds:.3f} s", flush=True)
-    if rank == 0:
-        torch.cuda.synchronize()
-        t0 = time.time()
-        one_n, _ = PS.parallel_train_steps_scan(ts, stacks, gt_stack, 0.0, opt_cfg, pipe_cfg,
-                                                use_mask=False, mesh_shape=None, cam_geom=geom,
-                                                rows=table, graphs=one)
-        torch.cuda.synchronize()
-        dt = time.time() - t0
-        print(f"one-process B={TWO_RANK_VIEWS} graphed steps beside them (the other rank "
-              f"idle): {dt / TWO_RANK_STEPS * 1e3:.3f} ms/step", flush=True)
-        one.release()
-    graphs.release()
-    dist.barrier()
-
-    # -- 3. the driver over the two ranks -------------------------------------------
-    a = TR.parse_args(DRIVER_ARGS)
-    run_dir = os.path.join(TWO_RANKS_DIR, "driver")
-    scan = LOOP.parallel_train_steps_scan
-    chunks = [0]
-
-    def checked(*args, **kw):
-        out = scan(*args, **kw)
-        replicated(out[0], f"after the driver's chunk {chunks[0]}")
-        chunks[0] += 1
-        return out
-
-    LOOP.parallel_train_steps_scan = checked
-    writes.on = True
-    try:
-        res, c = run_path("two-rank driver", lambda: TR.main(
-            DRIVER_ARGS + ["--model-path", run_dir, "--views-per-step", str(TWO_RANK_VIEWS),
-                           "--n-devices", str(TWO_RANKS), "--device", "cuda:0",
-                           "--dist-backend", "gloo"]),
-            TRAIN_KERNELS + ("tile_blend_fwd",),
-            ("tile_blend_bwd", "blend_moment_bwd", "blend_train_bwd_basis"))
-    finally:
-        LOOP.parallel_train_steps_scan = scan
-        writes.on = False
-    dist.barrier()  # rank 0's files are written
-    check_step_launches("two-rank driver", c, res.graphs, a.iterations,
-                        dict(tile_blend_fwd=a.synthetic_views), views=TWO_RANK_VIEWS // TWO_RANKS,
-                        renders=(res.render_graphs,
-                                 2 * len(a.test_iterations) if rank == 0 else 0))
-    sec, it = res.seconds, int(res.ts.step)
-    curves = int(res.ts.alive.sum())
-    every = [None] * TWO_RANKS
-    dist.all_gather_object(every, curves)
-    print(f"two-rank driver: {it} iterations, {it / sec['train']:.3f} it/s, "
-          f"{TWO_RANK_VIEWS * it / sec['train']:.3f} views/s (host clock over train_scene), "
-          f"{chunks[0]} chunks each replicated bitwise; exchange "
-          f"{res.graphs.exchange_seconds:.3f} s host over {res.graphs.exchanges}; final curves "
-          f"on the ranks {every}; host seconds by phase " + ", ".join(
-              f"{k} {v:.3f}" for k, v in sec.items() if k != "train"), flush=True)
-    if it != a.iterations or len(set(every)) != 1:
-        fail("the two-rank driver did not end at its last iteration with one curve count")
-    if rank == 0:
-        if writes.paths.count("driver/eval.json") != 1:
-            fail(f"rank 0 wrote eval.json {writes.paths.count('driver/eval.json')} times")
-        with open(os.path.join(run_dir, "eval.json")) as fh:
-            ev = json.load(fh)
-        with open(os.path.join(run_dir, "metrics.jsonl")) as fh:
-            totals = [json.loads(line).get("total") for line in fh]
-        totals = [t for t in totals if t is not None]
-        print(f"two-rank driver: logged loss first {totals[0]:.5f} last {totals[-1]:.5f}; "
-              f"chamfer {ev['chamfer']:.5f}, F@0.01 {ev['fscore_0.01']:.4f}; rank 0 wrote "
-              f"{len(writes.paths)} files", flush=True)
-        if not (np.isfinite(totals).all() and np.isfinite(list(ev.values())).all()):
-            fail("the two-rank driver's losses or eval.json are not finite")
-    elif writes.paths:
-        fail(f"rank {rank} wrote {writes.paths}")
-
-    # -- 4. the tile-parallel render ------------------------------------------------------
-    imgs, c = run_path("tile-parallel render", lambda: [
-        PS.tile_parallel_render(t1, (cam.world_to_cam, cam.full_proj, cam.cam_center), geom,
-                                pipe_cfg, 0.0, mesh.shape, n_gaussians=M) for cam in cams],
-        ("tile_blend_fwd",))
-    errs = []
-    with torch.no_grad():
-        for cam, img in zip(cams, imgs):
-            ref = T.eval_render(t1, cam, pipe_cfg, 0.0)["render"]
-            errs.append((img - ref).abs().max().item())
-    print(f"tile-parallel render of the {n_views} bench views over {TWO_RANKS} ranks "
-          f"({-(-H // (32 * TWO_RANKS)) * 32}-row bands): max |tile-parallel - eval_render| "
-          f"{max(errs):.3g} (tol {RENDER_TOL:g}), K3 {c['tile_blend_fwd']} launches", flush=True)
-    if c["tile_blend_fwd"] != n_views or max(errs) > RENDER_TOL:
-        fail("the tile-parallel render disagrees with eval_render or launched K3 other than "
-             "once per view")
-    edges = os.path.join(run_dir, "parametric_edges.json")
-    writes.paths.clear()
-    writes.on = True
-    tp, c = run_path("render_curves --n-devices 2", lambda: RV.render_curves(
-        ["--edges", edges, "--out", os.path.join(TWO_RANKS_DIR, "curves"), "--n-devices",
-         str(TWO_RANKS), "--device", "cuda:0", "--dist-backend", "gloo"], quiet=True),
-        ("tile_blend_fwd",))
-    writes.on = False
-    n_frames = len(tp["sha256"])
-    warm = check_render_graphs(f"render_curves --n-devices {TWO_RANKS}", tp["graphs"], n_frames)
-    k3_dev = device_launches(c, tp["graphs"])["tile_blend_fwd"]
-    if k3_dev != n_frames + warm or bool(writes.paths) != (rank == 0):
-        fail(f"render_curves --n-devices {TWO_RANKS} launched K3 {k3_dev} times on the device "
-             f"for {n_frames} frames, rank {rank} wrote {len(writes.paths)} files")
-    if rank == 0:
-        one_img = RV.render_curves(["--edges", edges, "--out", os.path.join(TWO_RANKS_DIR,
-                                                                          "curves_one"),
-                                    "--device", "cuda:0"], quiet=True)
-        err = float(np.abs(tp["first_frame"] - one_img["first_frame"]).max())
-        same = sum(a == b for a, b in zip(tp["sha256"], one_img["sha256"]))
-        print(f"render_curves --n-devices {TWO_RANKS} (each rank's band a captured graph, the "
-              f"sum eager): {n_frames} frames, {np.mean(tp['render_seconds']) * 1e3:.3f} ms "
-              f"host a frame against {np.mean(one_img['render_seconds']) * 1e3:.3f} on one "
-              f"process; frames bitwise equal to one process (SHA-256) {same} of {n_frames}; "
-              f"frame 0 max |two ranks - one| {err:.3g}", flush=True)
-        if same != n_frames or err != 0.0:
-            fail("render_curves over two ranks is not bitwise one process's")
-    dist.barrier()
-
-    # -- 5. the dry run on the card -----------------------------------------------------
-    line = DRY.dryrun_multichip(TWO_RANKS, dev)
-    if rank == 0:
-        print(line, flush=True)
-    dist.barrier()
-    print(f"rank {rank} done in {time.time() - t_start:.1f} s", flush=True)
-    dist.destroy_process_group()
 
 
 CARDS_DIR = os.path.join(DRIVER_DIR, "cards")
@@ -2961,11 +2649,11 @@ def cards_rank_main(n: int, rank: int) -> None:
     dev = torch.device("cuda", rank)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    MH.initialize_distributed(process_id=rank, backend="nccl", device=dev)
+    MH.initialize_distributed(process_id=rank, device=dev)
     mesh = PS.make_mesh(n, device=dev)
-    if torch.cuda.current_device() != rank or not MH.captures_collectives():
-        fail(f"rank {rank}: current device {torch.cuda.current_device()}, NCCL group "
-             f"capturing its collectives {MH.captures_collectives()}")
+    if torch.cuda.current_device() != rank or dist.get_backend() != "nccl":
+        fail(f"rank {rank}: current device {torch.cuda.current_device()}, backend "
+             f"{dist.get_backend()}")
     writes = _Writes(CARDS_DIR)
     per = CARDS_VIEWS // n
     print(f"rank {rank} of {mesh.size} on {dev} ({torch.cuda.get_device_name(dev)}), NCCL "
@@ -2986,88 +2674,77 @@ def cards_rank_main(n: int, rank: int) -> None:
     gt_stack = torch.stack(gts)
     geom = (H, W, cams[0].tanfovx, cams[0].tanfovy)
     views = list(range(CARDS_VIEWS))
-    forms = {"fused": T.StepGraphs(PS.batch_step(n)),
-             "staged": T.StepGraphs(PS.batch_step(n), fused=False)}
-    if not forms["fused"].fuses() or forms["staged"].fuses():
-        fail("the NCCL group's step graphs did not pick the fused form")
-    counts = {f: {k: 0 for k in WRAPPERS} for f in forms}
-    steps_run = {f: 0 for f in forms}
+    graphs = T.StepGraphs(PS.batch_step(n))
+    if not graphs.fuses():
+        fail("the multi-rank step graphs hold no collectives")
+    counts = {k: 0 for k in WRAPPERS}
+    steps_run = [0]
 
-    def run(form, table):
-        """One chunk of `form` from `ts`; (state, metrics, host seconds to
-        the end of its device work); the ranks' states bitwise equal."""
+    def run(table):
+        """One chunk from `ts`; (state, metrics, host seconds to the end of
+        its device work); the ranks' states bitwise equal."""
         before = {k: w.launches for k, w in WRAPPERS.items()}
         torch.cuda.synchronize()
         dist.barrier()
         t0 = time.time()
         out = PS.parallel_train_steps_scan(ts, stacks, gt_stack, 0.0, opt_cfg, pipe_cfg,
                                            use_mask=False, mesh_shape=mesh.shape, cam_geom=geom,
-                                           rows=[mesh.block(r) for r in table],
-                                           graphs=forms[form])
+                                           rows=[mesh.block(r) for r in table], graphs=graphs)
         torch.cuda.synchronize()
         dt = time.time() - t0
         for k, w in WRAPPERS.items():
-            counts[form][k] += w.launches - before[k]
-        steps_run[form] += len(table)
-        replicated(out[0], f"after a {form} chunk of {len(table)} steps")
+            counts[k] += w.launches - before[k]
+        steps_run[0] += len(table)
+        replicated(out[0], f"after a chunk of {len(table)} steps")
         return out[0], out[1], dt
 
-    # -- a. one fused step against one staged step --------------------------------------
-    f1, mf1, _ = run("fused", [views])
-    s1, ms1, _ = run("staged", [views])
-    s2, _, _ = run("staged", [views])
-    lf, ls = float(mf1["total"][0]), float(ms1["total"][0])
-    print(f"fused step against staged, one step: loss {lf:.8f} vs {ls:.8f} (error over value "
-          f"{abs(lf - ls) / abs(ls):.3g}, tol {RANKS_STATE_TOL:g})", flush=True)
-    if abs(lf - ls) > RANKS_STATE_TOL * abs(ls):
-        fail("the fused step's loss disagrees with the staged step's")
-    state_within("fused step against staged", f1, {"staged": s1}, s1, s2, RANKS_STATE_TOL)
+    # -- a. one fused step -------------------------------------------------------------------
+    f1, mf1, _ = run([views])
+    lf = float(mf1["total"][0])
 
     # -- c. what the fused graph holds ------------------------------------------------------
-    fcap = forms["fused"].captures[0]
-    nodes = graph_nodes(forms["fused"].latest_graph())
-    staged_nodes = [graph_nodes(g) for g in next(iter(forms["staged"]._graphs.values())).graphs]
+    fcap = graphs.captures[0]
+    nodes = graph_nodes(graphs.latest_graph())
     print(f"fused step graph: nodes {nodes}, NCCL kernels {fcap['nccl_kernels']} (capture "
           f"{fcap['seconds']:.3f} s: warm-up {fcap['warmup_seconds']:.3f}, capture "
-          f"{fcap['capture_seconds']:.3f}, instantiation {fcap['instantiate_seconds']:.3f}); "
-          f"the staged form's local and update graphs {staged_nodes}", flush=True)
+          f"{fcap['capture_seconds']:.3f}, instantiation {fcap['instantiate_seconds']:.3f})",
+          flush=True)
     if nodes.get("host", 0) or nodes.get("memcpy_from_host", 0) or fcap["nccl_kernels"] < 1:
         fail(f"the fused step graph holds host work or no NCCL kernel: {nodes}, "
              f"{fcap['nccl_kernels']} NCCL kernels")
-    bufs = next(g.exchanged for g in forms["staged"]._graphs.values())
-    nbytes = sum(b.numel() * b.element_size() for b in bufs)
-    print(f"one step exchanges {nbytes} bytes a rank: SUM of {bufs[0].numel()} and MAX of "
-          f"{bufs[1].numel()} {bufs[0].dtype}", flush=True)
-    if [g.exchange_bytes for g in forms.values()] != [nbytes, nbytes]:
-        fail(f"the step graphs count {[g.exchange_bytes for g in forms.values()]} bytes "
-             f"exchanged, the buffers hold {nbytes}")
+    # the SUM buffer (live gradients, the screen-space gradient, the loss, the
+    # visibility, the two overflows, the views) and the MAX one (radii, tile peak)
+    P = ts.max_radii.shape[0]
+    live = sum(v.numel() for k, v in ts.params.items() if k not in T.dead_groups(False))
+    probe = (torch.zeros(live + 3 * P + 4, device=dev), torch.zeros(P + 1, device=dev))
+    nbytes = sum(b.numel() * b.element_size() for b in probe)
+    print(f"one step exchanges {nbytes} bytes a rank: SUM of {probe[0].numel()} and MAX of "
+          f"{probe[1].numel()} float32", flush=True)
+    if graphs.exchange_bytes != nbytes:
+        fail(f"the step graphs count {graphs.exchange_bytes} bytes exchanged, the buffers "
+             f"hold {nbytes}")
 
-    # -- a. 20 steps of each form in turns ---------------------------------------------------
+    # -- a. 20 steps, twice ------------------------------------------------------------------
     table = [[(i * CARDS_VIEWS + j) % n_views for j in range(CARDS_VIEWS)]
              for i in range(CARDS_STEPS)]
-    losses = {"fused": [], "staged": []}
-    for form in ("staged", "fused", "fused", "staged"):
-        g = forms[form]
-        ex_s, ex_n, f_s, f_n = g.exchange_seconds, g.exchanges, g.fused_seconds, g.fused_steps
+    losses = []
+    for turn in range(2):
+        f_s, f_n = graphs.fused_seconds, graphs.fused_steps
         torch.cuda.reset_peak_memory_stats()
-        _, m, dt = run(form, table)
-        losses[form].append(m["total"].double().cpu().numpy())
-        dev_note = (f"device {(g.fused_seconds - f_s) / (g.fused_steps - f_n) * 1e3:.3f} ms/step "
-                    "(CUDA events around the replays)" if form == "fused" else
-                    f"exchange {(g.exchange_seconds - ex_s) / (g.exchanges - ex_n) * 1e3:.3f} ms "
-                    "host/step (with the wait for the local graph)")
-        print(f"turn {form}: {CARDS_STEPS} steps of {CARDS_VIEWS} views in {dt:.4f} s, "
-              f"{dt / CARDS_STEPS * 1e3:.3f} ms/step (host clock), {dev_note}; peak memory "
+        _, m, dt = run(table)
+        losses.append(m["total"].double().cpu().numpy())
+        print(f"turn {turn + 1}: {CARDS_STEPS} steps of {CARDS_VIEWS} views in {dt:.4f} s, "
+              f"{dt / CARDS_STEPS * 1e3:.3f} ms/step (host clock), device "
+              f"{(graphs.fused_seconds - f_s) / (graphs.fused_steps - f_n) * 1e3:.3f} ms/step "
+              f"(CUDA events around the replays); peak memory "
               f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB, reserved "
               f"{torch.cuda.memory_reserved() / 2**30:.3f} GiB", flush=True)
-    err = max(float(np.max(np.abs(f - s) / np.abs(s)))
-              for f in losses["fused"] for s in losses["staged"])
-    print(f"fused against staged, {CARDS_STEPS} steps: largest loss error over value {err:.3g} "
-          f"(tol {RANKS_CHUNK_TOL:g}); losses finite "
-          f"{all(np.isfinite(v).all() for vs in losses.values() for v in vs)}", flush=True)
+    err = float(np.max(np.abs(losses[0] - losses[1]) / np.abs(losses[1])))
+    print(f"two turns of {CARDS_STEPS} steps: largest loss error over value {err:.3g} (tol "
+          f"{RANKS_CHUNK_TOL:g}); losses finite {all(np.isfinite(v).all() for v in losses)}",
+          flush=True)
     if not err <= RANKS_CHUNK_TOL:
-        fail("the fused chunk's losses disagree with the staged chunk's")
-    probe = tuple(b.clone() for b in bufs)
+        fail("the two turns' losses disagree")
     torch.cuda.synchronize()
     dist.barrier()
     t0 = time.time()
@@ -3078,16 +2755,14 @@ def cards_rank_main(n: int, rank: int) -> None:
           f"{(time.time() - t0) / CARDS_STEPS * 1e3:.3f} ms host each", flush=True)
 
     # -- d. launches on the device -----------------------------------------------------------
-    for form, g in forms.items():
-        check_step_launches(f"{form} step", counts[form], g, steps_run[form], {}, views=per)
+    check_step_launches("fused step", counts, graphs, steps_run[0], {}, views=per)
 
     # -- h. the fused step with device spans: the exchange span on every rank ---------------
-    fg = forms["fused"]
-    fg.spans = True
-    run("fused", table)
-    fg.spans = False
-    span_ms = fg.span_ms()  # sums the chunk's stamps first
-    names, stamps = fg.last_stamps
+    graphs.spans = True
+    run(table)
+    graphs.spans = False
+    span_ms = graphs.span_ms()  # sums the chunk's stamps first
+    names, stamps = graphs.last_stamps
     every = [None] * n
     dist.all_gather_object(every, span_ms.get(spans.EXCHANGE))
     print(f"fused step with device spans, rank {rank}: " + ", ".join(
@@ -3129,8 +2804,7 @@ def cards_rank_main(n: int, rank: int) -> None:
         print(f"one-process B={CARDS_VIEWS} graphed steps on cuda:0 (the other ranks idle): "
               f"{(time.time() - t0) / CARDS_STEPS * 1e3:.3f} ms/step", flush=True)
         one.release()
-    for g in forms.values():
-        g.release()
+    graphs.release()
     dist.barrier()
 
     # -- e. the driver over the N ranks ---------------------------------------------------
@@ -3151,8 +2825,7 @@ def cards_rank_main(n: int, rank: int) -> None:
     try:
         res, c = run_path(f"{n}-rank driver", lambda: TR.main(
             DRIVER_ARGS + ["--model-path", run_dir, "--views-per-step", str(CARDS_VIEWS),
-                           "--n-devices", str(n), "--device", str(dev),
-                           "--dist-backend", "nccl"]),
+                           "--n-devices", str(n), "--device", str(dev)]),
             TRAIN_KERNELS + ("tile_blend_fwd",),
             ("tile_blend_bwd", "blend_moment_bwd", "blend_train_bwd_basis"))
     finally:
@@ -3165,9 +2838,9 @@ def cards_rank_main(n: int, rank: int) -> None:
                                  2 * len(a.test_iterations) if rank == 0 else 0))
     launches = device_launches(c, res.graphs, res.render_graphs)
     if res.graphs.fused_step_ms is None or not all(
-            cap.get("fused") and cap.get("nccl_kernels", 0) >= 1 for cap in res.graphs.captures):
+            cap.get("nccl_kernels", 0) >= 1 for cap in res.graphs.captures):
         fail(f"the {n}-rank driver ran steps outside the fused graph: "
-             f"{[(cap.get('fused'), cap.get('nccl_kernels')) for cap in res.graphs.captures]}")
+             f"{[cap.get('nccl_kernels') for cap in res.graphs.captures]}")
     sec, it = res.seconds, int(res.ts.step)
     curves = int(res.ts.alive.sum())
     every = [None] * n
@@ -3205,7 +2878,7 @@ def cards_rank_main(n: int, rank: int) -> None:
     writes.on = True
     tp, c = run_path(f"render_curves --n-devices {n}", lambda: RV.render_curves(
         ["--edges", edges, "--out", os.path.join(CARDS_DIR, "curves"), "--n-devices", str(n),
-         "--device", str(dev), "--dist-backend", "nccl"], quiet=True), ("tile_blend_fwd",))
+         "--device", str(dev)], quiet=True), ("tile_blend_fwd",))
     writes.on = False
     n_frames = len(tp["sha256"])
     warm = check_render_graphs(f"render_curves --n-devices {n}", tp["graphs"], n_frames)
@@ -3292,9 +2965,7 @@ def profile_step(run, steps: int, label: str):
 
 
 if __name__ == "__main__":
-    if sys.argv[1:2] == ["--rank"]:
-        rank_main(int(sys.argv[2]))
-    elif sys.argv[1:2] == ["--cards"]:
+    if sys.argv[1:2] == ["--cards"]:
         if len(sys.argv) < 3 or not sys.argv[2].isdigit():
             fail("--cards takes the number of cards: 2 or 4")
         if sys.argv[3:4] == ["--rank"]:

@@ -36,7 +36,7 @@ What ``train_scene`` does, and how the port does it:
   group that runs this same function (``torchrun``, or
   ``parallel/multihost.py``), each rank takes its B/N columns of the table
   and the ranks exchange their sums every step (inside the step's graph
-  over NCCL, eagerly between two graphs over gloo); every rank then holds the
+  over NCCL, eagerly over gloo on the CPU); every rank then holds the
   same state and runs the same surgery, capacity policy and chunk plan on
   the same reduced metrics.  N is the JAX rule's, ``min(n_devices, B,
   world)`` shrunk until it divides B, and it must be the group's size: the
@@ -225,8 +225,7 @@ class TrainResult:
     # surgery, test renders, saves (artifacts and checkpoints), extraction
     seconds: Dict[str, float] = dataclasses.field(default_factory=dict)
     # the step graphs' captures and replays (released; no graph is held); over
-    # more than one rank, the fused form's device ms a step (fused_step_ms) or
-    # the staged form's exchanges (exchange_seconds over exchanges, host)
+    # more than one rank, the device ms a step (fused_step_ms)
     graphs: Optional[StepGraphs] = None
     # the test renders' graphs: their captures and replays (released too)
     render_graphs: Optional[RenderGraphs] = None
@@ -566,9 +565,6 @@ def train_scene(
         if graphs.fused_steps:
             print(f"fused multi-rank steps: {graphs.fused_step_ms:.3f} ms device per step over "
                   f"{graphs.fused_steps}", flush=True)
-        elif graphs.exchanges:
-            print(f"staged multi-rank steps: exchange {graphs.exchange_seconds:.3f} s host over "
-                  f"{graphs.exchanges}", flush=True)
         if span_ms:
             print("device spans: " + ", ".join(f"{k} {v:.3f}" for k, v in span_ms.items())
                   + f" ms per step over {graphs.span_totals.steps}", flush=True)

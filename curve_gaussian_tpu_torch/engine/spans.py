@@ -23,9 +23,8 @@ the step from its first node to its last.  The six spans (``SPANS``):
   the exchange too).
 
 A step over more than one rank has a seventh, ``EXCHANGE``: from the stamp
-immediately before its SUM collective to the one immediately after its MAX
-(inside the fused step graph; in the staged form, around the eager exchange
-between the two graphs).  Each rank's collectives end only when every rank
+immediately before its SUM collective to the one immediately after its MAX,
+inside the step graph.  Each rank's collectives end only when every rank
 has joined them, so the span holds the wait for the slowest rank, and its
 spread across the ranks is their imbalance.
 

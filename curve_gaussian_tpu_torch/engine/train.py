@@ -20,10 +20,9 @@ it is held against.  The same body (``run_chunk``) takes B views a step
 for ``parallel/sharding.py::parallel_train_steps_scan``: its tables hold
 B stack rows a step, and the step function gets the B views stacked.  A
 step whose ranks exchange sums (``StagedStep``, the B-view step over more
-than one device) is captured whole, its collectives inside the graph, when
-the process group can capture them (NCCL, a card per rank:
-``parallel/multihost.py::captures_collectives``); otherwise (gloo) it runs
-as two captured graphs with the exchange eager between them.
+than one device) runs its collectives inside the body: on the card the
+graph captures them (NCCL, a card per rank), on the CPU they run eagerly
+(gloo).
 
 The compiled render: ``eval_renders``, the counterpart of the JAX
 package's jitted ``eval_render`` called once per view, renders many views
@@ -428,11 +427,9 @@ class StagedStep(NamedTuple):
     (without ``lr_row``) and returns the tensors to exchange, ``exchange``
     reduces them across the ranks in place, and ``update(ts, tensors,
     opt_cfg, (H, W), use_exposure, lr_row)`` returns (new TrainState,
-    metrics).  Called, it runs the three in turn.  ``StepGraphs`` captures
-    the three as one graph (its fused body) when the group can capture its
-    collectives; otherwise it captures ``local`` and ``update`` as two
-    graphs and runs ``exchange`` eagerly between their replays (the staged
-    form)."""
+    metrics).  Called, it runs the three in turn.  ``StepGraphs`` runs them
+    as one body (``_fused_body``) and captures it as one graph, the
+    collectives inside; the device spans stamp between the stages."""
 
     local: Callable
     exchange: Callable
@@ -460,7 +457,7 @@ def _stage_local(b: _Buffers, step: StagedStep, args: dict, stepno: int, count: 
 
 def _stage_update(b: _Buffers, step: StagedStep, args: dict, bufs, stepno: int, count: int,
                   opacity_frozen: bool) -> List[str]:
-    """The update stage of step ``counter`` from the exchanged `bufs`,
+    """The update stage of step ``counter`` from the reduced `bufs`,
     written back as ``_step_body`` writes a step.  Its first device span
     stamp immediately follows the exchange and closes its span."""
     spans.mark(spans.EXCHANGE)
@@ -480,7 +477,7 @@ class _Graphs:
     seconds of its warm-up (to the end of its device work), capture and
     instantiation and their sum, the launches the kernel wrappers counted
     while it was captured, and its replays; a capture of collectives also
-    the NCCL kernel nodes its graphs hold (``nccl_kernels``).  The
+    the NCCL kernel nodes its graph holds (``nccl_kernels``).  The
     wrappers' counters are host counters: they count a captured launch once
     however often the graph replays it, and the warm-up's launches as eager
     ones."""
@@ -509,22 +506,26 @@ class _Graphs:
                 out[k] = out.get(k, 0) + n * c["replays"]
         return out
 
-    def _capture_stages(self, dev, warm, stages, load, record: dict,
-                        collectives: bool = False):
+    def _capture_body(self, dev, warm, body, load, record: dict,
+                      collectives: bool = False):
         """Load the buffers (`load`, on the current stream), warm up on a
         side stream that waits for the current one (`warm`: the eager body),
-        capture each of `stages` there in turn, and instantiate them;
-        returns (the graphs, what the last stage returned).  The caller
-        restores the buffers that the warm-up advanced.  A capture that
-        fails raises.  ``capture_begin``/``capture_end`` in place of the
+        capture `body` there and instantiate it; returns (the graph, what
+        `body` returned).  The caller restores the buffers that the warm-up
+        advanced.  A capture that fails raises.
+        ``capture_begin``/``capture_end`` in place of the
         ``torch.cuda.graph`` context, which empties the allocator's cache
         first: after the test renders that cache holds seconds of
         ``cudaFree``s, and the graph's pool needs none of it.
 
-        With `collectives` the stages hold NCCL collectives: the warm-up's
-        eager ones have formed the communicator, the capture refuses unsafe
-        calls from this thread only (NCCL's watchdog thread polls its events
-        meanwhile), and the graphs must hold NCCL kernels, or this raises."""
+        With `collectives` the body holds NCCL collectives: each rank must
+        have a card of its own (``multihost._check_nccl_cards``, which
+        raises before any device work), the warm-up's eager ones have formed
+        the communicator, the capture refuses unsafe calls from this thread
+        only (NCCL's watchdog thread polls its events meanwhile), and the
+        graph must hold NCCL kernels, or this raises."""
+        if collectives:
+            multihost._check_nccl_cards(multihost.local_ranks())
         t = [time.time()]
         with torch.cuda.device(dev):
             load()
@@ -538,40 +539,34 @@ class _Graphs:
                 if self._pool is None:
                     self._pool = torch.cuda.graph_pool_handle()
                 before = _launch_counts()
-                graphs = []
-                for stage in stages:
-                    graph = torch.cuda.CUDAGraph(keep_graph=True)
-                    graph.capture_begin(pool=self._pool, capture_error_mode=(
-                        "thread_local" if collectives else "global"))
-                    try:
-                        result = stage()
-                    finally:
-                        graph.capture_end()
-                    graphs.append(graph)
+                graph = torch.cuda.CUDAGraph(keep_graph=True)
+                graph.capture_begin(pool=self._pool, capture_error_mode=(
+                    "thread_local" if collectives else "global"))
+                try:
+                    result = body()
+                finally:
+                    graph.capture_end()
                 after = _launch_counts()
                 t.append(time.time())
                 if collectives:
-                    record["nccl_kernels"] = sum(graph_nodes.nccl_kernels(g) for g in graphs)
+                    record["nccl_kernels"] = graph_nodes.nccl_kernels(graph)
                     if not record["nccl_kernels"]:
                         raise RuntimeError("a capture of collectives holds no NCCL kernel")
-                for graph in graphs:
-                    graph.instantiate()
+                graph.instantiate()
             torch.cuda.current_stream(dev).wait_stream(self._stream)
         t.append(time.time())
         record.update(seconds=t[3] - t[0], warmup_seconds=t[1] - t[0],
                       capture_seconds=t[2] - t[1], instantiate_seconds=t[3] - t[2], replays=0,
                       launches={k: n - before[k] for k, n in after.items() if n != before[k]})
         self.captures.append(record)
-        return graphs, result
+        return graph, result
 
 
 @dataclasses.dataclass
 class _Graph:
-    graphs: List["torch.cuda.CUDAGraph"]  # the step's, or a staged step's local and update
+    graph: "torch.cuda.CUDAGraph"
     names: List[str]  # the metric row's
     record: dict
-    exchanged: Optional[tuple] = None  # a staged step's: the local graph's outputs
-    fused: bool = False  # a StagedStep captured whole, its collectives inside
     span_names: Optional[tuple] = None  # with spans: the spans its stamp columns 1.. close
 
 
@@ -591,21 +586,15 @@ class StepGraphs(_Graphs):
     step (``parallel/sharding.py::batch_step``, whose chunk is
     ``parallel_train_steps_scan``).
 
-    A ``StagedStep`` (the B-view step of more than one rank) takes one of
-    two forms, chosen by ``fuses``.  Fused (an NCCL group, a card per rank:
-    ``multihost.captures_collectives``), its three stages are one body
-    captured as one graph, the two collectives inside it, replayed through
-    the chunk with nothing on the host between the replays; CUDA events
-    around each chunk's replays add up their device time in
-    ``fused_seconds`` over ``fused_steps``.  Staged (gloo, whose
-    collectives cannot be captured), it is captured as two graphs, its
-    local work and its update, and its ``exchange`` runs eagerly between
-    their replays; the exchanges' host seconds (which include the wait for
-    the local graph's device work where the collective copies through host
-    memory) add up in ``exchange_seconds`` over ``exchanges`` calls.  The
-    form never changes on a failure: a capture that fails raises.  Either
-    form counts the bytes its step exchanges (``exchange_bytes``, the SUM
-    and MAX buffers of its last capture or eager step).
+    A ``StagedStep`` (the B-view step of more than one rank, ``fuses``)
+    runs its three stages as one body, the two collectives inside it: on
+    the card one graph over NCCL, a card per rank, replayed through the
+    chunk with nothing on the host between the replays (CUDA events around
+    each chunk's replays add up their device time in ``fused_seconds`` over
+    ``fused_steps``); on the CPU the same body eagerly over gloo.  A capture
+    that fails raises.  The body counts the bytes its step exchanges
+    (``exchange_bytes``, the SUM and MAX buffers of its last capture or
+    eager step).
 
     With ``spans`` on, the step stamps its device spans (``engine/spans.py``)
     into the buffers' stamp table: a graph of its own (``spans`` is part of
@@ -620,15 +609,9 @@ class StepGraphs(_Graphs):
     ``captures`` records each capture (``_Graphs``) with its capacities,
     views and flags."""
 
-    def __init__(self, step=None, fused: Optional[bool] = None, spans: bool = False):
-        """`fused` None takes the form ``multihost.captures_collectives``
-        picks for the initialized group; True or False fixes it (to hold the
-        two forms against each other)."""
+    def __init__(self, step=None, spans: bool = False):
         super().__init__()
         self.step = step if step is not None else train_step
-        self.fused = fused
-        self.exchange_seconds = 0.0
-        self.exchanges = 0
         self.exchange_bytes: Optional[int] = None
         self._fused_seconds = 0.0
         self._fused_steps = 0
@@ -646,10 +629,9 @@ class StepGraphs(_Graphs):
         self._sizes = self._bufs = None
 
     def fuses(self) -> bool:
-        """Whether a ``StagedStep`` is captured whole (the fused form)."""
-        if not isinstance(self.step, StagedStep):
-            return False
-        return self.fused if self.fused is not None else multihost.captures_collectives()
+        """Whether the step is a ``StagedStep``: one body with its
+        collectives inside (``_fused_body``)."""
+        return isinstance(self.step, StagedStep)
 
     @property
     def spans(self) -> bool:
@@ -712,39 +694,23 @@ class StepGraphs(_Graphs):
         """Device milliseconds a fused step, or None where none ran."""
         return self.fused_seconds / self.fused_steps * 1e3 if self.fused_steps else None
 
-    def exchange(self, bufs) -> None:
-        """The staged step's exchange, timed on the host clock."""
-        t0 = time.perf_counter()
-        self.step.exchange(bufs)
-        self.exchange_seconds += time.perf_counter() - t0
-        self.exchanges += 1
-
-    def _local(self, b: "_Buffers", args: dict, stepno: int, count: int,
-               opacity_frozen: bool):
-        """A staged step's local stage; counts the bytes it exchanges."""
-        bufs = _stage_local(b, self.step, args, stepno, count, opacity_frozen)
-        self.exchange_bytes = sum(t.numel() * t.element_size() for t in bufs)
-        return bufs
-
     def _fused_body(self, b: "_Buffers", args: dict, stepno: int, count: int,
                     opacity_frozen: bool) -> List[str]:
-        """A staged step's three stages as one body (the fused form): the
-        local stage, the exchange and the update stage in turn."""
-        bufs = self._local(b, args, stepno, count, opacity_frozen)
+        """A ``StagedStep``'s three stages as one body: the local stage, the
+        exchange and the update stage in turn; counts the bytes it
+        exchanges."""
+        bufs = _stage_local(b, self.step, args, stepno, count, opacity_frozen)
+        self.exchange_bytes = sum(t.numel() * t.element_size() for t in bufs)
         self.step.exchange(bufs)
         return _stage_update(b, self.step, args, bufs, stepno, count, opacity_frozen)
 
     def eager_step(self, b: "_Buffers", args: dict, stepno: int, count: int,
                    opacity_frozen: bool) -> List[str]:
-        """One step of the chunk eagerly, through the same bodies (and the
-        same stages) as its graphs."""
-        if not isinstance(self.step, StagedStep):
-            return _step_body(b, self.step, args, stepno, count, opacity_frozen)
+        """One step of the chunk eagerly, through the same body as its
+        graph."""
         if self.fuses():
             return self._fused_body(b, args, stepno, count, opacity_frozen)
-        bufs = self._local(b, args, stepno, count, opacity_frozen)
-        self.exchange(bufs)
-        return _stage_update(b, self.step, args, bufs, stepno, count, opacity_frozen)
+        return _step_body(b, self.step, args, stepno, count, opacity_frozen)
 
     @property
     def warmup_steps(self) -> int:
@@ -752,9 +718,8 @@ class StepGraphs(_Graphs):
 
     def latest_graph(self) -> "torch.cuda.CUDAGraph":
         """The graph captured last (kept with its ``cudaGraph_t``, so that
-        its nodes can be read); of a staged step, its local work."""
-        return next(g.graphs[0] for g in self._graphs.values()
-                    if g.record is self.captures[-1])
+        its nodes can be read)."""
+        return next(g.graph for g in self._graphs.values() if g.record is self.captures[-1])
 
     def release(self) -> None:
         self._graphs.clear()
@@ -771,17 +736,17 @@ class StepGraphs(_Graphs):
             self._bufs = _Buffers(ts, stacks, max(rows, MIN_CHUNK), views)
         return self._bufs
 
-    def _capture(self, key: tuple, warm, stages, load, record: dict,
-                 fused: bool = False) -> _Graph:
-        """``_capture_stages`` with ``WARMUP_STEPS`` eager steps (`warm`) for
-        the warm-up; the last of `stages` returns the metric names."""
+    def _capture(self, key: tuple, body, load, record: dict) -> _Graph:
+        """``_capture_body`` of `body` (one eager step), with
+        ``WARMUP_STEPS`` eager steps for the warm-up; `body` returns the
+        metric names."""
         def warm_steps():
             for _ in range(WARMUP_STEPS):
-                warm()
+                body()
 
-        graphs, names = self._capture_stages(self._bufs.counter.device, warm_steps, stages,
-                                             load, record, collectives=fused)
-        self._graphs[key] = g = _Graph(graphs, names, record, fused=fused)
+        graph, names = self._capture_body(self._bufs.counter.device, warm_steps, body, load,
+                                          record, collectives=self.fuses())
+        self._graphs[key] = g = _Graph(graph, names, record)
         return g
 
 
@@ -910,41 +875,24 @@ def run_chunk(ts: TrainState, cam_arrays, gts: torch.Tensor, bg, opt_cfg: Optimi
         g = graphs._graphs.get(key)
         if g is None:
             step0, count0 = ts.step, ts.opt.count
-            step = graphs.step
-            fused = graphs.fuses()
-            held = {}
-            if isinstance(step, StagedStep) and not fused:
-                def local():
-                    held["bufs"] = graphs._local(b, args, step0, count0, frozen)
-
-                stages = [local, lambda: _stage_update(b, step, args, held["bufs"], step0,
-                                                       count0, frozen)]
-            elif fused:
-                stages = [lambda: graphs._fused_body(b, args, step0, count0, frozen)]
-            else:
-                stages = [lambda: _step_body(b, step, args, step0, count0, frozen)]
             with spans.host("chunk.capture"), recording(b) as rec:
                 g = graphs._capture(
-                    key, lambda: graphs.eager_step(b, args, step0, count0, frozen), stages,
+                    key, lambda: graphs.eager_step(b, args, step0, count0, frozen),
                     lambda: b.load(ts, stacks, tables, n_act),
                     dict(capacity=ts.alive.shape[0], tile_capacity=pipe_cfg.tile_capacity,
                          big_capacity=pipe_cfg.big_capacity, views=views, use_mask=use_mask,
-                         conn_on=conn_on, use_exposure=use_exposure, fused=fused,
-                         spans=graphs.spans), fused)
-            g.exchanged = held.get("bufs")
+                         conn_on=conn_on, use_exposure=use_exposure, spans=graphs.spans))
             g.span_names = rec.done if rec is not None else None
         with spans.host("chunk.load"):
             b.load(ts, stacks, tables, n_act)
         with spans.host("chunk.replay"):
-            if g.fused:
+            fused = graphs.fuses()
+            if fused:
                 start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
                 start.record()
             for _ in range(k):
-                g.graphs[0].replay()
-                if g.exchanged is not None:
-                    graphs.exchange(g.exchanged)
-                    g.graphs[1].replay()
-            if g.fused:
+                g.graph.replay()
+            if fused:
                 end.record()
                 graphs._pending.append((end, StepGraphs._add_fused, (start, end, k)))
         g.record["replays"] += k
@@ -1138,7 +1086,7 @@ def render_views(fn, inputs: Dict[str, torch.Tensor], stacks, geom, views, baked
     and rows in once, then does nothing but replay.  The dict yielded is
     the graph's own output, rewritten by the next replay.  A capture that
     fails raises.  With `collectives` fn runs NCCL collectives, which the
-    capture takes in (``_Graphs._capture_stages``): every rank of the group
+    capture takes in (``_Graphs._capture_body``): every rank of the group
     must render the same views in the same order.  On CPU tensors the same
     body runs eagerly."""
     views = list(views)
@@ -1163,8 +1111,8 @@ def render_views(fn, inputs: Dict[str, torch.Tensor], stacks, geom, views, baked
     if r is None:
         b = _RenderBuffers(inputs, stacks, n, stacked)
         record = dict(baked=baked, views=n, height=geom[0], width=geom[1])
-        (graph,), out = graphs._capture_stages(
-            dev, lambda: _render_view(b, fn, geom), [lambda: _render_view(b, fn, geom)],
+        graph, out = graphs._capture_body(
+            dev, lambda: _render_view(b, fn, geom), lambda: _render_view(b, fn, geom),
             lambda: b.load(inputs, stacks, views), record, collectives)
         r = graphs._held[key] = _Render(b, graph, out, record)
     r.bufs.load(inputs, stacks, views)

@@ -2,9 +2,8 @@
 ``__graft_entry__.py::dryrun_multichip``: every stage of the training
 driver's cycle on a tiny problem over the N ranks of a process group.
 
-    python -m curve_gaussian_tpu_torch.parallel.dryrun --n 2 --backend gloo --device cpu
-    python -m curve_gaussian_tpu_torch.parallel.dryrun --n 4 --backend nccl --device cuda
-    python -m curve_gaussian_tpu_torch.parallel.dryrun --n 2 --backend gloo --device cuda:0
+    python -m curve_gaussian_tpu_torch.parallel.dryrun --n 2 --device cpu
+    python -m curve_gaussian_tpu_torch.parallel.dryrun --n 4 --device cuda
 
 Run as above, the script starts the N ranks itself (``multihost.run_ranks``,
 a ``file://`` rendezvous in a temporary directory), waits for them at most
@@ -13,12 +12,10 @@ Each rank runs ``dryrun_multichip(N)``: one step, a chunk, the surgery of
 ``densify_until_iter``, extraction and repacking at a smaller capacity and
 one more chunk, a checkpoint round trip (bitwise), one step from the
 restored state and the tile-parallel render; rank 0 prints one line naming
-the stages.  ``--backend nccl --device cuda`` puts rank r on ``cuda:r``,
-one card per rank, and the chunks and the render run through the captured
-graphs with their collectives inside (``multihost.captures_collectives``);
-it raises with fewer cards than ranks.  A named device holds every rank,
-with ``gloo`` (which NCCL would refuse): its graphs run the collectives
-eagerly between their replays.
+the stages.  ``--device cuda`` puts rank r on ``cuda:r`` over NCCL, one
+card per rank, and the chunks and the render run through the captured
+graphs with their collectives inside; it raises with fewer cards than
+ranks.  ``--device cpu`` runs the same bodies eagerly over gloo.
 """
 from __future__ import annotations
 
@@ -143,7 +140,6 @@ def dryrun_multichip(n_devices: int, device="cuda") -> str:
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description="the multi-device dry run over N ranks")
     p.add_argument("--n", type=int, default=2, help="ranks (one process each)")
-    p.add_argument("--backend", default=None, choices=[None, "nccl", "gloo"])
     p.add_argument("--device", default="cuda")
     p.add_argument("--timeout", type=float, default=300.0,
                    help="seconds the launcher waits for every rank")
@@ -157,8 +153,7 @@ def main(argv=None) -> int:
         dev = multihost.rank_device(args.device)
         if dev.type == "cpu":
             torch.set_num_threads(1)
-        multihost.initialize_distributed(args.init, args.n, args.rank, backend=args.backend,
-                                         device=dev)
+        multihost.initialize_distributed(args.init, args.n, args.rank, device=dev)
         try:
             line = dryrun_multichip(args.n, dev)
         finally:
@@ -171,8 +166,6 @@ def main(argv=None) -> int:
         init = f"file://{os.path.join(td, 'rendezvous')}"
         cmd = [sys.executable, "-m", "curve_gaussian_tpu_torch.parallel.dryrun", "--n",
                str(args.n), "--device", args.device, "--init", init]
-        if args.backend:
-            cmd += ["--backend", args.backend]
         res = multihost.run_ranks([cmd + ["--rank", str(r)] for r in range(args.n)],
                                   args.timeout)
     bad = multihost.failures(res)

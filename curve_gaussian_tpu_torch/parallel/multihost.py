@@ -11,19 +11,15 @@ for sweeps that run one scene per process.
 The group is described by ``CGT_NUM_PROCESSES``, ``CGT_COORDINATOR``
 (``host:port`` or an ``init_method`` URL such as ``tcp://`` or ``file://``)
 and ``CGT_PROCESS_ID``, or by torchrun's ``WORLD_SIZE``, ``RANK``,
-``MASTER_ADDR`` and ``MASTER_PORT``.  The backend is ``nccl`` for CUDA
-devices and ``gloo`` for the CPU unless the caller names one; a backend
-that cannot start raises, and no other is tried.  NCCL takes one card per
-rank: rank r of a host runs on ``cuda:LOCAL_RANK``, made the current device
-before NCCL starts, and a group that asks NCCL for more ranks on a host
-than it has cards raises.  Ranks that share a card (and the CPU) take
-``gloo``.  Every collective and the rendezvous time out after
+``MASTER_ADDR`` and ``MASTER_PORT``.  The backend follows the device:
+``nccl`` for CUDA, ``gloo`` for the CPU; a backend that cannot start
+raises, and no other is tried.  NCCL takes one card per rank: rank r of a
+host runs on ``cuda:LOCAL_RANK``, made the current device before NCCL
+starts, and a group that asks NCCL for more ranks on a host than it has
+cards raises.  A multi-rank step and a tile-parallel render capture the
+collectives inside their CUDA graphs on the card, and run them eagerly on
+the CPU.  Every collective and the rendezvous time out after
 ``TIMEOUT_S``.
-
-``captures_collectives`` says which form a multi-rank step and a
-tile-parallel render take on the card: with NCCL, one CUDA graph with the
-collectives captured inside it; with gloo, whose collectives cannot be
-captured, graphs with the collectives run eagerly between their replays.
 
 ``run_ranks`` starts the ranks of a group on this machine as processes and
 waits for them with a deadline; a rank that fails or outlives it ends them
@@ -71,12 +67,12 @@ def world_size() -> int:
 
 def initialize_distributed(coordinator_address: Optional[str] = None,
                            num_processes: Optional[int] = None,
-                           process_id: Optional[int] = None,
-                           backend: Optional[str] = None, device="cuda",
+                           process_id: Optional[int] = None, device="cuda",
                            timeout_s: float = TIMEOUT_S) -> int:
-    """Join the process group (arguments first, then the environment);
-    returns this process's rank.  A no-op returning 0 with one process, and
-    returning the rank when the group is already initialized."""
+    """Join the process group (arguments first, then the environment) over
+    the backend of `device`: NCCL for CUDA, gloo for the CPU; returns this
+    process's rank.  A no-op returning 0 with one process, and returning
+    the rank when the group is already initialized."""
     num = num_processes or _env_int("CGT_NUM_PROCESSES", "WORLD_SIZE", default=1)
     if num <= 1:
         return 0
@@ -93,17 +89,15 @@ def initialize_distributed(coordinator_address: Optional[str] = None,
     if not addr:
         raise RuntimeError(f"{num} processes but no coordinator: set CGT_COORDINATOR "
                            "(host:port or an init_method URL) or launch with torchrun")
-    if backend is None:
-        backend = "nccl" if torch.device(device).type == "cuda" else "gloo"
+    dev = torch.device(device)
     kw = {}
-    if backend == "nccl":  # one card per rank, current before NCCL starts
+    if dev.type == "cuda":  # NCCL, one card per rank, current before NCCL starts
         _check_nccl_cards(_env_int("LOCAL_WORLD_SIZE", default=num))
-        dev = torch.device(device)
-        if dev.type != "cuda" or dev.index is None:
+        if dev.index is None:
             dev = torch.device("cuda", _env_int("LOCAL_RANK", default=rank))
         torch.cuda.set_device(dev)
         kw["device_id"] = dev  # the communicator forms now, not at the first collective
-    dist.init_process_group(backend,
+    dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
                             init_method=addr if "://" in addr else f"tcp://{addr}",
                             world_size=num, rank=rank,
                             timeout=datetime.timedelta(seconds=timeout_s), **kw)
@@ -122,21 +116,7 @@ def _check_nccl_cards(ranks: int) -> None:
     if ranks > cards:
         raise RuntimeError(
             f"NCCL takes one card per rank: {ranks} ranks on this host and {cards} CUDA "
-            "card(s); launch at most one rank per card, or take the gloo backend for ranks "
-            "that share a card")
-
-
-def captures_collectives() -> bool:
-    """Whether a multi-rank step and a tile-parallel render capture their
-    collectives inside their CUDA graphs: true when the initialized group
-    has more than one rank and is NCCL's, each rank on a card of its own;
-    false for gloo (its collectives cannot be captured) and without a
-    group.  Raises for an NCCL group with more ranks on this host than
-    cards."""
-    if group_size() == 1 or dist.get_backend() != "nccl":
-        return False
-    _check_nccl_cards(local_ranks())
-    return True
+            "card(s); launch at most one rank per card")
 
 
 def nccl_version() -> str:
@@ -203,8 +183,7 @@ def global_mesh(axis: str = "data", device="cuda") -> Mesh:
 def rank_device(device="cuda") -> torch.device:
     """This rank's device for an entry point's ``--device``: a bare
     ``cuda`` is ``cuda:LOCAL_RANK`` when there is more than one process.  A
-    named device holds every rank: that is how ranks of a gloo group share
-    one card (NCCL refuses two ranks on one card)."""
+    named CUDA device is this rank's card."""
     dev = resolve_device(device)
     if dev.type == "cuda" and dev.index is None and world_size() > 1:
         dev = torch.device("cuda", _env_int("LOCAL_RANK", "CGT_PROCESS_ID", "RANK", default=0))
@@ -212,17 +191,18 @@ def rank_device(device="cuda") -> torch.device:
 
 
 @contextlib.contextmanager
-def distributed(device="cuda", backend: Optional[str] = None):
+def distributed(device="cuda"):
     """An entry point's process group: yields this rank's device, after
     joining the group the environment describes when it describes more than
-    one process; a group this context initialized is destroyed on exit.
-    A CUDA device becomes the current one."""
+    one process (over the device's backend); a group this context
+    initialized is destroyed on exit.  A CUDA device becomes the current
+    one."""
     dev = rank_device(device)
     if dev.type == "cuda" and dev.index is not None:
         torch.cuda.set_device(dev)
     created = world_size() > 1 and not dist.is_initialized()
     if created:
-        initialize_distributed(backend=backend, device=dev)
+        initialize_distributed(device=dev)
     try:
         yield dev
     finally:

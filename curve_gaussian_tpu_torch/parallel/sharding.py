@@ -28,27 +28,20 @@ runs the same Adam and statistics update on the same reduced values.  At
 one device the sums go straight to the update, as the JAX function skips
 its collectives there.
 
-On CUDA tensors ``parallel_train_steps_scan`` captures the step as CUDA
-graphs per shape key and replays them through the chunk
-(``engine/train.py::StepGraphs``).  At one device the whole B-view step is
-one graph.  At more, over NCCL with a card per rank
-(``multihost.captures_collectives``), the whole step is one graph too, the
-two collectives captured inside it between the local sums and the update:
-the counterpart of the JAX package's one compiled data-parallel chunk.
-Over gloo (ranks that share a card), whose collectives cannot be captured,
-it is a graph of the local sums and a graph of the update, with the
-collectives run eagerly between their replays.  On CPU tensors the same
-bodies run eagerly.
+On CUDA tensors ``parallel_train_steps_scan`` captures the whole B-view
+step as one CUDA graph per shape key and replays it through the chunk
+(``engine/train.py::StepGraphs``).  At more than one device (NCCL, a card
+per rank) the two collectives are captured inside it between the local
+sums and the update: the counterpart of the JAX package's one compiled
+data-parallel chunk.  On CPU tensors the same body runs eagerly (gloo).
 
 ``tile_parallel_render`` renders one view with its tile rows split across
 the ranks: each bins and blends (K3) only its band of rows, and the bands
 are summed into the full image on every rank.  ``tile_parallel_renders``,
 the counterpart of the JAX ``render_tp`` jit of ``render_curves
 --n-devices``, renders many views of one Gaussian set so: on CUDA tensors
-each rank's band is one captured CUDA graph per key
-(``engine/train.py::render_views``) replayed once per view, the sum
-captured inside it over NCCL and run eagerly between the replays over
-gloo.
+each rank's band, the sum inside it, is one captured CUDA graph per key
+(``engine/train.py::render_views``) replayed once per view.
 """
 from __future__ import annotations
 
@@ -68,7 +61,7 @@ from ..ops.rasterize_cuda import stack_fields
 from ..ops.rasterize_ref import TILE_H
 from ..ops.render import main_axis_allmap
 from ..ops.tile_blend_cuda import tile_blend_fwd
-from .multihost import Mesh, captures_collectives, check_ranks, group_mesh, group_size
+from .multihost import Mesh, check_ranks, group_mesh, group_size
 
 
 def make_mesh(n_devices: Optional[int] = None, axis: str = "data", device="cuda") -> Mesh:
@@ -200,7 +193,7 @@ def _rank_sums(ts: TrainState, cams: Camera, gts: torch.Tensor, bg,
 def _exchange(bufs) -> None:
     """The step's two collectives over the default group, in place: SUM,
     then MAX.  Synchronous on the current stream, so that a capture of the
-    fused step takes them in."""
+    step takes them in."""
     dist.all_reduce(bufs[0], op=dist.ReduceOp.SUM)
     dist.all_reduce(bufs[1], op=dist.ReduceOp.MAX)
 
@@ -230,9 +223,7 @@ def _reduced_update(ts: TrainState, bufs, opt_cfg: OptimizationConfig, size,
 def batch_step(n_ranks: int):
     """The B-view step function of a mesh of `n_ranks`: ``_local_batch_step``
     at one; at more, a ``StagedStep`` (local sums, exchange, update), which
-    ``StepGraphs`` captures whole over NCCL (the fused form) and as two
-    graphs with the exchange eager between them over gloo (the staged
-    form)."""
+    ``StepGraphs`` runs as one body, its collectives inside."""
     if n_ranks == 1:
         return _local_batch_step
     return StagedStep(local=_rank_sums, exchange=_exchange, update=_reduced_update)
@@ -417,20 +408,15 @@ def tile_parallel_renders(gauss: dict, cam_stacks, geom, pipe_cfg: PipelineConfi
     geometry `geom` (H, W, tanfovx, tanfovy), the counterpart of the JAX
     ``render_tp`` jit; yields each view's [H, W] image in order, the same on
     every rank.  Each rank's band runs through ``render_views``: on CUDA
-    tensors one captured graph of `graphs` per key, replayed once per view.
-    Over NCCL (``multihost.captures_collectives``) the SUM across the ranks
-    is captured in that graph; over gloo, whose collectives cannot be
-    captured, it runs eagerly between the replays.  On CPU tensors
-    eagerly."""
+    tensors one captured graph of `graphs` per key, the SUM across the
+    ranks inside it, replayed once per view; on CPU tensors eagerly."""
     n, rank = _mesh_ranks(mesh_shape)
     bg = float(bg)
-    fused = n > 1 and captures_collectives()
 
     def band(g, cam):
-        img = _band_image(g, cam, pipe_cfg, bg, n, rank)
-        return {"band": _sum_bands(img, n, geom[0]) if fused else img}
+        return {"band": _sum_bands(_band_image(g, cam, pipe_cfg, bg, n, rank), n, geom[0])}
 
-    baked = ("tile_parallel", n, rank, pipe_cfg.tile_capacity, bg, fused)
+    baked = ("tile_parallel", n, rank, pipe_cfg.tile_capacity, bg)
     for _, out in T.render_views(band, gauss, cam_stacks, geom, views, baked, graphs,
-                                 collectives=fused):
-        yield (out["band"] if fused else _sum_bands(out["band"], n, geom[0])).clone()
+                                 collectives=n > 1):
+        yield out["band"].clone()

@@ -12,9 +12,8 @@ eagerly.  The cameras are an orbit (``ring_cameras``) or a NeRF-style
 ``transforms_video.json``.  Frames land in <out>/frames/ and are stitched
 to <out>/curves.mp4 when ffmpeg is installed.  With ``--n-devices N`` each
 frame is the tile-parallel render (``parallel/sharding.py::
-tile_parallel_renders``: each rank's band captured, with the sum inside
-the graph over NCCL and eager between the replays over gloo) over the N
-ranks of the process group (``torchrun --nproc-per-node N``, as
+tile_parallel_renders``: each rank's band captured with the sum inside
+the graph) over the N ranks of the process group (``torchrun --nproc-per-node N``, as
 ``train.py`` runs), and rank 0 writes the frames.
 
     python -m curve_gaussian_tpu_torch.scripts.render_curves --edges <run>/parametric_edges.json
@@ -61,12 +60,9 @@ def parse_args(argv=None):
     p.add_argument("--n-devices", type=int, default=None,
                    help="tile-parallel rendering over N devices, the ranks of the process "
                         "group (one process each)")
-    p.add_argument("--device", default="cuda", help="torch device (default cuda)")
-    p.add_argument("--dist-backend", default=None, choices=[None, "nccl", "gloo"],
-                   help="torch.distributed backend with more than one process (default: "
-                        "nccl on CUDA, gloo on the CPU); nccl needs one card per rank and "
-                        "captures the collectives in the CUDA graphs, gloo is for ranks "
-                        "that share a card (or the CPU)")
+    p.add_argument("--device", default="cuda",
+                   help="torch device (default cuda); with more than one process NCCL on "
+                        "CUDA, one card per rank, and gloo on the CPU")
     return p.parse_args(argv)
 
 
@@ -129,7 +125,7 @@ def render_curves(argv=None, quiet: bool = False) -> dict:
     replays).  With ``--n-devices`` every rank renders and returns the same;
     only rank 0 writes (its write seconds are 0 elsewhere)."""
     args = parse_args(argv)
-    with multihost.distributed(args.device, args.dist_backend) as dev:
+    with multihost.distributed(args.device) as dev:
         return _render_frames(args, dev, quiet)
 
 

@@ -21,11 +21,9 @@ Under ``torchrun --nproc-per-node N`` (or the ``CGT_NUM_PROCESSES``,
 ``CGT_COORDINATOR``, ``CGT_PROCESS_ID`` variables) each process is a rank of
 one process group and ``--n-devices N`` splits each step's views over the
 ranks.  Each rank runs on ``cuda:LOCAL_RANK`` unless ``--device`` names a
-device, which then holds every rank.  NCCL, the default on CUDA, takes one
-card per rank and captures each step's collectives inside its CUDA graph;
-ranks that share a card need ``--dist-backend gloo`` (NCCL refuses them),
-whose collectives run eagerly between two graphs a step.  Only rank 0
-writes files.
+device.  The backend follows the device: NCCL on CUDA, one card per rank,
+with each step's collectives captured inside its CUDA graph; gloo on the
+CPU.  Only rank 0 writes files.
 """
 from __future__ import annotations
 
@@ -81,11 +79,6 @@ def parse_args(argv=None):
     p.add_argument("--n-devices", type=int, default=None,
                    help="devices (ranks of the process group, one process each) that "
                         "split each step's views; more than the processes launched raises")
-    p.add_argument("--dist-backend", default=None, choices=[None, "nccl", "gloo"],
-                   help="torch.distributed backend with more than one process (default: "
-                        "nccl on CUDA, gloo on the CPU); nccl needs one card per rank and "
-                        "captures the collectives in the CUDA graphs, gloo is for ranks "
-                        "that share a card (or the CPU)")
     p.add_argument("--synthetic", action="store_true",
                    help="train on a generated synthetic curve scene")
     p.add_argument("--synthetic-seed", type=int, default=0)
@@ -134,7 +127,7 @@ def main(argv=None):
     """Train (and evaluate) one scene; returns the TrainResult.  With more
     than one process, each is a rank (``multihost.distributed``)."""
     args = parse_args(argv)
-    with multihost.distributed(args.device, args.dist_backend) as dev:
+    with multihost.distributed(args.device) as dev:
         return _main(args, str(dev))
 
 

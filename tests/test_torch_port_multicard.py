@@ -1,7 +1,7 @@
 """More than one card, rehearsed on the CPU: four ranks of a gloo process
 group (each a process this module starts, as
-``tests/test_torch_port_multidevice.py`` starts two), and the choice
-between the two forms of a multi-rank step and render.
+``tests/test_torch_port_multidevice.py`` starts two), and the backend and
+card checks of a group on the card.
 
 (a) the four-rank ``parallel_train_step`` (float64, 4 views, one a rank,
     with exposure, mask and connectivity) against the JAX
@@ -9,18 +9,19 @@ between the two forms of a multi-rank step and render.
     virtual devices of ``tests/conftest.py`` (``backend="reference"``):
     each array within ``F64_TOL`` (1e-6 of its max), the four ranks
     bitwise equal;
-(b) the fused body of the multi-rank step (local sums, exchange, update as
-    one function: the body the card captures as one graph over NCCL) run
-    eagerly against the staged body over a chunk of K = 3 steps with
-    ``n_active`` = 2, bitwise; and the fused band render (the SUM inside
-    the band's body) bitwise equal to the staged one (the SUM between the
-    replays) and to the one-view render, at a height that leaves the last
-    of the four 32-row bands empty;
-(c) ``multihost.captures_collectives``, the predicate that picks the form:
-    gloo picks the staged form, NCCL with a card per rank the fused one,
-    and NCCL with more ranks on a host than cards raises (there, and in
-    ``initialize_distributed`` before NCCL starts).  The backend and the
-    card count are monkeypatched; nothing is captured.
+(b) the body of the multi-rank step (local sums, exchange, update as one
+    function: the body the card captures as one graph over NCCL) run
+    eagerly over a chunk of K = 3 steps with ``n_active`` = 2, bitwise
+    equal on every rank; and the band render (the SUM inside the band's
+    body, which the card captures) bitwise equal to the one-view render,
+    at a height that leaves the last of the four 32-row bands empty;
+(c) ``initialize_distributed`` takes NCCL for a CUDA device and gloo for
+    the CPU; a multi-rank step has its collectives in its body
+    (``StepGraphs.fuses``); and NCCL with more ranks on a host than cards
+    raises (in the check, in a capture of collectives before any device
+    work, and in ``initialize_distributed`` before NCCL starts).  The
+    process group and the card count are monkeypatched; nothing is
+    captured.
 
 The module imports no JAX at its top: the ranks run it as a script.
 """
@@ -62,12 +63,11 @@ RENDER_VIEWS = [1, 0]
 def _rank(rank: int, work: str) -> None:
     torch.set_num_threads(1)
     pmh.initialize_distributed(f"file://{os.path.join(work, 'rendezvous')}", RANKS, rank,
-                               backend="gloo", device="cpu")
+                               device="cpu")
     with open(os.path.join(work, "inputs.pkl"), "rb") as f:
         inp = pickle.load(f)
     mesh = pps.make_mesh(RANKS, device="cpu")
-    out = {"fuses": [ptrain.StepGraphs(pps.batch_step(RANKS)).fuses(),
-                     pmh.captures_collectives()]}
+    out = {}
     kw = dict(use_mask=True, conn_on=True, use_exposure=True)
     old = pbin.SORT_PACKED
     pbin.SORT_PACKED = False  # the exact depth order, as the JAX side's exact_sort
@@ -81,14 +81,11 @@ def _rank(rank: int, work: str) -> None:
         out["step"] = (_leaves(ts), _metrics(m))
         cams, gts = _cams(inp, torch.float32), torch.tensor(inp["gts"], dtype=torch.float32)
         rows = [mesh.block(r) for r in TABLE]
-        for form, fused in (("staged", False), ("fused", True)):
-            ts, m = pps.parallel_train_steps_scan(
-                _port_ts(inp["s0"], torch.float32), pps.camera_batch_arrays(cams), gts, 0.0,
-                OptimizationConfig(), PipelineConfig(tile_capacity=TILE_K),
-                mesh_shape=mesh.shape, cam_geom=inp["geom"], n_active=N_ACTIVE,
-                view_indices=rows, rows=rows,
-                graphs=ptrain.StepGraphs(pps.batch_step(RANKS), fused=fused), **kw)
-            out[f"chunk_{form}"] = (_leaves(ts), _metrics(m))
+        ts, m = pps.parallel_train_steps_scan(
+            _port_ts(inp["s0"], torch.float32), pps.camera_batch_arrays(cams), gts, 0.0,
+            OptimizationConfig(), PipelineConfig(tile_capacity=TILE_K), mesh_shape=mesh.shape,
+            cam_geom=inp["geom"], n_active=N_ACTIVE, view_indices=rows, rows=rows, **kw)
+        out["chunk"] = (_leaves(ts), _metrics(m))
     finally:
         pbin.SORT_PACKED = old
 
@@ -100,14 +97,8 @@ def _rank(rank: int, work: str) -> None:
         gauss = pcs.gaussians(pcs.curve_state_of(ts))
     stacks = ptrain.camera_stacks(rcams, torch.float32, "cpu")
     pipe = PipelineConfig(tile_capacity=TILE_K)
-    captures = pps.captures_collectives
-    for form, fused in (("staged", False), ("fused", True)):
-        pps.captures_collectives = lambda: fused  # the fused band's body, run eagerly here
-        try:
-            out[f"renders_{form}"] = [f.numpy() for f in pps.tile_parallel_renders(
-                gauss, stacks, (H, W, *inp["render_tan"]), pipe, 0.0, mesh.shape, RENDER_VIEWS)]
-        finally:
-            pps.captures_collectives = captures
+    out["renders"] = [f.numpy() for f in pps.tile_parallel_renders(
+        gauss, stacks, (H, W, *inp["render_tan"]), pipe, 0.0, mesh.shape, RENDER_VIEWS)]
     out["render_each"] = [pps.tile_parallel_render_gaussians(
         gauss, rcams[v], pipe, 0.0, mesh.shape).numpy() for v in RENDER_VIEWS]
     with open(os.path.join(work, f"rank{rank}.pkl"), "wb") as f:
@@ -192,68 +183,80 @@ def test_four_rank_step_matches_jax(ranks):
     assert out[0]["step"][0]["step"] == 1
 
 
-def test_fused_body_equals_staged_four_ranks(ranks):
-    """(b): the fused step body against the staged one, over a chunk of 3
-    steps with 2 active, on each rank; gloo picks the staged form."""
+def test_four_rank_chunk_equal_on_every_rank(ranks):
+    """(b): the multi-rank step's one body over a chunk of 3 steps with 2
+    active, bitwise equal on every rank."""
     out, _ = ranks
     for r in out:
-        assert r["fuses"] == [False, False]
-        _assert_equal(r["chunk_fused"], r["chunk_staged"])
-        _assert_equal(r["chunk_fused"], out[0]["chunk_fused"])
-        leaves, metrics = r["chunk_fused"]
+        _assert_equal(r["chunk"], out[0]["chunk"])
+        leaves, metrics = r["chunk"]
         assert leaves["step"] == N_ACTIVE and all(v.shape == (3,) for v in metrics.values())
 
 
-def test_fused_band_render_equals_staged(ranks):
+def test_four_rank_band_renders_equal_each_view(ranks):
+    """(b): ``tile_parallel_renders`` over four ranks equals
+    ``tile_parallel_render_gaussians`` of each view, bitwise, on every
+    rank."""
     out, _ = ranks
     for r in out:
-        assert len(r["renders_fused"]) == len(RENDER_VIEWS)
-        for f, s, e in zip(r["renders_fused"], r["renders_staged"], r["render_each"]):
-            assert f.shape == RENDER_HW and np.array_equal(f, s) and np.array_equal(f, e)
-        for a, b in zip(r["renders_fused"], out[0]["renders_fused"]):
+        assert len(r["renders"]) == len(RENDER_VIEWS)
+        for f, e in zip(r["renders"], r["render_each"]):
+            assert f.shape == RENDER_HW and np.array_equal(f, e)
+        for a, b in zip(r["renders"], out[0]["renders"]):
             assert np.array_equal(a, b)
-    img = out[0]["renders_fused"][1]
+    img = out[0]["renders"][1]
     assert img[:32].max() > 0.05 and img[32:64].max() > 0.05  # the first two bands render
 
 
 # ---------------------------------------------------------------------------
-# (c) the predicate
+# (c) the backend and the cards
 # ---------------------------------------------------------------------------
 
 
-def _group(monkeypatch, backend: str, ranks: int, cards: int, local=None):
+def _group(monkeypatch, ranks: int, cards: int, local=None):
     monkeypatch.setattr(pmh, "group_size", lambda: ranks)
-    monkeypatch.setattr(pmh.dist, "get_backend", lambda *a: backend)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: cards)
     monkeypatch.delenv("LOCAL_WORLD_SIZE", raising=False)
     if local is not None:
         monkeypatch.setenv("LOCAL_WORLD_SIZE", str(local))
 
 
-def test_gloo_picks_the_staged_form(monkeypatch):
-    _group(monkeypatch, "gloo", 4, 4)
-    assert not pmh.captures_collectives()
-    assert not ptrain.StepGraphs(pps.batch_step(4)).fuses()
+def test_backend_follows_the_device(monkeypatch):
+    """NCCL for a CUDA device (made current, the communicator formed on
+    it), gloo for the CPU."""
+    _group(monkeypatch, 4, 4)
+    monkeypatch.delenv("LOCAL_RANK", raising=False)
+    calls = []
+    monkeypatch.setattr(torch.cuda, "set_device", lambda d: calls.append(("current", d)))
+    monkeypatch.setattr(pmh.dist, "init_process_group",
+                        lambda backend, **kw: calls.append((backend, kw.get("device_id"))))
+    assert pmh.initialize_distributed("tcp://localhost:1", 4, 2, device="cuda") == 2
+    assert pmh.initialize_distributed("tcp://localhost:1", 4, 3, device="cuda:3") == 3
+    assert pmh.initialize_distributed("tcp://localhost:1", 4, 1, device="cpu") == 1
+    c2, c3 = torch.device("cuda", 2), torch.device("cuda", 3)
+    assert calls == [("current", c2), ("nccl", c2), ("current", c3), ("nccl", c3),
+                     ("gloo", None)]
 
 
 def test_nccl_with_a_card_per_rank_picks_the_fused_form(monkeypatch):
-    _group(monkeypatch, "nccl", 4, 4)
-    assert pmh.captures_collectives()
+    _group(monkeypatch, 4, 4)
+    pmh._check_nccl_cards(pmh.local_ranks())
     assert ptrain.StepGraphs(pps.batch_step(4)).fuses()
-    assert not ptrain.StepGraphs(pps.batch_step(4), fused=False).fuses()
-    assert not ptrain.StepGraphs().fuses()  # a one-device step has nothing to fuse
-    _group(monkeypatch, "nccl", 4, 2, local=2)  # two hosts of two cards
-    assert pmh.captures_collectives()
+    assert not ptrain.StepGraphs().fuses()  # a one-device step has no collectives
+    _group(monkeypatch, 4, 2, local=2)  # two hosts of two cards
+    pmh._check_nccl_cards(pmh.local_ranks())
 
 
 def test_nccl_with_more_ranks_than_cards_raises(monkeypatch):
-    _group(monkeypatch, "nccl", 4, 2)
+    _group(monkeypatch, 4, 2)
     with pytest.raises(RuntimeError, match="NCCL takes one card per rank: 4 ranks"):
-        pmh.captures_collectives()
+        pmh._check_nccl_cards(pmh.local_ranks())
     with pytest.raises(RuntimeError, match="NCCL takes one card per rank"):
-        ptrain.StepGraphs(pps.batch_step(4)).fuses()
+        # a capture of collectives checks before any device work
+        ptrain.StepGraphs(pps.batch_step(4))._capture_body(
+            torch.device("cuda", 0), None, None, None, {}, collectives=True)
     with pytest.raises(RuntimeError, match="NCCL takes one card per rank: 4 ranks"):
-        pmh.initialize_distributed("tcp://localhost:1", 4, 0, backend="nccl")
+        pmh.initialize_distributed("tcp://localhost:1", 4, 0, device="cuda")
     assert not dist.is_initialized()
 
 

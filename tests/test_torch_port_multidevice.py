@@ -14,8 +14,8 @@ one process:
 (b) against the port's own one-process B-view step: B = 2 over 2 ranks
     bitwise in float32 (a sum of two terms commutes), B = 4 within
     ``F64_TOL`` in float64, and a chunk of K = 3 steps with ``n_active`` =
-    2 both ways; the fused step body (what the card captures as one graph
-    over NCCL) bitwise equal to the staged one over that chunk;
+    2 both ways, run through the one body of a multi-rank step (local sums,
+    exchange, update: what the card captures as one graph over NCCL);
 (c) ``train_scene(n_devices=2, views_per_step=2)`` across surgery: the
     ranks' final states bitwise equal, the run equal to the one-process
     B = 2 run (view tables, curve counts after every event, logged
@@ -26,7 +26,7 @@ one process:
     ``eval_render`` and of the JAX ``eval_render(backend="reference")``,
     and ``render_curves --n-devices 2`` within 2e-5 of one process, its
     frames written by rank 0 alone; ``tile_parallel_renders`` (the body the
-    card captures per band and replays per view, the sum eager between)
+    card captures per band, the sum inside, and replays per view)
     bitwise equal to ``tile_parallel_render_gaussians`` of each view, and
     the two-rank frames' SHA-256 those of one process;
 (e) ``dryrun_multichip(2)`` passes every stage;
@@ -154,30 +154,24 @@ def _steps(inp, mesh):
         # exposure), B = 4 from per-step arrays (the JAX function's form)
         cams, gts = _cams(inp, torch.float32), torch.tensor(inp["gts"], dtype=torch.float32)
         rows = [mesh.block(r) for r in TABLE2]
-        # gloo picks the staged form; the fused body (what the card captures over NCCL)
-        # runs eagerly here with fused=True
-        for name, fused in (("chunk_B2", None), ("chunk_B2_fused", True)):
-            ts, m = pps.parallel_train_steps_scan(
-                _port_ts(inp["s0"], torch.float32), pps.camera_batch_arrays(cams), gts, 0.0,
-                OptimizationConfig(), PipelineConfig(tile_capacity=TILE_K),
-                mesh_shape=mesh.shape, cam_geom=inp["geom"], n_active=N_ACTIVE,
-                view_indices=rows, rows=rows,
-                graphs=ptrain.StepGraphs(pps.batch_step(RANKS), fused=fused), **kw)
-            out[name] = (_leaves(ts), _metrics(m))
-        # the same chunk's first two steps with device spans on, in each form
+        ts, m = pps.parallel_train_steps_scan(
+            _port_ts(inp["s0"], torch.float32), pps.camera_batch_arrays(cams), gts, 0.0,
+            OptimizationConfig(), PipelineConfig(tile_capacity=TILE_K), mesh_shape=mesh.shape,
+            cam_geom=inp["geom"], n_active=N_ACTIVE, view_indices=rows, rows=rows, **kw)
+        out["chunk_B2"] = (_leaves(ts), _metrics(m))
+        # the same chunk's first two steps with device spans on
         s0 = _port_ts(inp["s0"], torch.float32)
         live = [k for k in s0.params if k not in ptrain.dead_groups(True)]
         P = s0.max_radii.shape[0]
         out["exchange_numel"] = (sum(s0.params[k].numel() for k in live) + 3 * P + 4, P + 1)
-        for name, fused in (("spans_staged", False), ("spans_fused", True)):
-            g = ptrain.StepGraphs(pps.batch_step(RANKS), fused=fused, spans=True)
-            pps.parallel_train_steps_scan(
-                s0, pps.camera_batch_arrays(cams), gts, 0.0, OptimizationConfig(),
-                PipelineConfig(tile_capacity=TILE_K), mesh_shape=mesh.shape,
-                cam_geom=inp["geom"], view_indices=rows[:2], rows=rows[:2], graphs=g, **kw)
-            names, table = g.last_stamps
-            out[name] = dict(names=names, table=table.numpy(), ms=g.span_ms(),
-                             exchange_bytes=g.exchange_bytes)
+        g = ptrain.StepGraphs(pps.batch_step(RANKS), spans=True)
+        pps.parallel_train_steps_scan(
+            s0, pps.camera_batch_arrays(cams), gts, 0.0, OptimizationConfig(),
+            PipelineConfig(tile_capacity=TILE_K), mesh_shape=mesh.shape,
+            cam_geom=inp["geom"], view_indices=rows[:2], rows=rows[:2], graphs=g, **kw)
+        names, table = g.last_stamps
+        out["spans"] = dict(names=names, table=table.numpy(), ms=g.span_ms(),
+                            exchange_bytes=g.exchange_bytes)
         cams, gts = _cams(inp, torch.float64), torch.tensor(inp["gts"], dtype=torch.float64)
         vi = torch.tensor([mesh.block(r) for r in TABLE4])
         ts, m = pps.parallel_train_steps_scan(
@@ -235,7 +229,7 @@ def _rank(rank: int, work: str) -> None:
     torch.set_num_threads(1)
     writes = _Writes(work)
     pmh.initialize_distributed(f"file://{os.path.join(work, 'rendezvous')}", RANKS, rank,
-                               backend="gloo", device="cpu")
+                               device="cpu")
     with open(os.path.join(work, "inputs.pkl"), "rb") as f:
         inp = pickle.load(f)
     mesh = pps.make_mesh(RANKS, device="cpu")
@@ -470,7 +464,9 @@ def test_two_rank_step_matches_jax(ranks):
 @pytest.mark.parametrize("case", ["step_B2", "step_B4", "chunk_B2", "chunk_B4"])
 def test_two_ranks_match_one_process(ranks, case):
     """(b): B = 2 in float32 bitwise, B = 4 in float64 within F64_TOL; the
-    two ranks bitwise equal either way."""
+    two ranks bitwise equal either way.  The chunks run the one body of the
+    multi-rank step (local sums, exchange, update), which the card
+    captures as one graph."""
     from test_torch_port_step import F64_TOL
 
     out, ref, _ = ranks
@@ -484,17 +480,7 @@ def test_two_ranks_match_one_process(ranks, case):
         assert leaves["step"] == N_ACTIVE and all(v.shape == (3,) for v in metrics.values())
 
 
-def test_fused_body_equals_staged(ranks):
-    """(b): the fused step body (local sums, exchange and update as one
-    function) against the staged one over the chunk of K = 3 steps with
-    n_active = 2, bitwise on both ranks."""
-    out, _, _ = ranks
-    for r in out:
-        _assert_equal(r["chunk_B2_fused"], r["chunk_B2"])
-
-
-@pytest.mark.parametrize("form", ["staged", "fused"])
-def test_exchange_span_two_ranks(ranks, form):
+def test_exchange_span_two_ranks(ranks):
     """(b): a two-rank step with device spans on (one view a rank): each
     view's marks, then the stamp before the SUM closes ``adam``, the one
     after the MAX closes ``exchange``, and the update's end ``adam`` again;
@@ -504,7 +490,7 @@ def test_exchange_span_two_ranks(ranks, form):
 
     out, _, _ = ranks
     for r in out:
-        got = r[f"spans_{form}"]
+        got = r["spans"]
         assert got["names"] == VIEW_MARKS + ("adam", spans.EXCHANGE, "adam")
         t = got["table"][:, : len(got["names"]) + 1]
         d = t[:, 1:] - t[:, :-1]

@@ -221,7 +221,7 @@ def test_spans_graph_on_card():
     _chunk(graphs, device="cuda")
     assert len(graphs.captures) == 2 and [c["spans"] for c in graphs.captures] == [False, True]
     _assert_tiled(graphs, 5, STEP_MARKS)
-    by = {g.record["spans"]: g.graphs[0] for g in graphs._graphs.values()}
+    by = {g.record["spans"]: g.graph for g in graphs._graphs.values()}
     nodes = {k: graph_nodes(g) for k, g in by.items()}
     names = {k: kernel_names(g) for k, g in by.items()}
     stamps = len(STEP_MARKS) + 1
